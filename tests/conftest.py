@@ -56,6 +56,9 @@ def pytest_configure(config):
         "markers", "slow: long-running integration test (engine golden, "
         "checkpoint resume)")
     config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of devo_tpu_torch on the GPU; "
+        "skips where torch sees no CUDA device")
+    config.addinivalue_line(
         "markers", "fullmatrix: exhaustive-variant leg of a test matrix; "
         "skipped by default (VERDICT r03: the interpret-mode banded engine "
         "matrix took the suite to 68 min). Run with DEVO_FULL_SUITE=1; the "
