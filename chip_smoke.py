@@ -4,25 +4,39 @@
 
 1. Prints the card (`nvidia-smi` name and power limit) and the torch / CUDA
    versions.
-2. Builds the correlation kernel (csrc/corr.cu, nvcc for sm_90a) into
+2. Builds the correlation kernels (csrc/*.cu, one nvcc call for sm_90a) into
    devo_tpu_torch/_build/ and prints ptxas's register report.
-3. Kernel phase: the kernel against its plain PyTorch version on the card,
+3. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the tracking step's shapes (E = 12288 edges, E = 96 for the motion
-   probe, a ragged E; C = 128, mem = 32, rings of 120x160 and 30x40 in bf16,
-   coordinates partly off the image), with max error against the stated
-   tolerance and the median time of each.
+   probe, a ragged E; C = 128, mem = 32, rings of 120x160 and 30x40,
+   coordinates partly off the image): the two-level kernel on bf16 and on
+   int8 rings, the per-level kernel on both levels and both ring types, the
+   resident level-4 kernel on int8 rings; the per-level kernels stacked
+   against the two-level kernel. Max error against the stated tolerance, the
+   median time of each, and the kernel's bound: the least time the card
+   could take, the larger of the bytes it must move (the ring positions its
+   taps touch, the distinct patch features, coordinates, indices, scales and
+   the output, each once) over 3.35 TB/s and its operations over 989
+   TFLOP/s.
 4. Reference phase: the port's DEVO on the card against the same engine on
    the CPU (plain correlation; the CPU tests hold that path against the JAX
-   package) at a small f32 size: the same keyframes, culls and edge sets
-   per frame, and poses and terminate() output within atol 5e-2.
-5. Slice phase: the port's DEVO at full width (VOConfig() defaults:
-   480x640, 96 patches, mixed precision) with seeded random weights over 48
-   timed frames of a sliding event texture, 8 more frames under
-   torch.profiler (where the time goes, by engine phase), then 12 update()
-   calls and terminate(). Checks a finite trajectory with one pose per
-   frame, at least one keyframe cull, kernel launches > 0 and no
-   plain-correlation call; then holds the kernel against the plain version
-   once more on the engine's own final edges and rings.
+   package) at a small f32 size, for unquantised rings and for the three
+   int8 configurations: the same keyframes, culls and edge sets per frame,
+   and poses and terminate() output within the stated tolerance.
+5. Slice phase: the port's DEVO at full width (480x640, 96 patches, mixed
+   precision) with seeded random weights over frames of a sliding event
+   texture, then 12 update() calls and terminate(), on three paths of 48
+   timed frames each, so that their frame rates compare: the bf16 path (the
+   two-level kernel on bf16 rings), the default path (int8 rings, the
+   two-level kernel) and last the quantised split path (int8 rings, one
+   launch per level, level 4 from the resident ring), which then runs 8
+   more frames under torch.profiler (where the time goes, by engine
+   phase). The launch counts are set to 0 just
+   before each path and read just after it. Each path must end with a
+   finite trajectory with one pose per frame, at least one keyframe cull,
+   launches > 0 of the kernels it names and no plain-correlation call; then
+   its kernels are held against the plain versions once more on the
+   engine's own final edges and rings.
 6. Prints the kernels' JSON record, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
@@ -40,11 +54,41 @@ import numpy as np
 import torch
 
 HT, WD = 480, 640
-N_FRAMES = 48                      # timed frames
+N_FRAMES = 48                      # timed frames of every path
 N_PROFILED = 8                     # then frames under torch.profiler
 N_UPDATES = 12
-TOL = dict(atol=1e-3, rtol=1e-4)   # f32 sums of the same bf16 products,
-                                   # in another order
+SKIP = 16                          # frames/s leave out initialization and
+                                   # the first culls
+TOL = dict(atol=1e-3, rtol=1e-4)   # f32 sums of the same products, in
+                                   # another order
+PEAK_BYTES_S = 3.35e12             # H100 SXM device memory
+PEAK_FLOP_S = 989e12               # H100 SXM dense bf16
+E_MAIN = 12288
+
+# name -> (source, TPU kernel replaced, kernel function in a profile)
+KERNELS = {
+    "corr_pyramid": ("devo_tpu_torch/csrc/corr.cu",
+                     "devo_tpu/ops/corr_pallas.py:1553", "corr_pyramid_kernel"),
+    "corr_level": ("devo_tpu_torch/csrc/corr_level.cu",
+                   "devo_tpu/ops/corr_pallas.py:356", "corr_level_kernel"),
+    "corr_level_resident": ("devo_tpu_torch/csrc/corr_level_resident.cu",
+                            "devo_tpu/ops/corr_pallas.py:1042",
+                            "corr_level_resident_kernel"),
+}
+# the three paths of the slice phase: VOConfig overrides and the kernels
+# each must launch. The profiled path runs last, so that no path is timed
+# in a process that torch.profiler has already traced (its tracing may stay
+# attached and cost the host time at every later launch).
+PATHS = {
+    "bf16-mono": (dict(CORR_RING_I8=False, CORR_KERNEL="mono",
+                       CORR_L4_RESIDENT="off"), ("corr_pyramid",)),
+    "i8-mono": (dict(CORR_RING_I8=True, CORR_KERNEL="mono",
+                     CORR_L4_RESIDENT="off"), ("corr_pyramid",)),
+    "i8-split-resident": (dict(CORR_RING_I8=True, CORR_KERNEL="split",
+                               CORR_L4_RESIDENT="auto"),
+                          ("corr_level", "corr_level_resident")),
+}
+PROFILED = "i8-split-resident"
 
 
 def card() -> str:
@@ -72,74 +116,164 @@ def median_ms(fn, launches: int = 10, repeats: int = 5) -> float:
 
 
 def corr_case(E: int, dev, seed: int):
-    """Random bf16 rings and patch-grid coordinates at the step's shapes;
-    patch centers reach 8 px past the level-1 image on every side."""
+    """Random rings and patch-grid coordinates at the step's shapes; patch
+    centers reach 8 px past the level-1 image on every side. Returns (gmap,
+    bf16 pyramid, int8 pyramid, scales, coords, kk, jj)."""
+    from devo_tpu_torch.ops.corr import quantize_frame
     from devo_tpu_torch.runtime.config import VOConfig
     cfg = VOConfig()
     g = torch.Generator(device=dev).manual_seed(seed)
     h1, w1, C, mem, M = HT // 4, WD // 4, cfg.DIM_FNET, cfg.MEM, cfg.M
     bf = torch.bfloat16
     gmap = torch.randn((mem * M, 3, 3, C), generator=g, device=dev).to(bf)
-    fmap1 = torch.randn((mem, h1, w1, C), generator=g, device=dev).to(bf)
-    fmap2 = torch.randn((mem, h1 // 4, w1 // 4, C), generator=g, device=dev).to(bf)
+    fmap1 = torch.randn((mem, h1, w1, C), generator=g, device=dev)
+    fmap2 = torch.randn((mem, h1 // 4, w1 // 4, C), generator=g, device=dev)
     cx = torch.rand((E, 1, 1), generator=g, device=dev) * (w1 + 16) - 8
     cy = torch.rand((E, 1, 1), generator=g, device=dev) * (h1 + 16) - 8
     off = torch.arange(-1.0, 2.0, device=dev)
     coords = torch.stack([(cx + off[None, None, :]).expand(E, 3, 3),
                           (cy + off[None, :, None]).expand(E, 3, 3)], -1)
     coords = coords + 0.3 * torch.randn(coords.shape, generator=g, device=dev)
+    # some coordinates on the integer grid, also after the division by 4
+    coords[::11] = torch.round(coords[::11] / 4) * 4
     kk = torch.randint(0, mem * M, (E,), generator=g, device=dev, dtype=torch.int32)
     jj = torch.randint(0, mem, (E,), generator=g, device=dev, dtype=torch.int32)
-    return gmap, (fmap1, fmap2), coords.contiguous(), kk, jj
+    (q1, s1), (q2, s2) = quantize_frame(fmap1), quantize_frame(fmap2)
+    return (gmap, (fmap1.to(bf), fmap2.to(bf)), (q1, q2), (s1, s2),
+            coords.contiguous(), kk, jj)
 
 
-def compare(label: str, args, time_it: bool, gpu: str):
-    from devo_tpu_torch.ops import corr as corr_plain
-    from devo_tpu_torch.ops import corr_cuda
-    gmap, pyr, coords, kk, jj = args
-    got = corr_cuda.corr_pyramid(gmap, pyr, coords, kk, jj)
-    want = corr_plain.corr_pyramid(gmap, pyr, coords, kk, jj)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    torch.testing.assert_close(got, want, **TOL)
-    ms = plain_ms = None
-    if time_it:
-        ms = median_ms(lambda: corr_cuda.corr_pyramid(gmap, pyr, coords, kk, jj))
-        plain_ms = median_ms(
-            lambda: corr_plain.corr_pyramid(gmap, pyr, coords, kk, jj),
-            launches=2, repeats=3)
-    timing = (f"; median kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              if time_it else "")
-    print(f"corr {label} E={coords.shape[0]}: max_abs_err {err:.3e} within "
-          f"atol {TOL['atol']} + rtol {TOL['rtol']}{timing} [{gpu}]",
-          flush=True)
-    return err, ms, plain_ms
+def level_work(fmap, coords, jj):
+    """What one level of the correlation needs of its ring on these inputs:
+    (bytes of the distinct ring positions its taps touch, in-bounds taps)."""
+    mem, h, w, C = fmap.shape
+    E = coords.shape[0]
+    d = torch.arange(-3, 5, device=coords.device)
+    x0 = torch.floor(coords[..., 0]).reshape(E, -1, 1).clamp(-1e6, 1e6).long()
+    y0 = torch.floor(coords[..., 1]).reshape(E, -1, 1).clamp(-1e6, 1e6).long()
+    ix = (x0 + d)[:, :, None, :]                     # (E, PP, 1, 8)
+    iy = (y0 + d)[:, :, :, None]                     # (E, PP, 8, 1)
+    inb = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    lin = (jj.long()[:, None, None, None] * (h * w)
+           + iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1))
+    touched = torch.zeros(mem * h * w, dtype=torch.bool, device=coords.device)
+    touched[lin[inb]] = True
+    return int(touched.sum()) * C * fmap.element_size(), int(inb.sum())
+
+
+def bound_ms(gmap, rings, strides, scales, coords, kk, jj):
+    """The least time the card could take for the correlation of these
+    inputs over `rings` (one per level, coords divided by its stride): the
+    larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s. Returns
+    (ms, "bytes" or "operations")."""
+    E, P = coords.shape[0], coords.shape[1]
+    C = gmap.shape[-1]
+    n_out = E * 49 * P * P * len(rings)
+    nbytes = (int(torch.unique(kk).numel()) * P * P * C * gmap.element_size()
+              + coords.numel() * 4 + kk.numel() * 4 + jj.numel() * 4
+              + n_out * 4)
+    flops = 8 * n_out                                # the bilinear blend
+    for ring, stride, scale in zip(rings, strides, scales):
+        ring_bytes, taps = level_work(ring, coords / stride, jj)
+        nbytes += ring_bytes + (scale.numel() * 4 if scale is not None else 0)
+        flops += 2 * C * taps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def variants(case):
+    """Every (kernel name, label, kernel call, plain call, bound arguments)
+    measured on one case."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = case
+    c4 = coords / 4
+    out = []
+    for label, pyr, scales in (("bf16", bf, None), ("i8", i8, sc)):
+        ss = scales or (None, None)
+        out.append(("corr_pyramid", f"both levels {label}",
+                    lambda pyr=pyr, scales=scales: cc.corr_pyramid_cuda(
+                        gmap, pyr[0], pyr[1], coords, kk, jj, scales=scales),
+                    lambda pyr=pyr, scales=scales: plain.corr_pyramid(
+                        gmap, pyr, coords, kk, jj, scales=scales),
+                    (pyr, (1, 4), ss)))
+        for n, (lvl, c) in enumerate(((1, coords), (4, c4))):
+            out.append(("corr_level", f"level {lvl} {label}",
+                        lambda r=pyr[n], c=c, s=ss[n]: cc.corr_level_cuda(
+                            gmap, r, c, kk, jj, s),
+                        lambda r=pyr[n], c=c, s=ss[n]: plain.corr_level(
+                            gmap, r, c, kk, jj, s),
+                        ((pyr[n],), (lvl,), (ss[n],))))
+    out.append(("corr_level_resident", "level 4 i8",
+                lambda: cc.corr_level_resident_cuda(gmap, i8[1], c4, kk, jj, sc[1]),
+                lambda: plain.corr_level(gmap, i8[1], c4, kk, jj, sc[1]),
+                ((i8[1],), (4,), (sc[1],))))
+    return out
+
+
+# the variant whose numbers stand for a kernel in the JSON record: the one
+# the default (int8) configurations run at the step's edge count
+REPORTED = {"corr_pyramid": "both levels i8", "corr_level": "level 1 i8",
+            "corr_level_resident": "level 4 i8"}
 
 
 def kernel_phase(dev, gpu: str):
-    errs, ms, plain_ms = [], None, None
-    for E, seed in ((12288, 0), (96, 1), (5003, 2)):
-        err, t, pt = compare("random", corr_case(E, dev, seed), True, gpu)
-        errs.append(err)
-        if E == 12288:
-            ms, plain_ms = t, pt
-    return max(errs), ms, plain_ms
+    """Returns {kernel name: dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, variants)}."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    record = {name: dict(max_abs_err=0.0, variants=[]) for name in KERNELS}
+    for E, seed in ((E_MAIN, 0), (96, 1), (5003, 2)):
+        case = corr_case(E, dev, seed)
+        gmap, bf, i8, sc, coords, kk, jj = case
+        for name, label, kernel, plain, (rings, strides, scales) in variants(case):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, **TOL)
+            ms = median_ms(kernel)
+            plain_ms = median_ms(plain, launches=2, repeats=3)
+            b_ms, b_by = bound_ms(gmap, rings, strides, scales, coords, kk, jj)
+            print(f"{name} [{label}] E={E}: max_abs_err {err:.3e} within atol "
+                  f"{TOL['atol']} + rtol {TOL['rtol']}; median kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}) [{gpu}]", flush=True)
+            rec = record[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["variants"].append(dict(label=label, E=E, max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by))
+            if E == E_MAIN and label == REPORTED[name]:
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        # the per-level kernels stacked against the two-level kernel: both
+        # must floor the same coordinates
+        for label, pyr, scales, resident in (("bf16", bf, None, False),
+                                             ("i8", i8, sc, False),
+                                             ("i8 resident", i8, sc, True)):
+            mono = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales)
+            split = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
+                                    kernel="split", resident=resident)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(split, mono, **TOL)
+            print(f"split vs mono [{label}] E={E}: max abs diff "
+                  f"{(split - mono).abs().max().item():.3e} [{gpu}]", flush=True)
+    return record
 
 
-def frames():
+def frames(n: int):
     """bench.py's synthetic stream: a sliding 5-bin event texture."""
     rng = np.random.default_rng(0)
     base = rng.standard_normal((HT, WD * 2, 5)).astype(np.float32)
     base *= rng.random((HT, WD * 2, 5)) < 0.1
-    for i in range(N_FRAMES + N_PROFILED):
+    for i in range(n):
         sh = (3 * i) % WD
         yield base[:, sh:sh + WD]
 
 
 def profile_frames(slam, stream, intr, gpu: str):
     """Run frames under torch.profiler and print where the time goes: the
-    device's busy share, the kernel's share of device time, kernel launches,
-    and host and device time of each engine phase (the devo.* spans)."""
+    device's busy share, each correlation kernel's share of device time,
+    kernel launches, and host and device time of each engine phase (the
+    devo.* spans)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n = len(stream)
@@ -157,8 +291,10 @@ def profile_frames(slam, stream, intr, gpu: str):
     device = [e for e in ka if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation]
     dev_ms = sum(e.self_device_time_total for e in device) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in device
-                if "corr_pyramid_kernel" in e.key) / 1e3
+    corr_ms = {name: sum(e.self_device_time_total for e in device
+                         if fn + "<" in e.key or e.key.endswith(fn)) / 1e3
+               for name, (_, _, fn) in KERNELS.items()}
+
     def count(*names):
         return sum(e.count for e in ka if e.key in names)
 
@@ -168,11 +304,12 @@ def profile_frames(slam, stream, intr, gpu: str):
     n_sync = count("cudaStreamSynchronize", "cudaDeviceSynchronize",
                    "cudaEventSynchronize")
     n_copy = count("cudaMemcpyAsync", "cudaMemcpy")
+    shares = ", ".join(f"{name} {ms / n:.3f} ms/frame "
+                       f"({ms / max(dev_ms, 1e-9):.3f} of device time)"
+                       for name, ms in corr_ms.items() if ms > 0)
     print(f"profile: {n} frames under torch.profiler, {wall_ms / n:.2f} ms/frame "
           f"wall; device busy {dev_ms / n:.2f} ms/frame ({dev_ms / wall_ms:.3f} "
-          f"of wall); corr kernel {k1_ms / n:.3f} ms/frame "
-          f"({k1_ms / max(dev_ms, 1e-9):.3f} "
-          f"of device time); per frame {n_launch / n:.0f} kernel launches, "
+          f"of wall); {shares}; per frame {n_launch / n:.0f} kernel launches, "
           f"{n_sync / n:.1f} host syncs, {n_copy / n:.1f} memcpy calls [{gpu}]",
           flush=True)
     for e in sorted((e for e in ka if e.key.startswith("devo.")
@@ -180,14 +317,27 @@ def profile_frames(slam, stream, intr, gpu: str):
         print(f"  {e.key}: {e.count / n:.2f} calls/frame, host "
               f"{e.cpu_time_total / 1e3 / n:.2f} ms/frame, device "
               f"{e.device_time_total / 1e3 / n:.2f} ms/frame", flush=True)
+    if not sum(corr_ms.values()) > 0:
+        raise RuntimeError("the profile shows no correlation kernel")
 
 
 REF_HT, REF_WD, REF_FRAMES = 64, 64, 18
-REF_TOL = 5e-2      # pose atol: float noise compounds over the 12-update
-                    # initialization and the per-frame BA
+# the configurations of the reference phase: unquantised rings, and the three
+# int8 configurations
+REFERENCE = {
+    "f32 rings": dict(CORR_RING_I8=False),
+    "i8-mono": PATHS["i8-mono"][0],
+    "i8-split": dict(CORR_RING_I8=True, CORR_KERNEL="split",
+                     CORR_L4_RESIDENT="off"),
+    "i8-split-resident": PATHS["i8-split-resident"][0],
+}
+# pose atol: float noise compounds over the 12-update initialization and the
+# per-frame BA; with int8 rings a feature that rounds the other way on the
+# card moves a tap by one step of the ring's scale
+REF_TOL = {False: 5e-2, True: 0.1}
 
 
-def reference_phase(dev, gpu: str):
+def reference_phase(dev, gpu: str, label: str, knobs: dict):
     """The port on the card against the port on the CPU (plain correlation,
     CPU convolutions and sums), which the repo's CPU tests hold against the
     JAX package: a small f32 configuration with deterministic top-k patch
@@ -203,7 +353,9 @@ def reference_phase(dev, gpu: str):
     cfg = VOConfig(BUFFER_SIZE=32, HT=REF_HT, WD=REF_WD, PATCHES_PER_FRAME=4,
                    PATCH_LIFETIME=5, REMOVAL_WINDOW=9, OPTIMIZATION_WINDOW=4,
                    MOTION_PROBE_THRESH=-1.0, MEM=16, DIM_INET=32, DIM_FNET=16,
-                   DIM=8, MIXED_PRECISION=False, SCORER_EVAL_MODE="topk")
+                   DIM=8, MIXED_PRECISION=False, SCORER_EVAL_MODE="topk",
+                   **knobs)
+    tol = REF_TOL[cfg.CORR_RING_I8]
     weights = random_state_dict(
         EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=1)
     rng = np.random.default_rng(1)
@@ -214,7 +366,7 @@ def reference_phase(dev, gpu: str):
 
     engines = {d.type: DEVO(cfg, weights, ht=REF_HT, wd=REF_WD, device=d)
                for d in (torch.device("cpu"), dev)}
-    before = corr_cuda.launches
+    corr_cuda.reset_launches()
     culls = 0
     for i in range(REF_FRAMES):
         vox = base[:, 3 * i:3 * i + REF_WD]
@@ -224,15 +376,15 @@ def reference_phase(dev, gpu: str):
         ref, got = engines["cpu"], engines[dev.type]
         if (got.n != ref.n or got.aux_log[-1][1].kf_removed
                 != ref.aux_log[-1][1].kf_removed):
-            raise RuntimeError(f"reference frame {i}: n {got.n} vs {ref.n}, "
-                               f"cull {got.aux_log[-1][1].kf_removed} vs "
-                               f"{ref.aux_log[-1][1].kf_removed}")
+            raise RuntimeError(f"reference {label} frame {i}: n {got.n} vs "
+                               f"{ref.n}, cull {got.aux_log[-1][1].kf_removed} "
+                               f"vs {ref.aux_log[-1][1].kf_removed}")
         edges = [set(zip(s.kk.tolist(), s.jj.tolist())) for s in (got, ref)]
         if edges[0] != edges[1]:
-            raise RuntimeError(f"reference frame {i}: edge tables differ")
+            raise RuntimeError(f"reference {label} frame {i}: edge tables differ")
         err = (got.poses[:got.n].cpu() - ref.poses[:ref.n]).abs().max().item()
-        if not err <= REF_TOL:
-            raise RuntimeError(f"reference frame {i}: poses differ by {err}")
+        if not err <= tol:
+            raise RuntimeError(f"reference {label} frame {i}: poses differ by {err}")
         culls += ref.aux_log[-1][1].kf_removed
     for slam in engines.values():
         for _ in range(N_UPDATES):
@@ -240,19 +392,25 @@ def reference_phase(dev, gpu: str):
     (p_got, t_got), (p_ref, t_ref) = (engines[dev.type].terminate(),
                                       engines["cpu"].terminate())
     err = float(np.abs(p_got - p_ref).max())
-    print(f"reference: port on {dev.type} vs port on cpu, {REF_HT}x{REF_WD}, "
-          f"{REF_FRAMES} frames + {N_UPDATES} updates: same keyframes, culls "
-          f"({culls}) and edge sets; terminate() poses max abs diff {err:.3e} "
-          f"(atol {REF_TOL}); corr kernel launches "
-          f"{corr_cuda.launches - before} [{gpu}]", flush=True)
-    if not (err <= REF_TOL and np.array_equal(t_got, t_ref)
+    print(f"reference [{label}]: port on {dev.type} vs port on cpu, "
+          f"{REF_HT}x{REF_WD}, {REF_FRAMES} frames + {N_UPDATES} updates: same "
+          f"keyframes, culls ({culls}) and edge sets; terminate() poses max abs "
+          f"diff {err:.3e} (atol {tol}); kernel launches "
+          f"{corr_cuda.launches}; resident level 4: "
+          f"{engines[dev.type].l4_resident} [{gpu}]", flush=True)
+    if not (err <= tol and np.array_equal(t_got, t_ref)
             and np.isfinite(p_got).all()):
-        raise RuntimeError("reference: terminate() outputs differ")
+        raise RuntimeError(f"reference {label}: terminate() outputs differ")
     if culls < 1:
-        raise RuntimeError("reference: no keyframe cull happened")
+        raise RuntimeError(f"reference {label}: no keyframe cull happened")
+    if not any(corr_cuda.launches.values()):
+        raise RuntimeError(f"reference {label}: no kernel was launched")
 
 
-def slice_phase(dev, gpu: str):
+def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
+    """One path of PATHS at full width. Returns (launches of each kernel on
+    the path, max error of its kernels on the engine's final state)."""
+    from devo_tpu_torch.geom import edgewise
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
@@ -260,65 +418,80 @@ def slice_phase(dev, gpu: str):
     from devo_tpu_torch.runtime.engine import DEVO
     from devo_tpu_torch.utils.params import random_state_dict
 
+    knobs, named = PATHS[label]
     # random weights reject every frame at the motion probe (a learned
     # behavior, devo.py:531-534); bench.py disables it the same way
-    cfg = VOConfig(MOTION_PROBE_THRESH=-1.0)
+    cfg = VOConfig(MOTION_PROBE_THRESH=-1.0, **knobs)
     weights = random_state_dict(
         EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=0)
     slam = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
     intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
-    stream = list(frames())
+    stream = list(frames(n_frames + n_profiled))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    corr_cuda.launches = 0
+    corr_cuda.reset_launches()
     corr_plain.calls = 0
     frame_s = []
-    for i, vox in enumerate(stream[:N_FRAMES]):
+    for i, vox in enumerate(stream[:n_frames]):
+        if i == SKIP:
+            at_skip = dict(corr_cuda.launches)
         t0 = time.perf_counter()
         slam(i / 30.0, vox, intr)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
-    profile_frames(slam, stream[N_FRAMES:], intr, gpu)
+    per_frame = {k: (v - at_skip[k]) / (n_frames - SKIP)
+                 for k, v in corr_cuda.launches.items() if v}
+    if n_profiled:
+        profile_frames(slam, stream[n_frames:], intr, gpu)
     t0 = time.perf_counter()
     for _ in range(N_UPDATES):
         slam.update()
     poses, tss = slam.terminate()
     torch.cuda.synchronize()
     t_end = time.perf_counter() - t0
-    launches, plain_calls = corr_cuda.launches, corr_plain.calls
+    launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
 
     n_all = len(stream)
     culls = sum(bool(aux.kf_removed) for _, aux in slam.aux_log)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    skip = N_FRAMES // 3        # initialization and the first culls
-    tail = frame_s[skip:]
-    print(f"slice: {HT}x{WD}, frames/s over frames {skip}-{N_FRAMES - 1}: "
-          f"{len(tail) / sum(tail):.2f} (median frame {1e3 * np.median(tail):.2f} "
-          f"ms; first frame {1e3 * frame_s[0]:.1f} ms, init frame "
-          f"{1e3 * max(frame_s[:skip]):.1f} ms); {N_UPDATES} updates + "
-          f"terminate {1e3 * t_end:.1f} ms; after {n_all} frames: live edges "
-          f"{slam.n_edges}, keyframes {slam.n}, culls {culls}; peak memory "
-          f"{peak_gib:.2f} GiB; corr kernel launches {launches}, plain corr "
-          f"calls {plain_calls} [{gpu}]", flush=True)
+    tail = frame_s[SKIP:]
+    print(f"slice [{label}]: {HT}x{WD}, rings {slam.fmap1.dtype}, resident "
+          f"level 4 {slam.l4_resident}; frames {SKIP}-{n_frames - 1}: "
+          f"{len(tail) / sum(tail):.2f} frames/s (median frame "
+          f"{1e3 * np.median(tail):.2f} ms), kernel launches per frame "
+          f"{per_frame}; first frame "
+          f"{1e3 * frame_s[0]:.1f} ms, init frame {1e3 * max(frame_s[:SKIP]):.1f} "
+          f"ms; {N_UPDATES} updates + terminate {1e3 * t_end:.1f} ms; after "
+          f"{n_all} frames: live edges {slam.n_edges}, keyframes {slam.n}, "
+          f"culls {culls}; peak memory {peak_gib:.3f} GiB; kernel launches "
+          f"{launches}, plain corr calls {plain_calls} [{gpu}]", flush=True)
     if poses.shape != (n_all, 7) or tss.shape != (n_all,):
-        raise RuntimeError(f"trajectory shape {poses.shape}, {tss.shape}")
+        raise RuntimeError(f"{label}: trajectory shape {poses.shape}, {tss.shape}")
     if not np.isfinite(poses).all():
-        raise RuntimeError("trajectory is not finite")
+        raise RuntimeError(f"{label}: trajectory is not finite")
     if culls < 1:
-        raise RuntimeError("no keyframe cull happened")
-    if launches < 1 or plain_calls != 0:
-        raise RuntimeError(f"the step did not run on the kernel alone: "
-                           f"{launches} launches, {plain_calls} plain calls")
+        raise RuntimeError(f"{label}: no keyframe cull happened")
+    unnamed = [k for k in launches if k not in named and launches[k]]
+    if any(launches[k] < 1 for k in named) or unnamed or plain_calls != 0:
+        raise RuntimeError(f"{label}: the step did not run on its kernels "
+                           f"{named} alone: {launches}, {plain_calls} plain calls")
 
-    # the kernel once more, on the engine's own edges and rings
-    from devo_tpu_torch.geom import edgewise
+    # the path's kernels once more, on the engine's own edges and rings
     geo = edgewise.reproject(slam.poses, slam.patches, slam.intrinsics,
                              slam.ii, slam.jj, slam.kk)
     args = (slam.gmap, (slam.fmap1, slam.fmap2),
             edgewise.coords_to_corr_format(geo, cfg.P),
             (slam.kk % (cfg.M * cfg.MEM)).int(), (slam.jj % cfg.MEM).int())
-    err, _, _ = compare("engine-state", args, False, gpu)
+    scales = (slam.fsc1, slam.fsc2) if cfg.CORR_RING_I8 else None
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=cfg.CORR_KERNEL,
+                                 resident=slam.l4_resident)
+    want = corr_plain.corr_pyramid(*args, scales=scales)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **TOL)
+    print(f"engine state [{label}] E={slam.n_edges}: max_abs_err {err:.3e} "
+          f"within atol {TOL['atol']} + rtol {TOL['rtol']} [{gpu}]", flush=True)
     return launches, err
 
 
@@ -338,19 +511,40 @@ def main():
     from devo_tpu_torch.ops import corr_cuda
     t0 = time.perf_counter()
     lib = corr_cuda.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"built {lib.name} from {[s.name for s in corr_cuda.sources()]} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
-    err_k, ms, plain_ms = kernel_phase(dev, gpu)
-    reference_phase(dev, gpu)
-    launches, err_e = slice_phase(dev, gpu)
+    record = kernel_phase(dev, gpu)
+    for label, knobs in REFERENCE.items():
+        reference_phase(dev, gpu, label, knobs)
 
-    print(json.dumps({"kernels": [{
-        "name": "corr_pyramid", "route": "cuda",
-        "source": "devo_tpu_torch/csrc/corr.cu",
-        "replaces": "devo_tpu/ops/corr_pallas.py:1553",
-        "launches": launches, "max_abs_err": max(err_k, err_e),
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    by_path = {}
+    for label, (_, named) in PATHS.items():
+        profiled = label == PROFILED
+        launches, err = slice_phase(dev, gpu, label, N_FRAMES,
+                                    N_PROFILED if profiled else 0)
+        by_path[label] = launches
+        for name in named:
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+
+    kernels = []
+    for name, (source, replaces, _) in KERNELS.items():
+        rec = record[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(path[name] for path in by_path.values()),
+            "launches_by_path": {label: path[name]
+                                 for label, path in by_path.items()},
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "reported_variant": f"{REPORTED[name]}, E={E_MAIN}",
+            "variants": rec["variants"]})
+        if kernels[-1]["launches"] < 1:
+            raise RuntimeError(f"{name} was launched on no path")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

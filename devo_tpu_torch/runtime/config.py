@@ -3,8 +3,16 @@
 The port's own copy of devo_tpu/runtime/config.py (the JAX one cannot be
 imported without jax): the reference knobs of the yacs node
 (upstream DEVO's devo/config.py) plus the static sizes the engine keeps
-(ring depth, edge bound, precision switches). The knobs that chose between
-TPU kernels, ring layouts and wire formats are gone.
+(ring depth, edge bound, precision switches).
+
+Three of the JAX package's correlation knobs are kept, with its names and
+defaults, because they choose what the correlation computes or which of the
+port's kernels computes it: CORR_RING_I8 (int8 feature rings with one
+dequantisation scale per ring slot), CORR_KERNEL ("mono": both levels in
+one launch, "split": one launch per level) and CORR_L4_RESIDENT (level 4
+read from a ring slot held in shared memory). The rest stay out: CORR_IMPL,
+CORR_WIN_L1, VOXEL_WIRE and the encoder-layout switches choose TPU
+schedules, window budgets and transports, not functions.
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ class VOConfig:
     MOTION_DAMPING: float = 0.5
     MOTION_PROBE_THRESH: float = 2.0     # devo.py:532 (2.0 at scale 1)
     MIXED_PRECISION: bool = True         # bf16 autocast for the networks and
-                                         # bf16 feature rings
+                                         # bf16 patch features (and rings,
+                                         # unless CORR_RING_I8)
 
     # network shape
     PATCH_SIZE: int = 3
@@ -57,6 +66,28 @@ class VOConfig:
     ENET_BF16: bool = True               # store the recurrent per-edge hidden
                                          #   state in bf16 (the update
                                          #   operator LayerNorms it first)
+
+    # what the correlation computes, and with which kernel
+    CORR_KERNEL: str = "mono"            # "mono": both pyramid levels in one
+                                         #   launch (csrc/corr.cu);
+                                         # "split": one launch per level
+                                         #   (csrc/corr_level.cu)
+    CORR_L4_RESIDENT: str = "off"        # level 4 from a ring slot held whole
+                                         #   in a block's shared memory
+                                         #   (csrc/corr_level_resident.cu):
+                                         #   "on", "off", or "auto" = on iff a
+                                         #   level-4 frame fits (devo_tpu's
+                                         #   rule: "fits", not "is faster";
+                                         #   on an H100 corr_level reads level
+                                         #   4 faster, so "off" is the quicker
+                                         #   choice there, see PERF.md). Needs
+                                         #   int8 rings and CORR_KERNEL="split"
+    CORR_RING_I8: bool = True            # store the correlation feature rings
+                                         #   as per-frame-scaled int8: the
+                                         #   correlation is linear in the frame
+                                         #   features, so one per-slot scale on
+                                         #   the output dequantises it. False =
+                                         #   rings in the net dtype
 
     def __post_init__(self):
         if self.EDGE_CAP == 0:
@@ -119,14 +150,17 @@ class VOConfig:
 
 # per-benchmark overrides mirroring upstream DEVO's config/eval_*.yaml
 DEFAULT_EVS = VOConfig()
+# the eval configurations keep unquantised rings: accuracy claims must not
+# ride on the int8 rounding of the features
+_EVAL_BASE = DEFAULT_EVS.replace(CORR_RING_I8=False)
 EVAL_CONFIGS = {
-    "default": DEFAULT_EVS,                                  # KEYFRAME_THRESH 15
-    "eds": DEFAULT_EVS.replace(KEYFRAME_THRESH=25.0),
-    "fpv": DEFAULT_EVS.replace(KEYFRAME_THRESH=5.0),
-    "rpg": DEFAULT_EVS.replace(KEYFRAME_THRESH=5.0),
-    "hku": DEFAULT_EVS,
-    "mvsec": DEFAULT_EVS.replace(KEYFRAME_THRESH=5.0),
-    "vector": DEFAULT_EVS,
-    "tumvie": DEFAULT_EVS,
-    "tartanair": DEFAULT_EVS,
+    "default": _EVAL_BASE,                                   # KEYFRAME_THRESH 15
+    "eds": _EVAL_BASE.replace(KEYFRAME_THRESH=25.0),
+    "fpv": _EVAL_BASE.replace(KEYFRAME_THRESH=5.0),
+    "rpg": _EVAL_BASE.replace(KEYFRAME_THRESH=5.0),
+    "hku": _EVAL_BASE,
+    "mvsec": _EVAL_BASE.replace(KEYFRAME_THRESH=5.0),
+    "vector": _EVAL_BASE,
+    "tumvie": _EVAL_BASE,
+    "tartanair": _EVAL_BASE,
 }

@@ -14,8 +14,10 @@ device at a few decision points: the empty-voxel gate while n == 0, the
 motion probe before initialization, and the keyframe test once per frame.
 The edge table has a dynamic size up to cfg.EDGE_CAP; an append past it
 drops the table's tail. A keyframe cull drops its edges at once.
-Feature rings hold cfg.MEM frames in the net dtype (bf16 under mixed
-precision).
+Feature rings hold cfg.MEM frames: per-frame-scaled int8 with one
+dequantisation scale per ring slot under cfg.CORR_RING_I8 (the default),
+else the net dtype (bf16 under mixed precision). cfg.CORR_KERNEL and
+cfg.CORR_L4_RESIDENT choose the correlation kernels (ops/corr_cuda.py).
 
 The phases carry `torch.profiler.record_function` spans (devo.patchify,
 devo.probe, devo.append, devo.update, devo.keyframe) that a profiler run
@@ -34,6 +36,7 @@ from devo_tpu_torch.geom import edgewise
 from devo_tpu_torch.lie import se3
 from devo_tpu_torch.nets.evonet import EVONet
 from devo_tpu_torch.ops import ba as ba_ops
+from devo_tpu_torch.ops import corr as corr_ops
 from devo_tpu_torch.ops import corr_cuda
 from devo_tpu_torch.ops.graph import sorted_neighbors
 from devo_tpu_torch.utils.params import load_weights
@@ -49,22 +52,62 @@ class StepAux(NamedTuple):
     kf_dP: Optional[torch.Tensor] = None   # (7,) P_k * P_{k-1}^-1
 
 
+def l4_resident(cfg: VOConfig, ht: int, wd: int) -> bool:
+    """Whether level 4 of the correlation is read by the resident-ring
+    kernel. It needs int8 rings, a per-level kernel (CORR_KERNEL="split")
+    and a level-4 frame that fits a block's shared memory beside the
+    kernel's scratch (corr_cuda.resident_fits). "on" raises where it cannot
+    hold; "auto" turns it on where it can."""
+    mode = cfg.CORR_L4_RESIDENT
+    if mode not in ("on", "off", "auto"):
+        raise ValueError(f"CORR_L4_RESIDENT={mode!r}: 'on', 'off' or 'auto'")
+    if mode == "off":
+        return False
+    h4, w4 = ht // 16, wd // 16
+    for ok, why in (
+            (cfg.CORR_KERNEL == "split",
+             f"needs CORR_KERNEL='split', not {cfg.CORR_KERNEL!r}"),
+            (cfg.CORR_RING_I8, "requires CORR_RING_I8"),
+            (corr_cuda.resident_fits(h4, w4, cfg.DIM_FNET, cfg.P),
+             f"a {h4}x{w4}x{cfg.DIM_FNET} int8 frame and the kernel's "
+             f"scratch exceed the {corr_cuda.SMEM_MAX} bytes of shared "
+             f"memory a block can have")):
+        if not ok:
+            if mode == "on":
+                raise ValueError(f"CORR_L4_RESIDENT='on' {why}")
+            return False
+    return True
+
+
 class DEVO:
     """Host-side engine with the reference's interface (devo.py:21-555):
     call per frame, `update()` for extra refinement, then `terminate()` for
     the trajectory."""
 
     def __init__(self, cfg: VOConfig, weights, ht: int = 480, wd: int = 640,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device=None):
         """weights: an EVONet state dict or the path of a DEVO checkpoint.
         `seed` seeds the generator of the step's random draws (patch
-        sampling, initial depths)."""
+        sampling, initial depths). `device`: where the engine runs; left
+        out, it is the current CUDA device, and there must be one. The CPU
+        (the plain correlation, no kernel) is taken only when asked for."""
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "DEVO runs on a CUDA device and none is available; pass "
+                    "device='cpu' to run the plain PyTorch path on the CPU")
+            device = torch.device("cuda", torch.cuda.current_device())
         if (cfg.HT, cfg.WD) != (ht, wd):
             cfg = cfg.replace(HT=ht, WD=wd)
         if cfg.PATCH_SELECTOR != "scorer":
             raise NotImplementedError(
                 f"PATCH_SELECTOR={cfg.PATCH_SELECTOR!r}: only the scorer is ported")
+        if cfg.CORR_KERNEL not in corr_cuda.KERNELS:
+            raise NotImplementedError(
+                f"CORR_KERNEL={cfg.CORR_KERNEL!r}: only {corr_cuda.KERNELS} "
+                f"are ported (ROADMAP Queue 2 lists the rest)")
         self.cfg = cfg
+        self.l4_resident = l4_resident(cfg, ht, wd)
         self.device = torch.device(device)
         self.net = EVONet(P=cfg.P, dim_inet=cfg.DIM_INET, dim_fnet=cfg.DIM_FNET,
                           dim=cfg.DIM, bins=cfg.BINS)
@@ -84,10 +127,14 @@ class DEVO:
         self.imap = torch.zeros((mem * M, cfg.DIM_INET), dtype=fdt, device=dev)
         self.gmap = torch.zeros((mem * M, P, P, cfg.DIM_FNET), dtype=fdt,
                                 device=dev)
-        self.fmap1 = torch.zeros((mem, h1, w1, cfg.DIM_FNET), dtype=fdt,
+        rdt = torch.int8 if cfg.CORR_RING_I8 else fdt
+        self.fmap1 = torch.zeros((mem, h1, w1, cfg.DIM_FNET), dtype=rdt,
                                  device=dev)
         self.fmap2 = torch.zeros((mem, h1 // 4, w1 // 4, cfg.DIM_FNET),
-                                 dtype=fdt, device=dev)
+                                 dtype=rdt, device=dev)
+        # dequantisation scale of each ring slot (int8 rings only)
+        self.fsc1 = torch.ones((mem,), device=dev) if cfg.CORR_RING_I8 else None
+        self.fsc2 = torch.ones((mem,), device=dev) if cfg.CORR_RING_I8 else None
         # the edge table, packed and sorted by (kk, jj)
         self.ii = torch.zeros(0, dtype=torch.long, device=dev)
         self.jj = torch.zeros(0, dtype=torch.long, device=dev)
@@ -161,7 +208,9 @@ class DEVO:
         corr = corr_cuda.corr_pyramid(
             self.gmap, (self.fmap1, self.fmap2), coords,
             kk_ring.to(torch.int32), (jj % mem).to(torch.int32),
-            radius=cfg.CORR_RADIUS, levels=cfg.CORR_LEVELS)
+            radius=cfg.CORR_RADIUS, levels=cfg.CORR_LEVELS,
+            scales=(self.fsc1, self.fsc2) if cfg.CORR_RING_I8 else None,
+            kernel=cfg.CORR_KERNEL, resident=self.l4_resident)
         return geo, corr, self.imap[kk_ring].float()
 
     @record_function("devo.update")
@@ -270,6 +319,9 @@ class DEVO:
             self.gmap[dst * M:(dst + 1) * M] = self.gmap[src * M:(src + 1) * M]
             self.fmap1[dst] = self.fmap1[src]
             self.fmap2[dst] = self.fmap2[src]
+            if cfg.CORR_RING_I8:     # a slot's scale moves with its frame
+                self.fsc1[dst] = self.fsc1[src]
+                self.fsc2[dst] = self.fsc2[src]
         self.n -= 1
 
     # --------------------------------------------------------------- step
@@ -316,12 +368,16 @@ class DEVO:
         self.colors[n] = out["clr"][0]
         self.imap[slot * M:(slot + 1) * M] = out["imap"][0]
         self.gmap[slot * M:(slot + 1) * M] = out["gmap"][0]
-        self.fmap1[slot] = fmap
         # level 4 of the pyramid: the reference's avg_pool2d(fmap, 4, 4),
         # which drops trailing rows and columns (a 65 x 86 map at 260 x 344)
         h2, w2 = h1 // 4, w1 // 4
-        self.fmap2[slot] = fmap[:4 * h2, :4 * w2].reshape(
-            h2, 4, w2, 4, -1).mean((1, 3))
+        fmap2 = fmap[:4 * h2, :4 * w2].reshape(h2, 4, w2, 4, -1).mean((1, 3))
+        if cfg.CORR_RING_I8:         # each level with its own scale
+            self.fmap1[slot], self.fsc1[slot] = corr_ops.quantize_frame(fmap)
+            self.fmap2[slot], self.fsc2[slot] = corr_ops.quantize_frame(fmap2)
+        else:
+            self.fmap1[slot] = fmap
+            self.fmap2[slot] = fmap2
         self.counter += 1
 
     def _step(self, voxel: torch.Tensor, intrinsics: torch.Tensor) -> StepAux:

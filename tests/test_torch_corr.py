@@ -82,7 +82,7 @@ def test_cpu_tensors_take_the_plain_path():
     fmap4 = _pool2(_pool2(fmap))
     args = (_t(gmap), (_t(fmap), _t(fmap4)), _t(coords),
             _t(kk).int(), _t(jj).int())
-    launches, calls = corr_cuda.launches, corr_plain.calls
+    launches, calls = dict(corr_cuda.launches), corr_plain.calls
     got = corr_cuda.corr_pyramid(*args)
     assert corr_cuda.launches == launches
     assert corr_plain.calls == calls + 1
