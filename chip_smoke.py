@@ -9,10 +9,14 @@
 3. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the tracking step's shapes (E = 12288 edges, E = 96 for the motion
    probe, a ragged E; C = 128, mem = 32, rings of 120x160 and 30x40,
-   coordinates partly off the image): the two-level kernel on bf16 and on
-   int8 rings, the per-level kernel on both levels and both ring types, the
-   resident level-4 kernel on int8 rings; the per-level kernels stacked
-   against the two-level kernel. Max error against the stated tolerance, the
+   coordinates partly off the image): the three two-level kernels
+   (corr_pyramid, corr_pair, corr_pair2) on bf16 and on int8 rings, the
+   per-level kernel on both levels and both ring types, the resident
+   level-4 kernel on int8 rings; the per-level kernels stacked, and
+   corr_pair and corr_pair2, against corr_pyramid; and corr_pair and
+   corr_pair2 at a narrow width (C = 8) whose int8 feature vectors are too
+   short for the 16-byte copies, so that every tap reads the ring
+   directly. Max error against the stated tolerance, the
    median time of each, and the kernel's bound: the least time the card
    could take, the larger of the bytes it must move (the ring positions its
    taps touch, the distinct patch features, coordinates, indices, scales and
@@ -20,24 +24,37 @@
    TFLOP/s.
 4. Reference phase: the port's DEVO on the card against the same engine on
    the CPU (plain correlation; the CPU tests hold that path against the JAX
-   package) at a small f32 size, for unquantised rings and for the three
-   int8 configurations: the same keyframes, culls and edge sets per frame,
-   and poses and terminate() output within the stated tolerance.
+   package) at a small f32 size, for unquantised rings (corr_pyramid,
+   corr_pair, corr_pair2) and for the five int8 configurations: the same
+   keyframes, culls and edge sets per frame, and poses and terminate()
+   output within the stated tolerance.
 5. Slice phase: the port's DEVO at full width (480x640, 96 patches, mixed
    precision) with seeded random weights over frames of a sliding event
    texture, then 12 update() calls and terminate(), on three paths of 48
    timed frames each, so that their frame rates compare: the bf16 path (the
    two-level kernel on bf16 rings), the default path (int8 rings, the
-   two-level kernel) and last the quantised split path (int8 rings, one
-   launch per level, level 4 from the resident ring), which then runs 8
-   more frames under torch.profiler (where the time goes, by engine
-   phase). The launch counts are set to 0 just
+   two-level kernel) and, after the eval phase, the quantised split path
+   (int8 rings, one launch per level, level 4 from the resident ring),
+   which then runs 8 more frames under torch.profiler (where the time
+   goes, by engine phase). The launch counts are set to 0 just
    before each path and read just after it. Each path must end with a
    finite trajectory with one pose per frame, at least one keyframe cull,
    launches > 0 of the kernels it names and no plain-correlation call; then
    its kernels are held against the plain versions once more on the
    engine's own final edges and rings.
-6. Prints the kernels' JSON record, the card line, and as its last line
+6. Eval phase: the evaluation entry point at full width.
+   devo_tpu_torch.eval.harness.evaluate_sequence with EVAL_CONFIGS["eds"]
+   (bf16 rings) and CORR_KERNEL="pair", then with int8 rings and
+   CORR_KERNEL="pair2": random weights from seed 0, an in-memory iterator
+   of 48 frames of the same texture with intrinsics and timestamps, a
+   straight-line ground truth, two trials on one cached engine, TUM dumps
+   and a results JSON under chiprun_out/. It must hold one engine per
+   configuration, as many poses from trial 0 as from a fresh engine, finite
+   ATE / MPE / R_rmse that the independent ATE cross-check confirms, the
+   artifacts on disk, one launch of the configuration's kernel per
+   correlation of the run and no plain-correlation call. Under random
+   weights the ATE says nothing about accuracy.
+7. Prints the kernels' JSON record, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 With no CUDA device it exits non-zero before any result. Any failed build,
@@ -74,6 +91,10 @@ KERNELS = {
     "corr_level_resident": ("devo_tpu_torch/csrc/corr_level_resident.cu",
                             "devo_tpu/ops/corr_pallas.py:1042",
                             "corr_level_resident_kernel"),
+    "corr_pair": ("devo_tpu_torch/csrc/corr_pair.cu",
+                  "devo_tpu/ops/corr_pallas.py:1225", "corr_pair_kernel"),
+    "corr_pair2": ("devo_tpu_torch/csrc/corr_pair2.cu",
+                   "devo_tpu/ops/corr_pallas.py:1433", "corr_pair2_kernel"),
 }
 # the three paths of the slice phase: VOConfig overrides and the kernels
 # each must launch. The profiled path runs last, so that no path is timed
@@ -89,6 +110,15 @@ PATHS = {
                           ("corr_level", "corr_level_resident")),
 }
 PROFILED = "i8-split-resident"
+# the two configurations of the eval phase, on EVAL_CONFIGS["eds"]: VOConfig
+# overrides and the kernel each must launch
+EVAL_PATHS = {
+    "eval-eds-bf16-pair": (dict(CORR_KERNEL="pair"), "corr_pair"),
+    "eval-eds-i8-pair2": (dict(CORR_KERNEL="pair2", CORR_RING_I8=True),
+                          "corr_pair2"),
+}
+EVAL_TRIALS = 2
+OUT_DIR = "chiprun_out/eval_smoke"
 
 
 def card() -> str:
@@ -115,15 +145,17 @@ def median_ms(fn, launches: int = 10, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def corr_case(E: int, dev, seed: int):
-    """Random rings and patch-grid coordinates at the step's shapes; patch
-    centers reach 8 px past the level-1 image on every side. Returns (gmap,
-    bf16 pyramid, int8 pyramid, scales, coords, kk, jj)."""
+def corr_case(E: int, dev, seed: int, C: int = None):
+    """Random rings and patch-grid coordinates at the step's shapes (C
+    channels, the model's DIM_FNET unless given); patch centers reach 8 px
+    past the level-1 image on every side. Returns (gmap, bf16 pyramid, int8
+    pyramid, scales, coords, kk, jj)."""
     from devo_tpu_torch.ops.corr import quantize_frame
     from devo_tpu_torch.runtime.config import VOConfig
     cfg = VOConfig()
     g = torch.Generator(device=dev).manual_seed(seed)
-    h1, w1, C, mem, M = HT // 4, WD // 4, cfg.DIM_FNET, cfg.MEM, cfg.M
+    h1, w1, mem, M = HT // 4, WD // 4, cfg.MEM, cfg.M
+    C = cfg.DIM_FNET if C is None else C
     bf = torch.bfloat16
     gmap = torch.randn((mem * M, 3, 3, C), generator=g, device=dev).to(bf)
     fmap1 = torch.randn((mem, h1, w1, C), generator=g, device=dev)
@@ -197,6 +229,14 @@ def variants(case):
                     lambda pyr=pyr, scales=scales: plain.corr_pyramid(
                         gmap, pyr, coords, kk, jj, scales=scales),
                     (pyr, (1, 4), ss)))
+        for name, fn in (("corr_pair", cc.corr_pair_cuda),
+                         ("corr_pair2", cc.corr_pair2_cuda)):
+            out.append((name, f"both levels {label}",
+                        lambda fn=fn, pyr=pyr, scales=scales: fn(
+                            gmap, pyr[0], pyr[1], coords, kk, jj, scales=scales),
+                        lambda pyr=pyr, scales=scales: plain.corr_pyramid(
+                            gmap, pyr, coords, kk, jj, scales=scales),
+                        (pyr, (1, 4), ss)))
         for n, (lvl, c) in enumerate(((1, coords), (4, c4))):
             out.append(("corr_level", f"level {lvl} {label}",
                         lambda r=pyr[n], c=c, s=ss[n]: cc.corr_level_cuda(
@@ -214,7 +254,8 @@ def variants(case):
 # the variant whose numbers stand for a kernel in the JSON record: the one
 # the default (int8) configurations run at the step's edge count
 REPORTED = {"corr_pyramid": "both levels i8", "corr_level": "level 1 i8",
-            "corr_level_resident": "level 4 i8"}
+            "corr_level_resident": "level 4 i8", "corr_pair": "both levels i8",
+            "corr_pair2": "both levels i8"}
 
 
 def kernel_phase(dev, gpu: str):
@@ -256,7 +297,46 @@ def kernel_phase(dev, gpu: str):
             torch.testing.assert_close(split, mono, **TOL)
             print(f"split vs mono [{label}] E={E}: max abs diff "
                   f"{(split - mono).abs().max().item():.3e} [{gpu}]", flush=True)
+            if resident:
+                continue
+            for kernel in ("pair", "pair2"):
+                got = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
+                                      kernel=kernel)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, mono, **TOL)
+                print(f"{kernel} vs mono [{label}] E={E}: max abs diff "
+                      f"{(got - mono).abs().max().item():.3e} [{gpu}]",
+                      flush=True)
+    for ring in (torch.bfloat16, torch.int8):
+        blocks = cc.pair2_blocks_per_sm(3, 128, torch.bfloat16, ring)
+        print(f"corr_pair2 [{ring} rings, C=128]: {blocks} block(s) of 384 "
+              f"threads per SM [{gpu}]", flush=True)
+    narrow_case(dev, gpu, record)
     return record
+
+
+def narrow_case(dev, gpu: str, record):
+    """corr_pair and corr_pair2 at C = 8: an int8 feature vector is 8 bytes,
+    no multiple of the 16-byte copies, so nothing is staged and every tap
+    reads the ring directly; a bf16 vector is 16 bytes, the narrowest that
+    is staged."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = corr_case(5003, dev, 3, C=8)
+    for label, pyr, scales in (("i8, direct reads", i8, sc),
+                               ("bf16, staged", bf, None)):
+        want = plain.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales)
+        for kernel in ("pair", "pair2"):
+            got = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
+                                  kernel=kernel)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, **TOL)
+            rec = record["corr_" + kernel]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            print(f"corr_{kernel} [C=8 {label}] E=5003: max_abs_err {err:.3e} "
+                  f"within atol {TOL['atol']} + rtol {TOL['rtol']} [{gpu}]",
+                  flush=True)
 
 
 def frames(n: int):
@@ -322,14 +402,18 @@ def profile_frames(slam, stream, intr, gpu: str):
 
 
 REF_HT, REF_WD, REF_FRAMES = 64, 64, 18
-# the configurations of the reference phase: unquantised rings, and the three
-# int8 configurations
+# the configurations of the reference phase: unquantised rings and int8
+# rings, on every kernel choice
 REFERENCE = {
     "f32 rings": dict(CORR_RING_I8=False),
     "i8-mono": PATHS["i8-mono"][0],
     "i8-split": dict(CORR_RING_I8=True, CORR_KERNEL="split",
                      CORR_L4_RESIDENT="off"),
     "i8-split-resident": PATHS["i8-split-resident"][0],
+    "f32 rings pair": dict(CORR_RING_I8=False, CORR_KERNEL="pair"),
+    "f32 rings pair2": dict(CORR_RING_I8=False, CORR_KERNEL="pair2"),
+    "i8-pair": dict(CORR_RING_I8=True, CORR_KERNEL="pair"),
+    "i8-pair2": dict(CORR_RING_I8=True, CORR_KERNEL="pair2"),
 }
 # pose atol: float noise compounds over the 12-update initialization and the
 # per-frame BA; with int8 rings a feature that rounds the other way on the
@@ -410,7 +494,6 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
 def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     """One path of PATHS at full width. Returns (launches of each kernel on
     the path, max error of its kernels on the engine's final state)."""
-    from devo_tpu_torch.geom import edgewise
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
@@ -477,7 +560,16 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
         raise RuntimeError(f"{label}: the step did not run on its kernels "
                            f"{named} alone: {launches}, {plain_calls} plain calls")
 
-    # the path's kernels once more, on the engine's own edges and rings
+    return launches, engine_state_check(slam, label, gpu)
+
+
+def engine_state_check(slam, label: str, gpu: str) -> float:
+    """The configuration's kernels once more, against the plain version on
+    the engine's own edges and rings. Returns the max abs error."""
+    from devo_tpu_torch.geom import edgewise
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+    cfg = slam.cfg
     geo = edgewise.reproject(slam.poses, slam.patches, slam.intrinsics,
                              slam.ii, slam.jj, slam.kk)
     args = (slam.gmap, (slam.fmap1, slam.fmap2),
@@ -492,6 +584,126 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     torch.testing.assert_close(got, want, **TOL)
     print(f"engine state [{label}] E={slam.n_edges}: max_abs_err {err:.3e} "
           f"within atol {TOL['atol']} + rtol {TOL['rtol']} [{gpu}]", flush=True)
+    return err
+
+
+def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
+    """One configuration of EVAL_PATHS through evaluate_sequence at full
+    width. `stream`: the frames as (bins, H, W) arrays. Returns (launches of
+    each kernel during evaluate_sequence, max error of the configuration's
+    kernel on the engine's final state)."""
+    import os
+
+    from devo_tpu_torch.eval import harness
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+    from devo_tpu_torch.runtime.config import EVAL_CONFIGS
+    from devo_tpu_torch.utils.params import random_state_dict
+
+    knobs, kernel = EVAL_PATHS[label]
+    # random weights reject every frame at the learned motion probe
+    cfg = EVAL_CONFIGS["eds"].replace(MOTION_PROBE_THRESH=-1.0, **knobs)
+    weights = random_state_dict(
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=0)
+    n = len(stream)
+    intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
+    tss = np.arange(n, dtype=np.float64) / 30.0
+    gt = np.zeros((n, 7), np.float32)         # a straight line along x
+    gt[:, 0] = 0.01 * np.arange(n)
+    gt[:, 6] = 1.0
+    yields = []                               # host clock at every frame
+
+    def make_iterator():
+        yields.append([])
+        for vox, t in zip(stream, tss):
+            yields[-1].append(time.perf_counter())
+            yield vox, intr, float(t)
+
+    # the frame's copy to the device, as the harness makes it
+    copy_ms = median_ms(lambda: harness._on_device(stream[0], dev))
+
+    before = len(engine_cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    corr_cuda.reset_launches()
+    corr_plain.calls = 0
+    med, results, fps = harness.evaluate_sequence(
+        cfg, weights, make_iterator, traj_gt=gt, tss_gt=tss,
+        trials=EVAL_TRIALS, ht=HT, wd=WD, max_diff_s=0.01, outdir=OUT_DIR,
+        name=label, engine_cache=engine_cache)
+    torch.cuda.synchronize()
+    launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    if len(engine_cache) != before + 1:
+        raise RuntimeError(f"{label}: {len(engine_cache) - before} engines "
+                           f"were cached for one configuration")
+    slam = next(s for k, s in engine_cache.items() if k[2] == cfg)
+    # correlations of one trial: the probe of frames 1-7, 12 updates at
+    # initialization (frame 8), one per later frame, 12 final updates
+    per_trial = 7 + 12 + (n - 8) + N_UPDATES
+    others = [k for k, v in launches.items() if v and k != kernel]
+    if (launches[kernel] != EVAL_TRIALS * per_trial or others
+            or plain_calls != 0):
+        raise RuntimeError(f"{label}: expected {EVAL_TRIALS * per_trial} "
+                           f"launches of {kernel} alone, got {launches} and "
+                           f"{plain_calls} plain calls")
+    if not all(np.isfinite([r.ate, r.mpe, r.r_rmse]).all() for r in results):
+        raise RuntimeError(f"{label}: metrics are not finite: {results}")
+    for trial in range(EVAL_TRIALS):
+        dump = np.loadtxt(os.path.join(OUT_DIR, f"{label}_trial{trial}.txt"))
+        if dump.shape != (n, 8) or not np.isfinite(dump).all():
+            raise RuntimeError(f"{label}: TUM dump of trial {trial} is "
+                               f"{dump.shape}")
+    with open(os.path.join(OUT_DIR, f"{label}_results.json")) as f:
+        blob = json.load(f)
+    if (len(blob["trials"]) != EVAL_TRIALS or len(blob["fps"]) != EVAL_TRIALS
+            or blob["median"]["ate"] != med.ate):
+        raise RuntimeError(f"{label}: results JSON does not match the run")
+    edges = slam.n_edges
+    err = engine_state_check(slam, label, gpu)
+
+    # the bare slice in the same configuration: a fresh engine with trial
+    # 0's seed, called by hand as slice_phase calls it, gives as many poses
+    from devo_tpu_torch.runtime.engine import DEVO
+    bare = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
+    bare_s = []
+    for vox, t in zip(frames(n), tss):
+        t0 = time.perf_counter()
+        bare(float(t), vox, intr)
+        torch.cuda.synchronize()
+        bare_s.append(time.perf_counter() - t0)
+    for _ in range(N_UPDATES):
+        bare.update()
+    poses, stamps = bare.terminate()
+    if poses.shape != (n, 7) or not np.isfinite(poses).all():
+        raise RuntimeError(f"{label}: a fresh engine gave {poses.shape} poses")
+    bare_tail = bare_s[SKIP:]
+
+    # per trial, from the host clock at every frame the iterator hands out
+    tail_fps = [round((n - 1 - SKIP) / (ts[-1] - ts[SKIP]), 2)
+                for ts in yields[:EVAL_TRIALS]]
+    frame_ms = [round(float(1e3 * np.median(np.diff(ts)[SKIP:])), 2)
+                for ts in yields[:EVAL_TRIALS]]
+    print(f"eval [{label}]: evaluate_sequence, {HT}x{WD}, rings "
+          f"{slam.fmap1.dtype}, CORR_KERNEL={cfg.CORR_KERNEL!r}, {n} frames + "
+          f"{N_UPDATES} updates x {EVAL_TRIALS} trials on one engine: "
+          f"run_voxel frames/s per trial {[round(f, 2) for f in fps]} (first "
+          f"frame, initialization and final updates included); frames "
+          f"{SKIP}-{n - 1} per trial {tail_fps} frames/s, median frame "
+          f"{frame_ms} ms, of which the host-to-device copy {copy_ms:.3f} ms; "
+          f"the bare slice in this configuration (a fresh engine called by "
+          f"hand) {len(bare_tail) / sum(bare_tail):.2f} frames/s, median "
+          f"frame {1e3 * np.median(bare_tail):.2f} ms; live edges {edges}; "
+          f"peak memory {peak_gib:.3f} GiB, of which {held_gib:.3f} GiB "
+          f"held by engines cached before; launches {launches}, plain corr "
+          f"calls {plain_calls}; ATE {med.ate:.3f} cm, MPE {med.mpe:.3f} %/m, "
+          f"R_rmse {med.r_rmse:.3f} deg over {med.n_pairs} pairs, confirmed "
+          f"by the independent ATE cross-check (random weights: these say "
+          f"nothing about accuracy); artifacts in {OUT_DIR} [{gpu}]",
+          flush=True)
     return launches, err
 
 
@@ -520,13 +732,24 @@ def main():
         reference_phase(dev, gpu, label, knobs)
 
     by_path = {}
-    for label, (_, named) in PATHS.items():
-        profiled = label == PROFILED
+
+    def run_slice(label):
         launches, err = slice_phase(dev, gpu, label, N_FRAMES,
-                                    N_PROFILED if profiled else 0)
+                                    N_PROFILED if label == PROFILED else 0)
         by_path[label] = launches
-        for name in named:
+        for name in PATHS[label][1]:
             record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+
+    for label in PATHS:
+        if label != PROFILED:
+            run_slice(label)
+    engine_cache = {}
+    stream = [np.ascontiguousarray(v.transpose(2, 0, 1)) for v in frames(N_FRAMES)]
+    for label, (_, name) in EVAL_PATHS.items():
+        by_path[label], err = eval_phase(dev, gpu, label, engine_cache, stream)
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+    del engine_cache, stream
+    run_slice(PROFILED)              # last: nothing is timed after a profile
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():

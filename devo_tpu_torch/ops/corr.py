@@ -13,9 +13,11 @@ the result, which is exact because the correlation is linear in the frame
 features.
 
 These are the plain versions of the CUDA kernels: `corr_pyramid` of
-csrc/corr.cu (both levels), `corr_level` of csrc/corr_level.cu and
-csrc/corr_level_resident.cu (one level). The tests hold them against the
-JAX package, and the kernels are held against them on the card.
+csrc/corr.cu, csrc/corr_pair.cu and csrc/corr_pair2.cu (both levels: the
+kernels "mono", "pair" and "pair2" compute one function), `corr_level` of
+csrc/corr_level.cu and csrc/corr_level_resident.cu (one level). The tests
+hold them against the JAX package, and the kernels are held against them on
+the card.
 `ops/corr_cuda.corr_pyramid` is the engine's entry point; it calls these
 versions only for tensors on the CPU.
 """
@@ -111,8 +113,9 @@ def stack_levels(outs) -> torch.Tensor:
 def corr_pyramid(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
                  kk: torch.Tensor, jj: torch.Tensor, radius: int = 3,
                  levels=(1, 4), scales=None) -> torch.Tensor:
-    """Multi-level correlation. coords is at level-1 resolution; each level
-    divides it by its stride. scales: per level a (N,) f32 tensor for an
+    """Multi-level correlation: the plain version of the two-level kernels
+    (csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu). coords is at
+    level-1 resolution; each level divides it by its stride. scales: per level a (N,) f32 tensor for an
     int8 ring (None for a float ring), or None when no ring is int8.
     Returns (E, L*(2r+1)^2*P*P) f32 ordered [dx, dy, pixel, level]."""
     global calls

@@ -3,13 +3,19 @@ kernels in csrc/.
 
 `corr_pyramid` takes the plain PyTorch versions (ops/corr.py) for tensors on
 the CPU and launches a kernel for tensors on a CUDA device; there is no
-fallback from one to the other. Three kernels, one launch counter each
+fallback from one to the other. Five kernels, one launch counter each
 (`launches`):
 
-- `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one launch;
+- `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one launch,
+  one warp per tap reading the ring;
 - `corr_level_cuda` (csrc/corr_level.cu): one level per launch;
 - `corr_level_resident_cuda` (csrc/corr_level_resident.cu): level 4 from an
-  int8 ring slot held in a block's shared memory.
+  int8 ring slot held in a block's shared memory;
+- `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch, a block
+  per edge, the patch feature shared by the levels and each level's window
+  staged by its own group of asynchronous copies;
+- `corr_pair2_cuda` (csrc/corr_pair2.cu): the same by persistent blocks that
+  keep the next edge's windows in flight while they compute the current one.
 
 All take float rings (bf16 or f32, the type of the patch features) or, with
 per-slot scales, int8 rings; the resident kernel int8 only. The sources are
@@ -31,7 +37,8 @@ import torch
 from . import corr as plain
 
 # launches of each kernel, counted so a run can show it went through them
-launches = {"corr_pyramid": 0, "corr_level": 0, "corr_level_resident": 0}
+launches = {"corr_pyramid": 0, "corr_level": 0, "corr_level_resident": 0,
+            "corr_pair": 0, "corr_pair2": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,7 +48,9 @@ _TAPS = (2 * _RADIUS + 2) ** 2          # integer taps of one pixel
 _FEATS = (2 * _RADIUS + 1) ** 2         # blended offsets of one pixel
 _SMEM_DEFAULT = 48 * 1024     # dynamic shared memory of a block by default
 SMEM_MAX = 232_448            # the most a block can have on sm_90
-LEVEL_WINDOW_CAP = 144        # feature vectors of corr_level's staged window
+LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
+_PAIR_STATIC = 4096           # bound on the static shared memory of the pair
+                              #   kernels (their per-edge index tables)
 _RESIDENT_WARPS = 8           # warps of a corr_level_resident block
 _RESIDENT_SPLIT = 8           # blocks per ring slot (grid.y)
 _lib = None
@@ -101,8 +110,12 @@ def _load():
         lib.devo_corr_pyramid.argtypes = [ptr] * 9 + [i] * 7 + [f] * 2 + [i, i, ptr]
         lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
         lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
+        lib.devo_corr_pair.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i, i, ptr]
+        lib.devo_corr_pair2.argtypes = lib.devo_corr_pair.argtypes
+        lib.devo_corr_pair2_blocks_per_sm.argtypes = [i] * 5
         for fn in (lib.devo_corr_pyramid, lib.devo_corr_level,
-                   lib.devo_corr_level_resident):
+                   lib.devo_corr_level_resident, lib.devo_corr_pair,
+                   lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm):
             fn.restype = ctypes.c_int
         lib.devo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.devo_cuda_error_string.restype = ctypes.c_char_p
@@ -202,8 +215,7 @@ def level_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
     """Dynamic shared memory of a corr_level block: the patch feature and
     the taps as f32, and `cap` feature vectors of the ring's type."""
     PP = P * P
-    item = torch.empty((), dtype=ring_dtype).element_size()
-    return (PP * C + PP * _TAPS) * 4 + cap * C * item
+    return (PP * C + PP * _TAPS) * 4 + cap * C * _item(ring_dtype)
 
 
 def corr_level_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
@@ -231,6 +243,111 @@ def corr_level_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
         torch.cuda.current_stream(gmap.device).cuda_stream)
     _launched("corr_level", code)
     return out
+
+
+def _item(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def pair_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
+    """Dynamic shared memory of a corr_pair block: the patch feature and
+    both levels' taps as f32, and per level `cap` feature vectors of the
+    ring's type."""
+    PP = P * P
+    return (PP * C + 2 * PP * _TAPS) * 4 + 2 * cap * C * _item(ring_dtype)
+
+
+def pair2_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int) -> int:
+    """Dynamic shared memory of a corr_pair2 block: the patch feature and
+    both levels' taps as f32, and two stages, each the raw patch feature
+    (rounded up to 16 bytes) and per level `cap` feature vectors."""
+    PP = P * P
+    graw = -(-PP * C * _item(gmap_dtype) // 16) * 16
+    return ((PP * C + 2 * PP * _TAPS) * 4
+            + 2 * (graw + 2 * cap * C * _item(ring_dtype)))
+
+
+def _pair_smem(name: str, P: int, C: int, gmap_dtype, ring_dtype, cap: int):
+    """Dynamic shared memory of the pair kernel `name` at window size
+    `cap`."""
+    if name == "corr_pair":
+        return pair_smem_bytes(P, C, ring_dtype, cap)
+    return pair2_smem_bytes(P, C, gmap_dtype, ring_dtype, cap)
+
+
+def pair_cap(name: str, P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Feature vectors of each staged window of the pair kernel `name`
+    ("corr_pair" or "corr_pair2"): LEVEL_WINDOW_CAP, fewer where a block's
+    shared memory holds no more, and 0 (every tap reads the ring) where a
+    feature vector is no multiple of the 16-byte copies."""
+    if C * _item(ring_dtype) % 16 != 0:
+        return 0
+    fixed = _pair_smem(name, P, C, gmap_dtype, ring_dtype, 0)
+    per_vector = _pair_smem(name, P, C, gmap_dtype, ring_dtype, 1) - fixed
+    room = SMEM_MAX - _PAIR_STATIC - fixed
+    return max(0, min(LEVEL_WINDOW_CAP, room // per_vector))
+
+
+def _pair_call(name, gmap, fmap1, fmap2, coords, kk, jj, levels, scales):
+    """The checks, the output and the launch that corr_pair and corr_pair2
+    share; `name` is the kernel's launch counter."""
+    scales = (None, None) if scales is None else tuple(scales)
+    _check(len(levels) == 2 and len(scales) == 2,
+           "the kernel computes two levels")
+    E, P, C, i8 = _check_call(gmap, (fmap1, fmap2), scales, coords, kk, jj)
+    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
+    for t_name, t in (("gmap", gmap), ("coords", coords)):
+        _check(t.data_ptr() % 16 == 0, f"{t_name} is not 16-byte aligned")
+    cap = pair_cap(name, P, C, gmap.dtype, fmap1.dtype)
+    _check(_pair_smem(name, P, C, gmap.dtype, fmap1.dtype, cap)
+           <= SMEM_MAX - _PAIR_STATIC,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+
+    out = torch.empty((E, 2 * _FEATS * P * P), dtype=torch.float32,
+                      device=gmap.device)
+    if E == 0:
+        return out
+    lib = _load()
+    code = getattr(lib, "devo_" + name)(
+        gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
+        _ptr(scales[0]), _ptr(scales[1]), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap1.shape[1],
+        fmap1.shape[2], fmap2.shape[1], fmap2.shape[2], cap,
+        float(levels[0]), float(levels[1]),
+        int(gmap.dtype == torch.bfloat16), int(i8),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched(name, code)
+    return out
+
+
+def corr_pair_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                   scales=None) -> torch.Tensor:
+    """Launch csrc/corr_pair.cu. Arguments and result as
+    `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
+    return _pair_call("corr_pair", gmap, fmap1, fmap2, coords, kk, jj,
+                      levels, scales)
+
+
+def corr_pair2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                    scales=None) -> torch.Tensor:
+    """Launch csrc/corr_pair2.cu. Arguments and result as
+    `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
+    return _pair_call("corr_pair2", gmap, fmap1, fmap2, coords, kk, jj,
+                      levels, scales)
+
+
+def pair2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_pair2's kernel that one SM of the current CUDA device
+    holds at a time at these sizes (the kernel's grid is that times the
+    number of SMs)."""
+    cap = pair_cap("corr_pair2", P, C, gmap_dtype, ring_dtype)
+    occ = _load().devo_corr_pair2_blocks_per_sm(
+        P * P, C, cap, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8))
+    if occ < 0:
+        raise RuntimeError("corr_pair2 occupancy query failed: "
+                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
+    return occ
 
 
 def resident_smem_bytes(h: int, w: int, C: int, P: int) -> int:
@@ -281,7 +398,10 @@ def corr_level_resident_cuda(gmap, fmap, coords, kk, jj, scale) -> torch.Tensor:
     return out
 
 
-KERNELS = ("mono", "split")
+KERNELS = ("mono", "split", "pair", "pair2")
+# the kernels that take both levels in one launch
+_TWO_LEVEL = {"mono": corr_pyramid_cuda, "pair": corr_pair_cuda,
+              "pair2": corr_pair2_cuda}
 
 
 def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
@@ -290,22 +410,23 @@ def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
     """Two-level correlation feature (E, 2*49*P*P) f32 in [dx, dy, pixel,
     level] order: the plain versions for CPU tensors, the CUDA kernels for
     CUDA tensors. `scales`: per level the (mem,) f32 scales of an int8 ring.
-    `kernel`: "mono" = both levels in one launch; "split" = one launch per
-    level, and with `resident` the last level from the resident-ring kernel
-    (int8 rings only)."""
+    `kernel`: "mono", "pair", "pair2" = both levels in one launch, by
+    corr.cu, corr_pair.cu, corr_pair2.cu; "split" = one launch per level,
+    and with `resident` the last level from the resident-ring kernel (int8
+    rings only)."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     if resident and (kernel != "split" or scales is None):
         raise ValueError("the resident level needs kernel='split' and int8 "
                          "rings with scales")
-    if kernel == "mono":
+    if kernel in _TWO_LEVEL:
         if gmap.device.type == "cpu":
             return plain.corr_pyramid(gmap, pyramid, coords, kk, jj, radius,
                                       levels, scales)
         _check(radius == _RADIUS, f"the kernel is built for radius {_RADIUS}")
         _check(len(pyramid) == 2, "the kernel computes two levels")
-        return corr_pyramid_cuda(gmap, pyramid[0], pyramid[1], coords, kk, jj,
-                                 levels, scales)
+        return _TWO_LEVEL[kernel](gmap, pyramid[0], pyramid[1], coords, kk,
+                                  jj, levels, scales)
 
     _check(radius == _RADIUS, f"the per-level kernels are built for radius "
                               f"{_RADIUS}")

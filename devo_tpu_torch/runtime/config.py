@@ -8,9 +8,10 @@ imported without jax): the reference knobs of the yacs node
 Three of the JAX package's correlation knobs are kept, with its names and
 defaults, because they choose what the correlation computes or which of the
 port's kernels computes it: CORR_RING_I8 (int8 feature rings with one
-dequantisation scale per ring slot), CORR_KERNEL ("mono": both levels in
-one launch, "split": one launch per level) and CORR_L4_RESIDENT (level 4
-read from a ring slot held in shared memory). The rest stay out: CORR_IMPL,
+dequantisation scale per ring slot), CORR_KERNEL ("mono", "pair", "pair2":
+both levels in one launch, by three different kernels; "split": one launch
+per level) and CORR_L4_RESIDENT (level 4 read from a ring slot held in
+shared memory). The rest stay out: CORR_IMPL,
 CORR_WIN_L1, VOXEL_WIRE and the encoder-layout switches choose TPU
 schedules, window budgets and transports, not functions.
 """
@@ -69,9 +70,18 @@ class VOConfig:
 
     # what the correlation computes, and with which kernel
     CORR_KERNEL: str = "mono"            # "mono": both pyramid levels in one
-                                         #   launch (csrc/corr.cu);
+                                         #   launch, a warp per tap
+                                         #   (csrc/corr.cu);
                                          # "split": one launch per level
-                                         #   (csrc/corr_level.cu)
+                                         #   (csrc/corr_level.cu);
+                                         # "pair": both levels in one launch,
+                                         #   a block per edge, each level's
+                                         #   window on its own copy group
+                                         #   (csrc/corr_pair.cu);
+                                         # "pair2": the same by persistent
+                                         #   blocks with the next edge's
+                                         #   windows in flight
+                                         #   (csrc/corr_pair2.cu)
     CORR_L4_RESIDENT: str = "off"        # level 4 from a ring slot held whole
                                          #   in a block's shared memory
                                          #   (csrc/corr_level_resident.cu):

@@ -79,6 +79,18 @@ def l4_resident(cfg: VOConfig, ht: int, wd: int) -> bool:
     return True
 
 
+def resolve_device(device=None) -> torch.device:
+    """Where an entry point runs: `device` if given, else the current CUDA
+    device, and there must be one. The CPU is taken only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "DEVO runs on a CUDA device and none is available; pass "
+            "device='cpu' to run the plain PyTorch path on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class DEVO:
     """Host-side engine with the reference's interface (devo.py:21-555):
     call per frame, `update()` for extra refinement, then `terminate()` for
@@ -91,12 +103,7 @@ class DEVO:
         sampling, initial depths). `device`: where the engine runs; left
         out, it is the current CUDA device, and there must be one. The CPU
         (the plain correlation, no kernel) is taken only when asked for."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "DEVO runs on a CUDA device and none is available; pass "
-                    "device='cpu' to run the plain PyTorch path on the CPU")
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = resolve_device(device)
         if (cfg.HT, cfg.WD) != (ht, wd):
             cfg = cfg.replace(HT=ht, WD=wd)
         if cfg.PATCH_SELECTOR != "scorer":
@@ -107,14 +114,21 @@ class DEVO:
                 f"CORR_KERNEL={cfg.CORR_KERNEL!r}: only {corr_cuda.KERNELS} "
                 f"are ported (ROADMAP Queue 2 lists the rest)")
         self.cfg = cfg
+        self._ht, self._wd = ht, wd
         self.l4_resident = l4_resident(cfg, ht, wd)
-        self.device = torch.device(device)
+        self.device = device
         self.net = EVONet(P=cfg.P, dim_inet=cfg.DIM_INET, dim_fnet=cfg.DIM_FNET,
                           dim=cfg.DIM, bins=cfg.BINS)
         self.net.load_state_dict(load_weights(weights), strict=True)
         self.net.to(self.device).eval()
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device)
+        self._init_state(seed)
 
+    def _init_state(self, seed: int):
+        """The tracking state of a new sequence: empty buffers, rings and
+        edge table, and the generator at `seed`."""
+        cfg, ht, wd = self.cfg, self._ht, self._wd
+        self.generator.manual_seed(seed)
         N, M, P, mem = cfg.BUFFER_SIZE, cfg.M, cfg.P, cfg.MEM
         h1, w1 = ht // 4, wd // 4
         dev = self.device
@@ -146,6 +160,24 @@ class DEVO:
         self.counter = 0            # frames tracked
         self.initialized = False
         self.aux_log: List[Tuple[float, StepAux]] = []
+
+    def reset(self, seed: int = 0, weights=None):
+        """Start a new sequence or trial on this engine (counterpart of
+        devo_tpu's DEVO.reset): the tracking state, the rings, the edge
+        table, `aux_log` and the generator go back to what the constructor
+        makes for `seed`, the network stays on the device, and `weights` (a
+        state dict or a checkpoint path), when given, are loaded into it. A
+        reset engine tracks as a fresh one with the same seed does.
+
+        devo_tpu's upload / upload_batch / VOXEL_WIRE / _rebucket /
+        wait_buckets have no counterpart here: they batch transfers through
+        a tunnel and manage compiled shapes, and this engine runs eagerly
+        and takes each frame by a plain host-to-device copy."""
+        if weights is not None:
+            self.net.load_state_dict(load_weights(weights), strict=True)
+        # release the rings before their replacements are allocated
+        self.fmap1 = self.fmap2 = self.gmap = self.imap = None
+        self._init_state(seed)
 
     # ------------------------------------------------------------ helpers
 

@@ -163,15 +163,82 @@ def test_split_kernels_stacked_match_the_two_level_kernel(dev, dtype, resident):
                                    resident=resident)
     assert corr_cuda.launches == {
         "corr_pyramid": 1, "corr_level": 1 if resident else 2,
-        "corr_level_resident": int(resident)}
+        "corr_level_resident": int(resident), "corr_pair": 0, "corr_pair2": 0}
     torch.testing.assert_close(split, mono, **TOL)
+
+
+PAIR = pytest.mark.parametrize("kernel", ["pair", "pair2"])
+
+
+@PAIR
+@DTYPES
+@pytest.mark.parametrize("E", [0, 1, 96, 5003])
+def test_pair_kernels_match_plain_and_the_two_level_kernel(dev, kernel, dtype, E):
+    """corr_pair and corr_pair2 against the plain version and against
+    corr_pyramid's kernel, which divides the coordinates as they do: also
+    where a coordinate sits on an integer after the division by 4, on edges
+    that share ring slots and patches (16 patches, 4 slots), at an E that
+    is no multiple of anything, and at E = 0 (an empty result, no launch)."""
+    *args, scales = _case(dev, dtype, E=E)
+    name = "corr_" + kernel
+    before = corr_cuda.launches[name]
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    torch.cuda.synchronize()
+    assert corr_cuda.launches[name] == before + (E > 0)
+    assert got.shape == (E, 2 * 49 * 9) and got.dtype == torch.float32
+    want = corr_plain.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(got, want, **TOL)
+    mono = corr_cuda.corr_pyramid(*args, scales=scales, kernel="mono")
+    torch.testing.assert_close(got, mono, **TOL)
+
+
+@PAIR
+@pytest.mark.parametrize("dtype", ["bf16", "i8"])
+def test_pair_kernels_wide_windows_read_the_ring_directly(dev, kernel, dtype):
+    """Patches distorted beyond the staged window's capacity (jitter 3 px at
+    level 1: windows up to ~20x20 vectors) read that level's taps from the
+    ring while the other level's window is still staged."""
+    *args, scales = _case(dev, dtype, E=200, jitter=3.0)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    want = corr_plain.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@PAIR
+@pytest.mark.parametrize("dtype,C", [("bf16", 12), ("i8", 8), ("i8", 32),
+                                     ("f32", 4)])
+def test_pair_kernels_narrow_feature_vectors(dev, kernel, dtype, C):
+    """C = 12 in bf16 (24 bytes a vector) and C = 8 in int8 (8 bytes) are no
+    multiple of the 16-byte copies: nothing is staged, every tap reads the
+    ring. C = 32 in int8 and C = 4 in f32 are staged at the narrowest."""
+    *args, scales = _case(dev, dtype, E=150, C=C)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    want = corr_plain.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@PAIR
+def test_pair_kernels_full_size_rings(dev, kernel):
+    """The slice's rings (32 slots of 120x160 and 30x40, C = 128) at more
+    edges than the persistent grid has blocks."""
+    *args, scales = _case(dev, "i8", E=3000, mem=32, H=120, W=160)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    want = corr_plain.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_pair2_occupancy_query(dev):
+    assert corr_cuda.pair2_blocks_per_sm(3, 128, torch.bfloat16, torch.int8) >= 1
+    assert corr_cuda.pair2_blocks_per_sm(3, 128, torch.bfloat16,
+                                         torch.bfloat16) >= 1
 
 
 @DTYPES
 def test_kernel_off_image_taps_are_zero(dev, dtype):
     gmap, pyr, coords, kk, jj, scales = _case(dev, dtype, E=64)
     for kernel, resident in (("mono", False), ("split", False),
-                             ("split", dtype.endswith("i8"))):
+                             ("split", dtype.endswith("i8")),
+                             ("pair", False), ("pair2", False)):
         got = corr_cuda.corr_pyramid(gmap, pyr, coords - 400.0, kk, jj,
                                      scales=scales, kernel=kernel,
                                      resident=resident)
@@ -181,7 +248,8 @@ def test_kernel_off_image_taps_are_zero(dev, dtype):
 def test_kernel_empty_edge_set_launches_nothing(dev):
     gmap, pyr, coords, kk, jj, scales = _case(dev, "i8", E=8)
     corr_cuda.reset_launches()
-    for kernel, resident in (("mono", False), ("split", False), ("split", True)):
+    for kernel, resident in (("mono", False), ("split", False), ("split", True),
+                             ("pair", False), ("pair2", False)):
         got = corr_cuda.corr_pyramid(gmap, pyr, coords[:0], kk[:0], jj[:0],
                                      scales=scales, kernel=kernel,
                                      resident=resident)
@@ -200,7 +268,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         (gmap, (pyr[0].transpose(1, 2), pyr[1]), coords, kk, jj),  # strides
     ]
     for args in bad:
-        for kernel in ("mono", "split"):
+        for kernel in corr_cuda.KERNELS:
             with pytest.raises(ValueError):
                 corr_cuda.corr_pyramid(*args, kernel=kernel)
     with pytest.raises(ValueError):          # coords not contiguous
@@ -209,3 +277,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         corr_cuda.corr_pyramid(gmap, pyr, coords, kk, jj, radius=2)
     with pytest.raises(ValueError):          # scales with float rings
         corr_cuda.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales)
+    for kernel in ("pair", "pair2"):         # copies need aligned coords
+        with pytest.raises(ValueError):
+            corr_cuda.corr_pyramid(gmap, pyr, coords.flatten()[2:-16].view(
+                -1, 3, 3, 2), kk[:-1], jj[:-1], kernel=kernel)

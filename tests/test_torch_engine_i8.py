@@ -263,7 +263,7 @@ def test_corr_knob_rules():
         l4_resident(split.replace(CORR_L4_RESIDENT="maybe"), 480, 640)
     weights = jax_params_to_state_dict(make_params(JCFG))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        DEVO(BASE.replace(CORR_KERNEL="pair"), weights, ht=HT, wd=WD,
+        DEVO(BASE.replace(CORR_KERNEL="mono3"), weights, ht=HT, wd=WD,
              device="cpu")
     with pytest.raises(ValueError):
         DEVO(BASE.replace(CORR_L4_RESIDENT="on"), weights, ht=HT, wd=WD,

@@ -7,6 +7,8 @@ the test environment may import jax at start-up on its own.
 """
 import ast
 import importlib
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -42,8 +44,49 @@ def test_forbidden_names_are_caught():
         "jax.numpy", "devo_tpu.lie", "flax"]
 
 
-def test_every_port_module_imports_on_cpu():
-    """Importing a module builds no kernel and needs no CUDA."""
+def _module_names():
     for path in SOURCES[:-1]:
         mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
-        importlib.import_module(mod.removesuffix(".__init__"))
+        yield mod.removesuffix(".__init__")
+
+
+def test_every_port_module_imports_on_cpu():
+    """Importing a module builds no kernel and needs no CUDA."""
+    for mod in _module_names():
+        importlib.import_module(mod)
+
+
+def test_new_modules_are_covered():
+    names = set(_module_names())
+    assert {"devo_tpu_torch.eval.harness", "devo_tpu_torch.eval.cli",
+            "devo_tpu_torch.eval.ate", "devo_tpu_torch.eval.ate_check",
+            "devo_tpu_torch.utils.pose_utils",
+            "devo_tpu_torch.data.event_utils", "devo_tpu_torch.data.loaders",
+            "devo_tpu_torch.data.benchmarks"} <= names
+
+
+OPTIONAL = ("h5py", "cv2", "yaml", "matplotlib")
+
+
+def test_port_modules_import_without_the_optional_libraries():
+    """The machine with the GPU has numpy, scipy and torch, and none of
+    h5py, cv2, yaml and matplotlib: every module of the port imports in an
+    interpreter that refuses those four (they are needed only once a
+    function reads a dataset, a yaml file or draws a plot)."""
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        f"BLOCKED = {OPTIONAL!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(name + ' is blocked')\n"
+        "for m in BLOCKED:\n"
+        "    sys.modules.pop(m, None)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {sorted(_module_names())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not set(BLOCKED) & set(sys.modules)\n"
+        "print('imported')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "imported" in res.stdout, res.stderr[-2000:]
