@@ -4,30 +4,37 @@
 
 1. Prints the card (`nvidia-smi` name and power limit) and the torch / CUDA
    versions.
-2. Builds the correlation kernels (csrc/*.cu, one nvcc call for sm_90a) into
-   devo_tpu_torch/_build/ and prints ptxas's register report.
+2. Builds the correlation kernels (csrc/*.cu for sm_90a, one nvcc process a
+   file, all at once, then one link) into devo_tpu_torch/_build/ and prints
+   ptxas's register report.
 3. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the tracking step's shapes (E = 12288 edges, E = 96 for the motion
-   probe, a ragged E; C = 128, mem = 32, rings of 120x160 and 30x40,
-   coordinates partly off the image): the three two-level kernels
-   (corr_pyramid, corr_pair, corr_pair2) on bf16 and on int8 rings, the
-   per-level kernel on both levels and both ring types, the resident
-   level-4 kernel on int8 rings; the per-level kernels stacked, and
-   corr_pair and corr_pair2, against corr_pyramid; and corr_pair and
-   corr_pair2 at a narrow width (C = 8) whose int8 feature vectors are too
-   short for the 16-byte copies, so that every tap reads the ring
-   directly. Max error against the stated tolerance, the
-   median time of each, and the kernel's bound: the least time the card
-   could take, the larger of the bytes it must move (the ring positions its
-   taps touch, the distinct patch features, coordinates, indices, scales and
-   the output, each once) over 3.35 TB/s and its operations over 989
+   probe, a ragged odd E = 5003, E = 0; C = 128, mem = 32, rings of 120x160
+   and 30x40, coordinates partly off the image): the six two-level kernels
+   (corr_pyramid, corr_pair, corr_pair2, corr_mono2 with and without its
+   gathering copy, corr_mono3) on bf16 and on int8 rings, the per-level
+   kernels (corr_level, corr_level_pipe, corr_group) on both levels and
+   both ring types, the resident level-4 kernel on int8 rings; every kernel
+   choice of the entry point against corr_pyramid's kernel (both must floor
+   the same coordinates); the kernels with staged windows at a narrow width
+   (C = 8) whose int8 feature vectors are too short for the 16-byte copies,
+   so that every tap reads the ring directly, and on patches distorted
+   beyond the staged window. corr_group's products pass through a bf16
+   surface: it is held against its own plain version, which rounds at the
+   same place, within one bf16 ulp of the largest product, and against the
+   unrounded correlation within half an ulp. Max error against the stated
+   tolerance, the median time of each, and the kernel's bound: the least
+   time the card could take, the larger of the bytes it must move (the ring
+   positions its taps touch, the distinct patch features, coordinates,
+   indices, scales and the output, each once; for corr_group also its
+   surface, written and read) over 3.35 TB/s and its operations over 989
    TFLOP/s.
 4. Reference phase: the port's DEVO on the card against the same engine on
    the CPU (plain correlation; the CPU tests hold that path against the JAX
-   package) at a small f32 size, for unquantised rings (corr_pyramid,
-   corr_pair, corr_pair2) and for the five int8 configurations: the same
-   keyframes, culls and edge sets per frame, and poses and terminate()
-   output within the stated tolerance.
+   package) at a small f32 size, for unquantised rings on every kernel
+   choice and for the int8 configurations: the same keyframes, culls and
+   edge sets per frame, and poses and terminate() output within the stated
+   tolerance.
 5. Slice phase: the port's DEVO at full width (480x640, 96 patches, mixed
    precision) with seeded random weights over frames of a sliding event
    texture, then 12 update() calls and terminate(), on three paths of 48
@@ -54,7 +61,17 @@
    artifacts on disk, one launch of the configuration's kernel per
    correlation of the run and no plain-correlation call. Under random
    weights the ATE says nothing about accuracy.
-7. Prints the kernels' JSON record, the card line, and as its last line
+7. Bench phase: the bench entry point at full width,
+   devo_tpu_torch.bench.run: the saturated 12288-edge point with the default
+   kernel at the bench's full length (12 windows of 28 frames after the
+   warm-up has brought the live edge count to the cap), then with each of
+   CORR_KERNEL = split2, g8c, mono2, mono4, mono3 at 4 windows of 28 after
+   the same warm-up rule, then the no-cull maximum-load point with the
+   default kernel. Each prints the bench's JSON line and must reach its
+   operating point, end with a finite pose per frame, and show launches > 0
+   of the kernel it names, of no other, and no plain-correlation call. The
+   profiled path of phase 5 runs after this one, last.
+8. Prints the kernels' JSON record, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 With no CUDA device it exits non-zero before any result. Any failed build,
@@ -95,6 +112,15 @@ KERNELS = {
                   "devo_tpu/ops/corr_pallas.py:1225", "corr_pair_kernel"),
     "corr_pair2": ("devo_tpu_torch/csrc/corr_pair2.cu",
                    "devo_tpu/ops/corr_pallas.py:1433", "corr_pair2_kernel"),
+    "corr_level_pipe": ("devo_tpu_torch/csrc/corr_level_pipe.cu",
+                        "devo_tpu/ops/corr_pallas.py:441",
+                        "corr_level_pipe_kernel"),
+    "corr_group": ("devo_tpu_torch/csrc/corr_group.cu",
+                   "devo_tpu/ops/corr_pallas.py:614", "corr_group_kernel"),
+    "corr_mono2": ("devo_tpu_torch/csrc/corr_mono2.cu",
+                   "devo_tpu/ops/corr_pallas.py:1618", "corr_mono2_kernel"),
+    "corr_mono3": ("devo_tpu_torch/csrc/corr_mono3.cu",
+                   "devo_tpu/ops/corr_pallas.py:1736", "corr_mono3_kernel"),
 }
 # the three paths of the slice phase: VOConfig overrides and the kernels
 # each must launch. The profiled path runs last, so that no path is timed
@@ -119,6 +145,19 @@ EVAL_PATHS = {
 }
 EVAL_TRIALS = 2
 OUT_DIR = "chiprun_out/eval_smoke"
+# the runs of the bench phase: VOConfig overrides, whether the run has the
+# bench's full length (else 4 windows of 28 frames), the kernel it must
+# launch
+BENCH_PATHS = {
+    "bench-12288-mono": (dict(), True, "corr_pyramid"),
+    "bench-12288-split2": (dict(CORR_KERNEL="split2"), False, "corr_level_pipe"),
+    "bench-12288-g8c": (dict(CORR_KERNEL="g8c"), False, "corr_group"),
+    "bench-12288-mono2": (dict(CORR_KERNEL="mono2"), False, "corr_mono2"),
+    "bench-12288-mono4": (dict(CORR_KERNEL="mono4"), False, "corr_mono2"),
+    "bench-12288-mono3": (dict(CORR_KERNEL="mono3"), False, "corr_mono3"),
+    "bench-maxload-mono": (dict(KEYFRAME_THRESH=-1.0), True, "corr_pyramid"),
+}
+BENCH_SHORT = dict(n_bench=112, windows=4)
 
 
 def card() -> str:
@@ -193,10 +232,23 @@ def level_work(fmap, coords, jj):
     return int(touched.sum()) * C * fmap.element_size(), int(inb.sum())
 
 
-def bound_ms(gmap, rings, strides, scales, coords, kk, jj):
+def surface_bytes(coords):
+    """Bytes of corr_group's surface that one level's correlation of these
+    coordinates (at the level's resolution) writes and reads back: 32 bytes a
+    written row (an edge's window positions, or its 64 taps where the window
+    is beyond the surface's rows), and 2 bytes a pixel of them read."""
+    from devo_tpu_torch.ops import corr as plain
+    _, y0, _, _, ww, wide = plain._group_index(coords, plain.GROUP_ROWS)
+    wh = y0.amax(1, keepdim=True) - y0.amin(1, keepdim=True) + 8
+    rows = int(torch.where(wide, torch.full_like(ww, 64), ww * wh).sum())
+    return rows * (2 * plain.GROUP_LANES + 2 * y0.shape[1])
+
+
+def bound_ms(gmap, rings, strides, scales, coords, kk, jj, surface=False):
     """The least time the card could take for the correlation of these
     inputs over `rings` (one per level, coords divided by its stride): the
-    larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s. Returns
+    larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s. `surface`: the
+    function also writes and reads corr_group's surface. Returns
     (ms, "bytes" or "operations")."""
     E, P = coords.shape[0], coords.shape[1]
     C = gmap.shape[-1]
@@ -208,6 +260,8 @@ def bound_ms(gmap, rings, strides, scales, coords, kk, jj):
     for ring, stride, scale in zip(rings, strides, scales):
         ring_bytes, taps = level_work(ring, coords / stride, jj)
         nbytes += ring_bytes + (scale.numel() * 4 if scale is not None else 0)
+        if surface:
+            nbytes += surface_bytes(coords / stride)
         flops += 2 * C * taps
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -215,7 +269,7 @@ def bound_ms(gmap, rings, strides, scales, coords, kk, jj):
 
 def variants(case):
     """Every (kernel name, label, kernel call, plain call, bound arguments)
-    measured on one case."""
+    measured on one case. corr_group's plain version is corr_level_group."""
     from devo_tpu_torch.ops import corr as plain
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = case
@@ -229,9 +283,14 @@ def variants(case):
                     lambda pyr=pyr, scales=scales: plain.corr_pyramid(
                         gmap, pyr, coords, kk, jj, scales=scales),
                     (pyr, (1, 4), ss)))
-        for name, fn in (("corr_pair", cc.corr_pair_cuda),
-                         ("corr_pair2", cc.corr_pair2_cuda)):
-            out.append((name, f"both levels {label}",
+        for name, what, fn in (
+                ("corr_pair", "", cc.corr_pair_cuda),
+                ("corr_pair2", "", cc.corr_pair2_cuda),
+                ("corr_mono2", " gathered", cc.corr_mono2_cuda),
+                ("corr_mono2", " in place",
+                 lambda *a, **k: cc.corr_mono2_cuda(*a, concat=False, **k)),
+                ("corr_mono3", "", cc.corr_mono3_cuda)):
+            out.append((name, f"both levels {label}{what}",
                         lambda fn=fn, pyr=pyr, scales=scales: fn(
                             gmap, pyr[0], pyr[1], coords, kk, jj, scales=scales),
                         lambda pyr=pyr, scales=scales: plain.corr_pyramid(
@@ -242,6 +301,18 @@ def variants(case):
                         lambda r=pyr[n], c=c, s=ss[n]: cc.corr_level_cuda(
                             gmap, r, c, kk, jj, s),
                         lambda r=pyr[n], c=c, s=ss[n]: plain.corr_level(
+                            gmap, r, c, kk, jj, s),
+                        ((pyr[n],), (lvl,), (ss[n],))))
+            out.append(("corr_level_pipe", f"level {lvl} {label}",
+                        lambda r=pyr[n], c=c, s=ss[n]: cc.corr_level_pipe_cuda(
+                            gmap, r, c, kk, jj, s),
+                        lambda r=pyr[n], c=c, s=ss[n]: plain.corr_level(
+                            gmap, r, c, kk, jj, s),
+                        ((pyr[n],), (lvl,), (ss[n],))))
+            out.append(("corr_group", f"level {lvl} {label}",
+                        lambda r=pyr[n], c=c, s=ss[n]: cc.corr_group_cuda(
+                            gmap, r, c, kk, jj, s),
+                        lambda r=pyr[n], c=c, s=ss[n]: plain.corr_level_group(
                             gmap, r, c, kk, jj, s),
                         ((pyr[n],), (lvl,), (ss[n],))))
     out.append(("corr_level_resident", "level 4 i8",
@@ -255,7 +326,37 @@ def variants(case):
 # the default (int8) configurations run at the step's edge count
 REPORTED = {"corr_pyramid": "both levels i8", "corr_level": "level 1 i8",
             "corr_level_resident": "level 4 i8", "corr_pair": "both levels i8",
-            "corr_pair2": "both levels i8"}
+            "corr_pair2": "both levels i8", "corr_level_pipe": "level 1 i8",
+            "corr_group": "level 1 i8", "corr_mono2": "both levels i8 gathered",
+            "corr_mono3": "both levels i8"}
+# the kernel choices of the entry point that compute corr_pyramid's function
+EXACT = ("pair", "pair2", "mono2", "mono4", "mono3", "split2")
+
+
+def own_plain(kernel, gmap, pyr, coords, kk, jj, scales):
+    """The plain version of the entry point's kernel choice `kernel` on these
+    inputs, and the tolerance it is held to: corr_pyramid and TOL, or for
+    "g8c" the stacked corr_level_group and one bf16 ulp of the largest
+    output (see group_tol)."""
+    from devo_tpu_torch.ops import corr as plain
+    if kernel != "g8c":
+        return plain.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales), TOL
+    ref = plain.stack_levels(
+        plain.corr_level_group(gmap, r, coords / lvl, kk, jj, s)
+        for r, lvl, s in zip(pyr, (1, 4), scales or (None, None)))
+    return ref, group_tol(ref)
+
+
+def group_tol(want):
+    """The tolerance of corr_group against `want`, the result of
+    corr_level_group, where both round the same f32 sums to bf16: a sum taken
+    in another order may cross a rounding boundary, and the two then lie one
+    bf16 ulp apart, at most 2^-7 of the product; the blend is a convex
+    combination of taps, so one ulp of the largest tap bounds an output too.
+    The largest output stands in for the largest tap (a pixel on the integer
+    grid has its taps as outputs), with the f32 noise of TOL on top."""
+    return dict(atol=2.0 ** -7 * want.abs().max().item() + TOL["atol"],
+                rtol=TOL["rtol"])
 
 
 def kernel_phase(dev, gpu: str):
@@ -270,12 +371,14 @@ def kernel_phase(dev, gpu: str):
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, **TOL)
+            tol = group_tol(want) if name == "corr_group" else TOL
+            torch.testing.assert_close(got, want, **tol)
             ms = median_ms(kernel)
             plain_ms = median_ms(plain, launches=2, repeats=3)
-            b_ms, b_by = bound_ms(gmap, rings, strides, scales, coords, kk, jj)
+            b_ms, b_by = bound_ms(gmap, rings, strides, scales, coords, kk, jj,
+                                  surface=name == "corr_group")
             print(f"{name} [{label}] E={E}: max_abs_err {err:.3e} within atol "
-                  f"{TOL['atol']} + rtol {TOL['rtol']}; median kernel "
+                  f"{tol['atol']:.3g} + rtol {tol['rtol']}; median kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}) [{gpu}]", flush=True)
             rec = record[name]
@@ -298,8 +401,11 @@ def kernel_phase(dev, gpu: str):
             print(f"split vs mono [{label}] E={E}: max abs diff "
                   f"{(split - mono).abs().max().item():.3e} [{gpu}]", flush=True)
             if resident:
+                for kernel in ("split2", "g8c"):
+                    group_vs_mono(cc, kernel, True, label, mono, gmap, pyr,
+                                  coords, kk, jj, scales, E, gpu)
                 continue
-            for kernel in ("pair", "pair2"):
+            for kernel in EXACT:
                 got = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
                                       kernel=kernel)
                 torch.cuda.synchronize()
@@ -307,46 +413,134 @@ def kernel_phase(dev, gpu: str):
                 print(f"{kernel} vs mono [{label}] E={E}: max abs diff "
                       f"{(got - mono).abs().max().item():.3e} [{gpu}]",
                       flush=True)
+            group_vs_mono(cc, "g8c", False, label, mono, gmap, pyr, coords, kk,
+                          jj, scales, E, gpu)
+        if E == E_MAIN:
+            group_stages(case, gpu)
     for ring in (torch.bfloat16, torch.int8):
         blocks = cc.pair2_blocks_per_sm(3, 128, torch.bfloat16, ring)
         print(f"corr_pair2 [{ring} rings, C=128]: {blocks} block(s) of 384 "
               f"threads per SM [{gpu}]", flush=True)
+        blocks = cc.level_pipe_blocks_per_sm(3, 128, torch.bfloat16, ring)
+        print(f"corr_level_pipe [{ring} rings, C=128]: {blocks} block(s) of "
+              f"192 threads per SM [{gpu}]", flush=True)
+        cap, depth = cc.mono3_plan(3, 128, ring)
+        print(f"corr_mono3 [{ring} rings, C=128]: windows of {cap} vectors, a "
+              f"ring of {depth} stages, runs of {cc.mono3_run(E_MAIN, dev)} "
+              f"edges at E={E_MAIN} [{gpu}]", flush=True)
+    empty_case(dev, gpu)
     narrow_case(dev, gpu, record)
+    wide_case(dev, gpu, record)
     return record
 
 
-def narrow_case(dev, gpu: str, record):
-    """corr_pair and corr_pair2 at C = 8: an int8 feature vector is 8 bytes,
-    no multiple of the 16-byte copies, so nothing is staged and every tap
-    reads the ring directly; a bf16 vector is 16 bytes, the narrowest that
-    is staged."""
+def group_vs_mono(cc, kernel, resident, label, mono, gmap, pyr, coords, kk, jj,
+                  scales, E, gpu):
+    """A per-level kernel choice (with or without the resident level 4)
+    against corr_pyramid's kernel: "split2" within TOL; "g8c" within the
+    bf16 budget, half an ulp a tap, 2^-8 of the largest output."""
+    got = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
+                          kernel=kernel, resident=resident)
+    torch.cuda.synchronize()
+    tol = TOL
+    if kernel == "g8c":
+        tol = dict(atol=2.0 ** -8 * mono.abs().max().item() + TOL["atol"],
+                   rtol=TOL["rtol"])
+    torch.testing.assert_close(got, mono, **tol)
+    print(f"{kernel}{' + resident' if resident else ''} vs mono [{label}] "
+          f"E={E}: max abs diff {(got - mono).abs().max().item():.3e} (atol "
+          f"{tol['atol']:.3g}) [{gpu}]", flush=True)
+
+
+def group_stages(case, gpu: str):
+    """corr_group's two stages timed apart at the step's edge count: the
+    kernel that writes the surface, and the tensor code that reads it."""
     from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = case
+    for label, ring, scale in (("level 1 bf16", bf[0], None),
+                               ("level 1 i8", i8[0], sc[0])):
+        surface, cap = cc.group_surface_cuda(gmap, ring, coords, kk, jj, scale)
+        k_ms = median_ms(lambda: cc.group_surface_cuda(gmap, ring, coords, kk,
+                                                       jj, scale))
+        x_ms = median_ms(lambda: plain.extract_blend_group(
+            surface, coords, jj, ring.shape[1:3], scale, cap))
+        print(f"corr_group [{label}] E={coords.shape[0]}: the kernel (stage 1) "
+              f"{k_ms:.4f} ms, extraction and blend (stage 2, tensor code) "
+              f"{x_ms:.4f} ms; surface {surface.numel() * 2 / 2**20:.1f} MiB "
+              f"[{gpu}]", flush=True)
+
+
+def empty_case(dev, gpu: str):
+    """E = 0: an empty result of the right shape and no launch, on every
+    kernel choice."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = corr_case(8, dev, 4)
+    before = dict(cc.launches)
+    for kernel in cc.KERNELS:
+        got = cc.corr_pyramid(gmap, i8, coords[:0], kk[:0], jj[:0], scales=sc,
+                              kernel=kernel)
+        if got.shape != (0, 882) or cc.launches != before:
+            raise RuntimeError(f"{kernel} at E=0: {tuple(got.shape)}, "
+                               f"launches {cc.launches}")
+    print(f"E=0: every kernel choice returns (0, 882) and launches nothing "
+          f"[{gpu}]", flush=True)
+
+
+# kernel choice -> the launch counters it runs on
+COUNTERS = {"pair": ("corr_pair",), "pair2": ("corr_pair2",),
+            "mono2": ("corr_mono2",), "mono4": ("corr_mono2",),
+            "mono3": ("corr_mono3",), "split2": ("corr_level_pipe",),
+            "g8c": ("corr_group",)}
+
+
+def narrow_case(dev, gpu: str, record):
+    """The kernels with staged windows at C = 8: an int8 feature vector is 8
+    bytes, no multiple of the 16-byte copies, so nothing is staged and every
+    tap reads the ring directly (corr_group keeps taps in its rows); a bf16
+    vector is 16 bytes, the narrowest that is staged."""
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = corr_case(5003, dev, 3, C=8)
     for label, pyr, scales in (("i8, direct reads", i8, sc),
                                ("bf16, staged", bf, None)):
-        want = plain.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales)
-        for kernel in ("pair", "pair2"):
-            got = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
-                                  kernel=kernel)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            torch.testing.assert_close(got, want, **TOL)
-            rec = record["corr_" + kernel]
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            print(f"corr_{kernel} [C=8 {label}] E=5003: max_abs_err {err:.3e} "
-                  f"within atol {TOL['atol']} + rtol {TOL['rtol']} [{gpu}]",
-                  flush=True)
+        held_to_plain(cc, "C=8 " + label, gmap, pyr, coords, kk, jj, scales,
+                      record, gpu)
 
 
-def frames(n: int):
-    """bench.py's synthetic stream: a sliding 5-bin event texture."""
-    rng = np.random.default_rng(0)
-    base = rng.standard_normal((HT, WD * 2, 5)).astype(np.float32)
-    base *= rng.random((HT, WD * 2, 5)) < 0.1
-    for i in range(n):
-        sh = (3 * i) % WD
-        yield base[:, sh:sh + WD]
+def held_to_plain(cc, label, gmap, pyr, coords, kk, jj, scales, record, gpu):
+    """Every kernel choice of COUNTERS on one case against its plain version
+    (own_plain)."""
+    for kernel, names in COUNTERS.items():
+        got = cc.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales,
+                              kernel=kernel)
+        ref, tol = own_plain(kernel, gmap, pyr, coords, kk, jj, scales)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, **tol)
+        for name in names:
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+        print(f"{kernel} [{label}] E={coords.shape[0]}: max_abs_err {err:.3e} "
+              f"within atol {tol['atol']:.3g} + rtol {tol['rtol']} [{gpu}]",
+              flush=True)
+
+
+def wide_case(dev, gpu: str, record):
+    """Patches distorted beyond the staged window's capacity (every pixel
+    moved 3 px on its own: level-1 windows up to about 20x20 vectors): the
+    tap kernels read such a level from the ring, corr_mono3 takes its tap
+    buffer, and corr_group keeps the edge's taps in its surface rows."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = corr_case(1001, dev, 5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    coords = coords + 3.0 * torch.randn(coords.shape, generator=g, device=dev)
+    wide = plain._group_index(coords, plain.GROUP_ROWS)[-1]
+    if int(wide.sum()) < 100:
+        raise RuntimeError(f"wide case: {int(wide.sum())} wide windows")
+    for label, pyr, scales in (("wide windows i8", i8, sc),
+                               ("wide windows bf16", bf, None)):
+        held_to_plain(cc, label, gmap, pyr, coords, kk, jj, scales, record,
+                      gpu)
 
 
 def profile_frames(slam, stream, intr, gpu: str):
@@ -414,6 +608,17 @@ REFERENCE = {
     "f32 rings pair2": dict(CORR_RING_I8=False, CORR_KERNEL="pair2"),
     "i8-pair": dict(CORR_RING_I8=True, CORR_KERNEL="pair"),
     "i8-pair2": dict(CORR_RING_I8=True, CORR_KERNEL="pair2"),
+    "f32 rings split2": dict(CORR_RING_I8=False, CORR_KERNEL="split2"),
+    "f32 rings mono2": dict(CORR_RING_I8=False, CORR_KERNEL="mono2"),
+    "f32 rings mono4": dict(CORR_RING_I8=False, CORR_KERNEL="mono4"),
+    "f32 rings mono3": dict(CORR_RING_I8=False, CORR_KERNEL="mono3"),
+    # the CPU engine takes corr_level_group, which rounds its products to
+    # bf16 where the kernel does: the same tolerance holds
+    "f32 rings g8c": dict(CORR_RING_I8=False, CORR_KERNEL="g8c"),
+    "i8-split2-resident": dict(CORR_RING_I8=True, CORR_KERNEL="split2",
+                               CORR_L4_RESIDENT="auto"),
+    "i8-mono3": dict(CORR_RING_I8=True, CORR_KERNEL="mono3"),
+    "i8-g8c": dict(CORR_RING_I8=True, CORR_KERNEL="g8c"),
 }
 # pose atol: float noise compounds over the 12-update initialization and the
 # per-frame BA; with int8 rings a feature that rounds the other way on the
@@ -494,6 +699,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
 def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     """One path of PATHS at full width. Returns (launches of each kernel on
     the path, max error of its kernels on the engine's final state)."""
+    from devo_tpu_torch.bench import frames
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
@@ -578,13 +784,49 @@ def engine_state_check(slam, label: str, gpu: str) -> float:
     scales = (slam.fsc1, slam.fsc2) if cfg.CORR_RING_I8 else None
     got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=cfg.CORR_KERNEL,
                                  resident=slam.l4_resident)
-    want = corr_plain.corr_pyramid(*args, scales=scales)
+    want, tol = own_plain(cfg.CORR_KERNEL, *args, scales)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got, want, **tol)
     print(f"engine state [{label}] E={slam.n_edges}: max_abs_err {err:.3e} "
-          f"within atol {TOL['atol']} + rtol {TOL['rtol']} [{gpu}]", flush=True)
+          f"within atol {tol['atol']:.3g} + rtol {tol['rtol']} [{gpu}]",
+          flush=True)
     return err
+
+
+def bench_phase(dev, gpu: str, label: str):
+    """One run of BENCH_PATHS through devo_tpu_torch.bench.run at full width.
+    Returns (launches of each kernel over the timed windows, max error of
+    the run's kernel against its plain version on the engine's final
+    state)."""
+    from devo_tpu_torch import bench
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+
+    knobs, full, kernel = BENCH_PATHS[label]
+    corr_cuda.reset_launches()
+    corr_plain.calls = 0
+    t0 = time.perf_counter()
+    res = bench.run(knobs, device=dev, **({} if full else BENCH_SHORT))
+    wall = time.perf_counter() - t0
+    launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
+    poses, slam = res.pop("poses"), res.pop("engine")
+    print(f"bench [{label}] ({wall:.1f} s): {json.dumps(res)}", flush=True)
+    n = res["frames_before_timing"] + (bench.N_BENCH if full
+                                       else BENCH_SHORT["n_bench"])
+    if not res["reached"]:
+        raise RuntimeError(f"{label}: the run did not reach its operating "
+                           f"point: {res['window_end_live_edges']}")
+    if poses.shape != (n, 7) or not np.isfinite(poses).all():
+        raise RuntimeError(f"{label}: trajectory {poses.shape} is not finite")
+    others = [k for k, v in launches.items() if v and k != kernel]
+    if launches[kernel] < 1 or others or plain_calls != 0 or res["launches"] != {
+            kernel: launches[kernel]}:
+        raise RuntimeError(f"{label}: expected launches of {kernel} alone, got "
+                           f"{launches} and {plain_calls} plain calls")
+    if res["card"] != gpu:
+        raise RuntimeError(f"{label}: the bench reports card {res['card']!r}")
+    return launches, engine_state_check(slam, label, gpu)
 
 
 def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
@@ -594,6 +836,7 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     kernel on the engine's final state)."""
     import os
 
+    from devo_tpu_torch.bench import frames
     from devo_tpu_torch.eval import harness
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
@@ -744,11 +987,15 @@ def main():
         if label != PROFILED:
             run_slice(label)
     engine_cache = {}
+    from devo_tpu_torch.bench import frames
     stream = [np.ascontiguousarray(v.transpose(2, 0, 1)) for v in frames(N_FRAMES)]
     for label, (_, name) in EVAL_PATHS.items():
         by_path[label], err = eval_phase(dev, gpu, label, engine_cache, stream)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     del engine_cache, stream
+    for label, (_, _, name) in BENCH_PATHS.items():
+        by_path[label], err = bench_phase(dev, gpu, label)
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     run_slice(PROFILED)              # last: nothing is timed after a profile
 
     kernels = []
@@ -763,6 +1010,9 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
+            "tolerance": ("one bf16 ulp of the largest product + "
+                          if name == "corr_group" else "")
+                         + f"atol {TOL['atol']} + rtol {TOL['rtol']}",
             "reported_variant": f"{REPORTED[name]}, E={E_MAIN}",
             "variants": rec["variants"]})
         if kernels[-1]["launches"] < 1:

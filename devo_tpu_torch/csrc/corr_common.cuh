@@ -3,9 +3,11 @@
 // feature vector as floats (f32, bf16 or int8 storage), the per-thread dot
 // product over the channels, the bilinear blend, and the launch helper that
 // opts a kernel in to more than 48 KB of dynamic shared memory; and, for the
-// two kernels that take both pyramid levels of an edge in one block
-// (corr_pair.cu, corr_pair2.cu), the asynchronous copies, the per-edge index
-// table, the staging of a level's window, one tap's dot and the blended row.
+// kernels that stage an edge's windows by asynchronous copies (corr_pair.cu,
+// corr_pair2.cu, corr_level_pipe.cu, corr_mono2.cu, corr_mono3.cu,
+// corr_group.cu), the copies, the per-edge index table, the staging of a
+// level's window, one tap's dot, the blended row, and the products of one
+// window position with every pixel of the patch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,22 +101,23 @@ __device__ __forceinline__ float blend_tap(const float* taps8x8, int ox, int oy,
 }
 
 constexpr size_t kDefaultSharedMemory = 48 * 1024;
+constexpr size_t kStaticSharedMemory = 8 * 1024;   // more than any kernel's
 
-// Allow `kernel` the dynamic shared memory `bytes` where that is more than
-// the 48 KB a launch gets by default. The attribute belongs to the kernel on
-// the current device, so it is set before every such launch (a cheap call)
-// and nothing is remembered across devices.
+// Allow `kernel` the dynamic shared memory `bytes` where that, with the
+// kernel's static shared memory, may be more than the 48 KB a launch gets by
+// default. The attribute belongs to the kernel on the current device, so it
+// is set before every such launch (a cheap call) and nothing is remembered
+// across devices.
 template <typename Kernel>
 inline cudaError_t allow_shared_memory(Kernel kernel, size_t bytes) {
-  if (bytes <= kDefaultSharedMemory) return cudaSuccess;
+  if (bytes + kStaticSharedMemory <= kDefaultSharedMemory) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
 // ---------------------------------------------------------------------------
-// The two-level kernels with one block per edge at a time (corr_pair.cu,
-// corr_pair2.cu).
+// The kernels that stage windows by asynchronous copies.
 
 // Asynchronous copies from device to shared memory (cp.async): the data goes
 // past the registers, and a thread goes on while its copies fly. Copies
@@ -144,12 +147,29 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// The same for a number of groups known only at run time (the instruction
+// takes a constant). Beyond 7 it waits for all but 7, which is the stricter
+// wait.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
 
 constexpr int kMaxPP = 16;      // pixels of a patch the index table holds
 
 // The arguments of a two-level kernel. G: type of the patch features, F:
 // type of the rings. coords is at level-1 resolution; level l divides it by
-// lvl[l], in the kernel, as csrc/corr.cu does.
+// lvl[l], in the kernel, as csrc/corr.cu does. A kernel that takes one level
+// a launch (level_args) fills level 0 alone, with lvl[0] = 1: its
+// coordinates come divided.
 template <typename G, typename F>
 struct PairArgs {
   const G* gmap;            // (Mring, PP, C)
@@ -179,14 +199,15 @@ struct EdgePrep {
 };
 
 // Fill `ep` for the edge with coordinates ce (PP x [x, y], in device or
-// shared memory) and ring indices kk, jj. Called by every lane of one warp;
-// the caller synchronises the block before another warp reads `ep`.
-template <typename G, typename F>
+// shared memory) and ring indices kk, jj, for the first L levels. Called by
+// every lane of one warp; the caller synchronises the block before another
+// warp reads `ep`.
+template <int L = 2, typename G, typename F>
 __device__ __forceinline__ void prep_edge(EdgePrep& ep, const PairArgs<G, F>& a,
                                           const float* ce, int kk, int jj,
                                           int lane) {
   const int PP = a.PP;
-  for (int t = lane; t < 2 * PP; t += 32) {
+  for (int t = lane; t < L * PP; t += 32) {
     const int lvl = t / PP;
     const int p = t - lvl * PP;
     const float s = lvl ? a.lvl[1] : a.lvl[0];
@@ -198,7 +219,7 @@ __device__ __forceinline__ void prep_edge(EdgePrep& ep, const PairArgs<G, F>& a,
     ep.fy[lvl][p] = y - floorf(y);
   }
   __syncwarp();
-  if (lane < 2) {
+  if (lane < L) {
     const int lvl = lane;
     int xmin = 0x7fffffff, xmax = -0x7fffffff, ymin = xmin, ymax = xmax;
     for (int p = 0; p < PP; ++p) {
@@ -218,14 +239,15 @@ __device__ __forceinline__ void prep_edge(EdgePrep& ep, const PairArgs<G, F>& a,
 }
 
 // Start the copies of level `lvl`'s window of the edge into `win`
-// ((cap, C), 16-byte aligned), by all `nthreads` threads of the block; a
-// feature vector is a multiple of 16 bytes wherever cap > 0. Positions off
-// the image stay unwritten: no tap reads them. The caller commits the group.
+// (cap vectors, `stride` elements apart, 16-byte aligned), by the `nthreads`
+// threads tid = 0 .. nthreads - 1; a feature vector is a multiple of 16 bytes
+// wherever cap > 0. Positions off the image stay unwritten: no tap reads
+// them. The caller commits the group.
 template <typename F>
 __device__ __forceinline__ void stage_window(F* win, const F* fbase,
                                              const EdgePrep& ep, int lvl, int H,
                                              int W, int C, int tid,
-                                             int nthreads) {
+                                             int nthreads, int stride) {
   const int ww = ep.ww[lvl];
   if (ww == 0) return;
   const int wx0 = ep.wx0[lvl];
@@ -240,9 +262,16 @@ __device__ __forceinline__ void stage_window(F* win, const F* fbase,
     const int iy = wy0 + r;
     const int ix = wx0 + pos - r * ww;
     if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      cp_async16(win + static_cast<size_t>(pos) * C + ch,
+      cp_async16(win + static_cast<size_t>(pos) * stride + ch,
                  fbase + (static_cast<size_t>(iy) * W + ix) * C + ch);
   }
+}
+template <typename F>
+__device__ __forceinline__ void stage_window(F* win, const F* fbase,
+                                             const EdgePrep& ep, int lvl, int H,
+                                             int W, int C, int tid,
+                                             int nthreads) {
+  stage_window(win, fbase, ep, lvl, H, W, C, tid, nthreads, C);
 }
 
 // One integer tap of pixel p at level `lvl`: <g[p], ring vector> times the
@@ -286,7 +315,144 @@ __device__ __forceinline__ void blend_pair_row(float* dst, const float* taps,
   }
 }
 
+// One level's output row from its taps ((PP, 8, 8) in shared memory):
+// dst[(ox * 7 + oy) * PP + p], by the threads tid = 0 .. nthreads - 1.
+__device__ __forceinline__ void blend_level_row(float* dst, const float* taps,
+                                                const EdgePrep& ep, int lvl,
+                                                int PP, int tid, int nthreads) {
+  const int n_out = kOut * kOut * PP;
+  for (int o = tid; o < n_out; o += nthreads) {
+    const int p = o % PP;
+    const int t = o / PP;
+    dst[o] = blend_frac(taps + p * kTaps * kTaps, t / kOut, t % kOut,
+                        ep.fx[lvl][p], ep.fy[lvl][p]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The product surface of a staged window (corr_mono3.cu, corr_group.cu): one
+// thread takes one window position and dots its feature vector with every
+// pixel of the patch, so the vector leaves shared memory once for PP dots and
+// the patch feature, which all lanes read at the same address, is broadcast.
+
+// A window of this kind keeps its vectors 16 bytes further apart than they
+// are long: the lanes of a warp, each on its own vector, then read their
+// 16-byte pieces from different banks (eight lanes cover the 32 banks).
+template <typename F>
+__host__ __device__ constexpr int padded_stride(int C) {
+  return C + 16 / static_cast<int>(sizeof(F));
+}
+
+// one 16-byte piece of a feature vector as floats: 4 f32, 8 bf16 or 16 int8
+__device__ __forceinline__ void load_piece(const float* p, float (&v)[4]) {
+  load4(p, v);
+}
+__device__ __forceinline__ void load_piece(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void load_piece(const int8_t* p, float (&v)[16]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+  constexpr float kBias = 8388608.0f + 128.0f;    // as load4 of int8
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned u = w[i] ^ 0x80808080u;
+    v[4 * i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kBias;
+    v[4 * i + 1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kBias;
+    v[4 * i + 2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kBias;
+    v[4 * i + 3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kBias;
+  }
+}
+
+// acc[p] = <g[p], vec> for p < N: g (N, C) f32 in shared memory, vec one
+// feature vector of a padded window (16-byte aligned, C a multiple of the
+// piece). N is the patch's pixel count as a constant, so that the sums stay
+// in registers.
+template <int N, typename F>
+__device__ __forceinline__ void position_products(const float* g, const F* vec,
+                                                  int C, float (&acc)[N]) {
+  constexpr int kPiece = 16 / sizeof(F);
+#pragma unroll
+  for (int p = 0; p < N; ++p) acc[p] = 0.0f;
+  for (int c = 0; c < C; c += kPiece) {
+    float v[kPiece];
+    load_piece(vec + c, v);
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      const float* gp = g + p * C + c;
+#pragma unroll
+      for (int i = 0; i < kPiece; i += kVec) {
+        const float4 gv = *reinterpret_cast<const float4*>(gp + i);
+        acc[p] = fmaf(gv.x, v[i], acc[p]);
+        acc[p] = fmaf(gv.y, v[i + 1], acc[p]);
+        acc[p] = fmaf(gv.z, v[i + 2], acc[p]);
+        acc[p] = fmaf(gv.w, v[i + 3], acc[p]);
+      }
+    }
+  }
+}
+
+// The same for a pixel count known only at run time (PP <= kMaxPP): one dot
+// at a time into out[p * out_stride].
+template <typename F>
+__device__ __forceinline__ void position_products_any(const float* g,
+                                                      const F* vec, int C,
+                                                      int PP, float* out,
+                                                      int out_stride) {
+  constexpr int kPiece = 16 / sizeof(F);
+  for (int p = 0; p < PP; ++p) {
+    float a = 0.0f;
+    for (int c = 0; c < C; c += kPiece) {
+      float v[kPiece];
+      load_piece(vec + c, v);
+#pragma unroll
+      for (int i = 0; i < kPiece; ++i) a = fmaf(g[p * C + c + i], v[i], a);
+    }
+    out[p * out_stride] = a;
+  }
+}
+
+// Four consecutive elements of a patch feature, loaded from device memory
+// into registers now and written as f32 to shared memory later: the load's
+// latency passes behind whatever the thread does in between.
+template <typename G>
+struct Held4 {
+  float v[kVec];
+  __device__ __forceinline__ void load(const G* p) { load4(p, v); }
+  __device__ __forceinline__ void store(float* dst) const {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
 // Typed arguments from the C interface's untyped ones.
+template <typename G, typename F>
+inline PairArgs<G, F> level_args(const void* gmap, const void* fmap,
+                                 const void* dq, const void* coords,
+                                 const void* kk, const void* jj, void* out,
+                                 int E, int PP, int C, int H, int W, int cap) {
+  PairArgs<G, F> a;
+  a.gmap = static_cast<const G*>(gmap);
+  a.fmap[0] = static_cast<const F*>(fmap);
+  a.fmap[1] = nullptr;
+  a.dq[0] = static_cast<const float*>(dq);
+  a.dq[1] = nullptr;
+  a.coords = static_cast<const float*>(coords);
+  a.kk = static_cast<const int*>(kk);
+  a.jj = static_cast<const int*>(jj);
+  a.out = static_cast<float*>(out);
+  a.E = E; a.PP = PP; a.C = C;
+  a.H[0] = H; a.W[0] = W; a.H[1] = 0; a.W[1] = 0;
+  a.lvl[0] = 1.0f; a.lvl[1] = 1.0f;
+  a.cap = cap;
+  return a;
+}
+
 template <typename G, typename F>
 inline PairArgs<G, F> pair_args(const void* gmap, const void* fmap1,
                                 const void* fmap2, const void* dq1,

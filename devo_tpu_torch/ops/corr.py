@@ -13,11 +13,14 @@ the result, which is exact because the correlation is linear in the frame
 features.
 
 These are the plain versions of the CUDA kernels: `corr_pyramid` of
-csrc/corr.cu, csrc/corr_pair.cu and csrc/corr_pair2.cu (both levels: the
-kernels "mono", "pair" and "pair2" compute one function), `corr_level` of
-csrc/corr_level.cu and csrc/corr_level_resident.cu (one level). The tests
-hold them against the JAX package, and the kernels are held against them on
-the card.
+csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu, csrc/corr_mono2.cu and
+csrc/corr_mono3.cu (both levels: the kernels "mono", "pair", "pair2",
+"mono2", "mono4" and "mono3" compute one function), `corr_level` of
+csrc/corr_level.cu, csrc/corr_level_pipe.cu and csrc/corr_level_resident.cu
+(one level), and `group_surface` of csrc/corr_group.cu, which with
+`extract_blend_group` makes `corr_level_group`: one level whose products
+pass through a bf16 surface (the kernel "g8c"). The tests hold them against
+the JAX package, and the kernels are held against them on the card.
 `ops/corr_cuda.corr_pyramid` is the engine's entry point; it calls these
 versions only for tensors on the CPU.
 """
@@ -25,9 +28,13 @@ from __future__ import annotations
 
 import torch
 
-# calls of corr_pyramid and corr_level, counted so a run can show which path
-# it took
+# calls of corr_pyramid, corr_level and group_surface, counted so a run can
+# show which path it took
 calls = 0
+
+GROUP_EDGES = 8       # edges that share one block of surface rows
+GROUP_LANES = 16      # lanes of an edge in a surface row (P*P used)
+GROUP_ROWS = 144      # rows of a group's surface: window positions
 
 
 def quantize_frame(fmap: torch.Tensor):
@@ -114,9 +121,10 @@ def corr_pyramid(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
                  kk: torch.Tensor, jj: torch.Tensor, radius: int = 3,
                  levels=(1, 4), scales=None) -> torch.Tensor:
     """Multi-level correlation: the plain version of the two-level kernels
-    (csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu). coords is at
-    level-1 resolution; each level divides it by its stride. scales: per level a (N,) f32 tensor for an
-    int8 ring (None for a float ring), or None when no ring is int8.
+    (csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu, csrc/corr_mono2.cu,
+    csrc/corr_mono3.cu). coords is at level-1 resolution; each level divides
+    it by its stride. scales: per level a (N,) f32 tensor for an int8 ring
+    (None for a float ring), or None when no ring is int8.
     Returns (E, L*(2r+1)^2*P*P) f32 ordered [dx, dy, pixel, level]."""
     global calls
     calls += 1
@@ -124,3 +132,116 @@ def corr_pyramid(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
         scales = (None,) * len(pyramid)
     return stack_levels([corr(gmap, fm, coords / lvl, kk, jj, radius, sc)
                          for fm, lvl, sc in zip(pyramid, levels, scales)])
+
+
+def _group_index(coords: torch.Tensor, cap: int):
+    """What both stages of the grouped correlation know of every edge from
+    its coordinates alone: the pixels' floors x0, y0 (E, PP) int64, the
+    covering window's origin wx0, wy0 and width ww (E, 1), and `wide` (E, 1):
+    the window has more than `cap` positions, so the edge's surface rows hold
+    its 8x8 taps instead of its window."""
+    E, PP = coords.shape[0], coords.shape[1] * coords.shape[2]
+    x0 = torch.floor(coords[..., 0].reshape(E, PP).float()).clamp(-1e6, 1e6).long()
+    y0 = torch.floor(coords[..., 1].reshape(E, PP).float()).clamp(-1e6, 1e6).long()
+    wx0 = x0.amin(1, keepdim=True) - 3
+    wy0 = y0.amin(1, keepdim=True) - 3
+    ww = x0.amax(1, keepdim=True) - x0.amin(1, keepdim=True) + 8
+    wh = y0.amax(1, keepdim=True) - y0.amin(1, keepdim=True) + 8
+    return x0, y0, wx0, wy0, ww, ww * wh > cap
+
+
+def group_surface(gmap: torch.Tensor, fmap: torch.Tensor, coords: torch.Tensor,
+                  kk: torch.Tensor, jj: torch.Tensor,
+                  cap: int = GROUP_ROWS) -> torch.Tensor:
+    """Stage 1 of the grouped correlation, the plain version of
+    csrc/corr_group.cu: the raw product surface (ceil(E / 8), GROUP_ROWS, 128)
+    bf16 of one level, lane 16 * j + p = edge j of the group, pixel p.
+
+    Row r * ww + c of an edge holds bf16(<gmap[kk][p], fmap[jj, wy0 + r, wx0
+    + c]>) over the edge's covering window (the union of its pixels' 8x8 tap
+    grids: origin the least floor - 3, extent the floors' spread + 8), f32
+    sums rounded once to bf16, 0 off the image; an int8 fmap enters as its
+    integer values (its scale is applied after extraction). An edge whose
+    window has more than `cap` positions holds its taps instead: row
+    di * 8 + dj = bf16(<gmap[kk][p], fmap[jj, y0[p] + di - 3, x0[p] + dj -
+    3]>). Rows and lanes that `extract_blend_group` does not read are zero
+    here and unwritten by the kernel. coords is at this level's resolution.
+    """
+    global calls
+    calls += 1
+    N, H, W, C = fmap.shape
+    E, P = coords.shape[0], coords.shape[1]
+    PP = P * P
+    G = -(-E // GROUP_EDGES)
+    surf = torch.zeros((G * GROUP_EDGES, GROUP_ROWS, GROUP_LANES),
+                       dtype=torch.bfloat16, device=gmap.device)
+    if E:
+        x0, y0, wx0, wy0, ww, wide = _group_index(coords, cap)
+        g = gmap[kk.long()].reshape(E, PP, C).float()
+        flat = fmap.reshape(N * H * W, C)
+        base = jj.long()[:, None] * (H * W)
+        for row in range(GROUP_ROWS):
+            # the ring position of this row, per pixel: the window's, or the
+            # pixel's own tap for an edge that holds taps
+            iy = torch.where(wide, y0 + (row // 8 - 3), wy0 + row // ww)
+            ix = torch.where(wide, x0 + (row % 8 - 3), wx0 + row % ww)
+            inb = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+            idx = base + iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
+            dots = (g * flat[idx].float()).sum(-1)                  # (E, PP)
+            surf[:E, row, :PP] = torch.where(inb, dots, torch.zeros_like(dots)
+                                             ).to(torch.bfloat16)
+    return (surf.reshape(G, GROUP_EDGES, GROUP_ROWS, GROUP_LANES)
+            .transpose(1, 2).reshape(G, GROUP_ROWS, GROUP_EDGES * GROUP_LANES)
+            .contiguous())
+
+
+def extract_blend_group(surface: torch.Tensor, coords: torch.Tensor,
+                        jj: torch.Tensor, hw, scale: torch.Tensor = None,
+                        cap: int = GROUP_ROWS) -> torch.Tensor:
+    """Stage 2 of the grouped correlation, on either device (counterpart of
+    devo_tpu's extract_blend_g8): every pixel's 8x8 taps from the surface of
+    `group_surface` or of csrc/corr_group.cu, 0 off the (H, W) = hw image,
+    times the ring slot's scale (int8 rings), blended to 7x7. Returns
+    (E, 49*P*P) f32 in [dx, dy, pixel] order. `cap` is the one stage 1
+    was given."""
+    H, W = hw
+    E, P = coords.shape[0], coords.shape[1]
+    PP = P * P
+    rows = surface.shape[1]
+    x0, y0, wx0, wy0, ww, wide = _group_index(coords, cap)
+    x = coords[..., 0].reshape(E, PP, 1, 1).float()
+    y = coords[..., 1].reshape(E, PP, 1, 1).float()
+    fx, fy = x - torch.floor(x), y - torch.floor(y)
+    d = torch.arange(8, device=coords.device)
+    iy = (y0[:, :, None, None] + d[:, None] - 3).expand(E, PP, 8, 8)
+    ix = (x0[:, :, None, None] + d[None, :] - 3).expand(E, PP, 8, 8)
+    inb = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+    row = torch.where(wide[:, :, None, None], (d[:, None] * 8 + d[None, :]),
+                      (iy - wy0[:, :, None, None]) * ww[:, :, None, None]
+                      + (ix - wx0[:, :, None, None]))
+    e = torch.arange(E, device=coords.device)[:, None, None, None]
+    lane = ((e % GROUP_EDGES) * GROUP_LANES
+            + torch.arange(PP, device=coords.device)[None, :, None, None])
+    at = ((e // GROUP_EDGES) * rows + row) * (GROUP_EDGES * GROUP_LANES) + lane
+    taps = surface.reshape(-1)[at].float()                 # (E, PP, 8, 8)
+    taps = torch.where(inb, taps, torch.zeros_like(taps))
+    if scale is not None:
+        taps = taps * scale.float()[jj.long()][:, None, None, None]
+    out = ((1 - fx) * (1 - fy) * taps[:, :, :7, :7]
+           + fx * (1 - fy) * taps[:, :, :7, 1:]
+           + (1 - fx) * fy * taps[:, :, 1:, :7]
+           + fx * fy * taps[:, :, 1:, 1:])                 # (E, PP, dy, dx)
+    return out.permute(0, 3, 2, 1).reshape(E, 49 * PP)
+
+
+def corr_level_group(gmap: torch.Tensor, fmap: torch.Tensor,
+                     coords: torch.Tensor, kk: torch.Tensor, jj: torch.Tensor,
+                     scale: torch.Tensor = None) -> torch.Tensor:
+    """One pyramid level at radius 3 through the bf16 product surface: the
+    two stages composed, the plain version of the kernel "g8c". It is
+    `corr_level` with every integer tap rounded to bf16 before the scale and
+    the blend."""
+    if (fmap.dtype == torch.int8) != (scale is not None):
+        raise ValueError("an int8 ring, and only an int8 ring, takes a scale")
+    surface = group_surface(gmap, fmap, coords, kk, jj)
+    return extract_blend_group(surface, coords, jj, fmap.shape[1:3], scale)

@@ -3,29 +3,43 @@ kernels in csrc/.
 
 `corr_pyramid` takes the plain PyTorch versions (ops/corr.py) for tensors on
 the CPU and launches a kernel for tensors on a CUDA device; there is no
-fallback from one to the other. Five kernels, one launch counter each
-(`launches`):
+fallback from one to the other. Nine kernels, one launch counter each
+(`launches`), chosen by `kernel` (the engine's CORR_KERNEL) and `resident`:
 
-- `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one launch,
-  one warp per tap reading the ring;
-- `corr_level_cuda` (csrc/corr_level.cu): one level per launch;
-- `corr_level_resident_cuda` (csrc/corr_level_resident.cu): level 4 from an
-  int8 ring slot held in a block's shared memory;
-- `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch, a block
-  per edge, the patch feature shared by the levels and each level's window
-  staged by its own group of asynchronous copies;
-- `corr_pair2_cuda` (csrc/corr_pair2.cu): the same by persistent blocks that
-  keep the next edge's windows in flight while they compute the current one.
+- "mono", `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one
+  launch, one warp per tap reading the ring;
+- "split", `corr_level_cuda` (csrc/corr_level.cu): one level per launch;
+- `resident`, `corr_level_resident_cuda` (csrc/corr_level_resident.cu): the
+  last level of a per-level kernel from an int8 ring slot held in a block's
+  shared memory;
+- "pair", `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch, a
+  block per edge, the patch feature shared by the levels and each level's
+  window staged by its own group of asynchronous copies;
+- "pair2", `corr_pair2_cuda` (csrc/corr_pair2.cu): the same by persistent
+  blocks that keep the next edge's windows in flight while they compute the
+  current one;
+- "split2", `corr_level_pipe_cuda` (csrc/corr_level_pipe.cu): one level per
+  launch by such persistent blocks;
+- "g8c", `corr_group_cuda` (csrc/corr_group.cu): one level per launch in two
+  stages: the kernel writes the raw bf16 product surface of groups of eight
+  edges, and ops/corr.extract_blend_group reads the taps from it;
+- "mono2" / "mono4", `corr_mono2_cuda` (csrc/corr_mono2.cu): both levels in
+  one launch, two edges a block, their windows gathered into one buffer
+  ("mono2") or read where the copies landed ("mono4");
+- "mono3", `corr_mono3_cuda` (csrc/corr_mono3.cu): both levels in one launch
+  from a per-edge product surface in shared memory, a block walking a run of
+  edges behind a ring of window copies.
 
 All take float rings (bf16 or f32, the type of the patch features) or, with
 per-slot scales, int8 rings; the resident kernel int8 only. The sources are
-compiled together by one `nvcc` call for sm_90a into devo_tpu_torch/_build/
-at first use (a shared library with a plain C interface, loaded with
-ctypes), once per version of the sources.
+compiled for sm_90a, one `nvcc` process each at the same time, and linked
+into devo_tpu_torch/_build/ at first use (a shared library with a plain C
+interface, loaded with ctypes), once per version of the sources.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,7 +52,8 @@ from . import corr as plain
 
 # launches of each kernel, counted so a run can show it went through them
 launches = {"corr_pyramid": 0, "corr_level": 0, "corr_level_resident": 0,
-            "corr_pair": 0, "corr_pair2": 0}
+            "corr_pair": 0, "corr_pair2": 0, "corr_level_pipe": 0,
+            "corr_group": 0, "corr_mono2": 0, "corr_mono3": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -51,6 +66,10 @@ SMEM_MAX = 232_448            # the most a block can have on sm_90
 LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
 _PAIR_STATIC = 4096           # bound on the static shared memory of the pair
                               #   kernels (their per-edge index tables)
+_MONO3_STATIC = 6144          # the same of corr_mono3 (ten such tables)
+_GROUP_STATIC = 5120          # and of corr_group (eight)
+MONO3_RUN = 64                # edges a corr_mono3 block walks
+MONO3_MAX_DEPTH = 8           # stages of its window ring
 _RESIDENT_WARPS = 8           # warps of a corr_level_resident block
 _RESIDENT_SPLIT = 8           # blocks per ring slot (grid.y)
 _lib = None
@@ -78,9 +97,10 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile every csrc/*.cu for sm_90a into one library unless this
-    version of the sources is built already. Returns the library's path;
-    ptxas's register and shared memory report is kept beside it with the
-    suffix .log."""
+    version of the sources is built already: one `nvcc -c` per source, all
+    started together, then one link. Returns the library's path; ptxas's
+    register and shared memory report is kept beside it with the suffix
+    .log."""
     digest = hashlib.sha256()
     for src in sources():
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
@@ -88,16 +108,32 @@ def build() -> Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas=-v", "--threads", "0", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp)]
-    cmd += [str(s) for s in sources() if s.suffix == ".cu"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    units = [s for s in sources() if s.suffix == ".cu"]
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in units]
+    cmds = [[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC", "-c", "-o", str(obj),
+             str(src)] for src, obj in zip(units, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        cmd = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for o in objects]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, lib)
     return lib
 
@@ -113,9 +149,20 @@ def _load():
         lib.devo_corr_pair.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i, i, ptr]
         lib.devo_corr_pair2.argtypes = lib.devo_corr_pair.argtypes
         lib.devo_corr_pair2_blocks_per_sm.argtypes = [i] * 5
+        lib.devo_corr_level_pipe.argtypes = lib.devo_corr_level.argtypes
+        lib.devo_corr_level_pipe_blocks_per_sm.argtypes = [i] * 5
+        lib.devo_corr_group.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+        lib.devo_corr_mono2.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
+                                        + [i] * 3 + [ptr])
+        lib.devo_corr_mono3.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
+                                        + [i] * 4 + [ptr])
         for fn in (lib.devo_corr_pyramid, lib.devo_corr_level,
                    lib.devo_corr_level_resident, lib.devo_corr_pair,
-                   lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm):
+                   lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm,
+                   lib.devo_corr_level_pipe,
+                   lib.devo_corr_level_pipe_blocks_per_sm,
+                   lib.devo_corr_group, lib.devo_corr_mono2,
+                   lib.devo_corr_mono3):
             fn.restype = ctypes.c_int
         lib.devo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.devo_cuda_error_string.restype = ctypes.c_char_p
@@ -275,49 +322,79 @@ def _pair_smem(name: str, P: int, C: int, gmap_dtype, ring_dtype, cap: int):
     return pair2_smem_bytes(P, C, gmap_dtype, ring_dtype, cap)
 
 
-def pair_cap(name: str, P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Feature vectors of each staged window of the pair kernel `name`
-    ("corr_pair" or "corr_pair2"): LEVEL_WINDOW_CAP, fewer where a block's
-    shared memory holds no more, and 0 (every tap reads the ring) where a
-    feature vector is no multiple of the 16-byte copies."""
+def _fit_cap(smem_of_cap, C: int, ring_dtype, static: int) -> int:
+    """Feature vectors of each staged window of a kernel whose block takes
+    `smem_of_cap(cap)` bytes of dynamic and `static` bytes of static shared
+    memory: LEVEL_WINDOW_CAP, fewer where a block's shared memory holds no
+    more, and 0 (every tap reads the ring) where a feature vector is no
+    multiple of the 16-byte copies."""
     if C * _item(ring_dtype) % 16 != 0:
         return 0
-    fixed = _pair_smem(name, P, C, gmap_dtype, ring_dtype, 0)
-    per_vector = _pair_smem(name, P, C, gmap_dtype, ring_dtype, 1) - fixed
-    room = SMEM_MAX - _PAIR_STATIC - fixed
+    fixed = smem_of_cap(0)
+    per_vector = smem_of_cap(1) - fixed
+    room = SMEM_MAX - static - fixed
     return max(0, min(LEVEL_WINDOW_CAP, room // per_vector))
 
 
-def _pair_call(name, gmap, fmap1, fmap2, coords, kk, jj, levels, scales):
-    """The checks, the output and the launch that corr_pair and corr_pair2
-    share; `name` is the kernel's launch counter."""
-    scales = (None, None) if scales is None else tuple(scales)
-    _check(len(levels) == 2 and len(scales) == 2,
-           "the kernel computes two levels")
-    E, P, C, i8 = _check_call(gmap, (fmap1, fmap2), scales, coords, kk, jj)
+def pair_cap(name: str, P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Feature vectors of each staged window of the pair kernel `name`
+    ("corr_pair" or "corr_pair2"), see `_fit_cap`."""
+    return _fit_cap(
+        lambda cap: _pair_smem(name, P, C, gmap_dtype, ring_dtype, cap), C,
+        ring_dtype, _PAIR_STATIC)
+
+
+def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
+                 levels, scales):
+    """The checks, the output and the launch that the kernels with windows
+    staged by asynchronous copies share. `name`: the launch counter, and
+    devo_<name> the C function; `smem`: the block's dynamic shared memory at
+    window size `cap`; `extra`: the integers the C function takes after the
+    type flags; `rings`: one ring (a per-level kernel, which takes no level
+    strides) or two, as many as the output has levels."""
+    two = len(rings) == 2
+    scales = (None,) * len(rings) if scales is None else tuple(scales)
+    _check(len(levels) == len(rings) == len(scales),
+           f"the kernel computes {len(rings)} level(s)")
+    E, P, C, i8 = _check_call(gmap, rings, scales, coords, kk, jj)
     _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
     for t_name, t in (("gmap", gmap), ("coords", coords)):
         _check(t.data_ptr() % 16 == 0, f"{t_name} is not 16-byte aligned")
-    cap = pair_cap(name, P, C, gmap.dtype, fmap1.dtype)
-    _check(_pair_smem(name, P, C, gmap.dtype, fmap1.dtype, cap)
-           <= SMEM_MAX - _PAIR_STATIC,
+    _check(smem <= SMEM_MAX - static,
            f"P={P}, C={C} needs more shared memory than a block can have")
 
-    out = torch.empty((E, 2 * _FEATS * P * P), dtype=torch.float32,
+    out = torch.empty((E, len(rings) * _FEATS * P * P), dtype=torch.float32,
                       device=gmap.device)
     if E == 0:
         return out
     lib = _load()
+    sizes = [x for r in rings for x in r.shape[1:3]]
     code = getattr(lib, "devo_" + name)(
-        gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
-        _ptr(scales[0]), _ptr(scales[1]), coords.data_ptr(), kk.data_ptr(),
-        jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap1.shape[1],
-        fmap1.shape[2], fmap2.shape[1], fmap2.shape[2], cap,
-        float(levels[0]), float(levels[1]),
-        int(gmap.dtype == torch.bfloat16), int(i8),
+        gmap.data_ptr(), *(r.data_ptr() for r in rings),
+        *(_ptr(sc) for sc in scales), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), out.data_ptr(), E, P * P, C, *sizes, cap,
+        *((float(levels[0]), float(levels[1])) if two else ()),
+        int(gmap.dtype == torch.bfloat16), int(i8), *extra,
         torch.cuda.current_stream(gmap.device).cuda_stream)
     _launched(name, code)
     return out
+
+
+def _patch_shape(gmap):
+    """(P, C) of the patch features, for the shared memory plan that precedes
+    the other checks."""
+    _check(gmap.ndim == 4, f"gmap must be (M, P, P, C), got {tuple(gmap.shape)}")
+    return gmap.shape[1], gmap.shape[3]
+
+
+def _pair_call(name, gmap, fmap1, fmap2, coords, kk, jj, levels, scales):
+    """corr_pair and corr_pair2; `name` is the kernel's launch counter."""
+    P, C = _patch_shape(gmap)
+    cap = pair_cap(name, P, C, gmap.dtype, fmap1.dtype)
+    return _staged_call(
+        name, _pair_smem(name, P, C, gmap.dtype, fmap1.dtype, cap),
+        _PAIR_STATIC, cap, (), gmap, (fmap1, fmap2), coords, kk, jj, levels,
+        scales)
 
 
 def corr_pair_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
@@ -348,6 +425,203 @@ def pair2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
         raise RuntimeError("corr_pair2 occupancy query failed: "
                            f"{_lib.devo_cuda_error_string(-occ).decode()}")
     return occ
+
+
+def _padded(C: int, ring_dtype) -> int:
+    """Bytes between the vectors of a window that is read position by
+    position (corr_mono3, corr_group): 16 more than a vector, so that the
+    lanes' 16-byte reads fall into different banks."""
+    return C * _item(ring_dtype) + 16
+
+
+def level_pipe_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int) -> int:
+    """Dynamic shared memory of a corr_level_pipe block: the patch feature
+    and the taps as f32, and two stages, each the raw patch feature (rounded
+    up to 16 bytes) and `cap` feature vectors."""
+    PP = P * P
+    graw = -(-PP * C * _item(gmap_dtype) // 16) * 16
+    return ((PP * C + PP * _TAPS) * 4
+            + 2 * (graw + cap * C * _item(ring_dtype)))
+
+
+def level_pipe_cap(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Feature vectors of corr_level_pipe's staged window, see `_fit_cap`."""
+    return _fit_cap(
+        lambda cap: level_pipe_smem_bytes(P, C, gmap_dtype, ring_dtype, cap),
+        C, ring_dtype, _PAIR_STATIC)
+
+
+def corr_level_pipe_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
+    """Launch csrc/corr_level_pipe.cu, one pyramid level. Arguments and
+    result as `corr_level_cuda`; the plain version is ops/corr.corr_level."""
+    P, C = _patch_shape(gmap)
+    cap = level_pipe_cap(P, C, gmap.dtype, fmap.dtype)
+    return _staged_call(
+        "corr_level_pipe",
+        level_pipe_smem_bytes(P, C, gmap.dtype, fmap.dtype, cap),
+        _PAIR_STATIC, cap, (), gmap, (fmap,), coords, kk, jj, (1,), (scale,))
+
+
+def level_pipe_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_level_pipe's kernel that one SM of the current CUDA
+    device holds at a time at these sizes (its grid is that times the number
+    of SMs)."""
+    cap = level_pipe_cap(P, C, gmap_dtype, ring_dtype)
+    occ = _load().devo_corr_level_pipe_blocks_per_sm(
+        P * P, C, cap, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8))
+    if occ < 0:
+        raise RuntimeError("corr_level_pipe occupancy query failed: "
+                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
+    return occ
+
+
+def mono2_smem_bytes(P: int, C: int, ring_dtype, cap: int, concat: bool) -> int:
+    """Dynamic shared memory of a corr_mono2 block: two edges' patch features
+    and taps of both levels as f32, their four windows of `cap` feature
+    vectors, and with `concat` the buffer that holds one level's pair of
+    windows side by side."""
+    PP = P * P
+    return (2 * (PP * C + 2 * PP * _TAPS) * 4
+            + (6 if concat else 4) * cap * C * _item(ring_dtype))
+
+
+def mono2_cap(P: int, C: int, ring_dtype, concat: bool) -> int:
+    """Feature vectors of each of corr_mono2's staged windows, see
+    `_fit_cap`."""
+    return _fit_cap(lambda cap: mono2_smem_bytes(P, C, ring_dtype, cap, concat),
+                    C, ring_dtype, _PAIR_STATIC)
+
+
+def corr_mono2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                    scales=None, concat: bool = True) -> torch.Tensor:
+    """Launch csrc/corr_mono2.cu: both levels, two edges a block. `concat`:
+    gather each pair of windows into one buffer before its dots
+    (CORR_KERNEL="mono2"), or read them where the copies landed ("mono4").
+    Arguments and result otherwise as `corr_pyramid_cuda`; the plain version
+    is ops/corr.corr_pyramid."""
+    P, C = _patch_shape(gmap)
+    cap = mono2_cap(P, C, fmap1.dtype, concat)
+    return _staged_call(
+        "corr_mono2", mono2_smem_bytes(P, C, fmap1.dtype, cap, concat),
+        _PAIR_STATIC, cap, (int(concat),), gmap, (fmap1, fmap2), coords, kk,
+        jj, levels, scales)
+
+
+def mono3_smem_bytes(P: int, C: int, ring_dtype, cap: int, depth: int) -> int:
+    """Dynamic shared memory of a corr_mono3 block: two slots of the f32 patch
+    feature, of the product scratch (cap positions x P*P a level) and of the
+    tap buffer, and `depth` stages of two windows with padded vectors."""
+    PP = P * P
+    return ((2 * PP * C + 4 * cap * PP + 4 * PP * _TAPS) * 4
+            + depth * 2 * cap * _padded(C, ring_dtype))
+
+
+def mono3_plan(P: int, C: int, ring_dtype):
+    """(cap, depth) of corr_mono3: the window size that fits a ring of two
+    stages (see `_fit_cap`), then as many stages, at most MONO3_MAX_DEPTH, as
+    a block's shared memory holds at that size."""
+    cap = _fit_cap(lambda cap: mono3_smem_bytes(P, C, ring_dtype, cap, 2), C,
+                   ring_dtype, _MONO3_STATIC)
+    depth = 2
+    while (depth < MONO3_MAX_DEPTH
+           and mono3_smem_bytes(P, C, ring_dtype, cap, depth + 1)
+           <= SMEM_MAX - _MONO3_STATIC):
+        depth += 1
+    return cap, depth
+
+
+def mono3_run(E: int, device) -> int:
+    """Consecutive edges a corr_mono3 block walks: at most MONO3_RUN, and
+    such that the runs come to a whole number of rounds over the SMs of
+    `device` (a block takes an SM to itself): E edges in k rounds of one run
+    an SM, with the least k that keeps a run within MONO3_RUN."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rounds = max(1, -(-E // (sms * MONO3_RUN)))
+    return max(1, -(-E // (sms * rounds)))
+
+
+def corr_mono3_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                    scales=None) -> torch.Tensor:
+    """Launch csrc/corr_mono3.cu: both levels from a per-edge product surface
+    in shared memory. Arguments and result as `corr_pyramid_cuda`; the plain
+    version is ops/corr.corr_pyramid."""
+    P, C = _patch_shape(gmap)
+    cap, depth = mono3_plan(P, C, fmap1.dtype)
+    run = mono3_run(coords.shape[0], gmap.device) if gmap.is_cuda else 1
+    return _staged_call(
+        "corr_mono3", mono3_smem_bytes(P, C, fmap1.dtype, cap, depth),
+        _MONO3_STATIC, cap, (depth, run), gmap, (fmap1, fmap2), coords, kk, jj,
+        levels, scales)
+
+
+def group_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
+    """Dynamic shared memory of a corr_group block: two parities of two
+    edges' f32 patch features and of their windows with padded vectors."""
+    return 4 * P * P * C * 4 + 4 * cap * _padded(C, ring_dtype)
+
+
+def group_cap(P: int, C: int, ring_dtype) -> int:
+    """Positions of corr_group's staged window, see `_fit_cap`; an edge whose
+    window has more keeps its taps in the surface instead."""
+    return _fit_cap(lambda cap: group_smem_bytes(P, C, ring_dtype, cap), C,
+                    ring_dtype, _GROUP_STATIC)
+
+
+_SURFACE_STEP = 256           # groups by which the cached surface grows
+_surfaces = {}                # device -> the surface buffer of corr_group
+
+
+def _surface(groups: int, device) -> torch.Tensor:
+    """The first `groups` groups of the device's surface buffer, which is
+    allocated once per size (rounded up to _SURFACE_STEP groups) and reused
+    by every later call on the same stream order."""
+    buf = _surfaces.get(device)
+    if buf is None or buf.shape[0] < groups:
+        n = -(-groups // _SURFACE_STEP) * _SURFACE_STEP
+        _surfaces[device] = None               # release before allocating
+        buf = torch.empty((n, plain.GROUP_ROWS, plain.GROUP_EDGES
+                           * plain.GROUP_LANES), dtype=torch.bfloat16,
+                          device=device)
+        _surfaces[device] = buf
+    return buf[:groups]
+
+
+def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
+    """Launch csrc/corr_group.cu, stage 1 of the grouped correlation of one
+    level. Arguments as `corr_level_cuda` (the scale is checked and left to
+    stage 2). Returns (surface, cap): the raw product surface
+    (ceil(E / 8), GROUP_ROWS, 128) bf16, a view of a buffer that the next
+    call overwrites, and the window capacity it was written with; the plain
+    version is ops/corr.group_surface."""
+    E, P, C, i8 = _check_call(gmap, (fmap,), (scale,), coords, kk, jj)
+    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
+    _check(gmap.data_ptr() % 16 == 0, "gmap is not 16-byte aligned")
+    cap = group_cap(P, C, fmap.dtype)
+    _check(group_smem_bytes(P, C, fmap.dtype, cap) <= SMEM_MAX - _GROUP_STATIC,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    surface = _surface(-(-E // plain.GROUP_EDGES), gmap.device)
+    if E == 0:
+        return surface, cap
+    lib = _load()
+    code = lib.devo_corr_group(
+        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), surface.data_ptr(), E, P * P, C, fmap.shape[1],
+        fmap.shape[2], cap, plain.GROUP_ROWS,
+        int(gmap.dtype == torch.bfloat16), int(i8),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched("corr_group", code)
+    return surface, cap
+
+
+def corr_group_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
+    """One pyramid level through the bf16 product surface: csrc/corr_group.cu
+    (stage 1) and ops/corr.extract_blend_group (stage 2, plain tensor code on
+    the device). Arguments and result as `corr_level_cuda`; the plain version
+    is ops/corr.corr_level_group."""
+    surface, cap = group_surface_cuda(gmap, fmap, coords, kk, jj, scale)
+    return plain.extract_blend_group(surface, coords, jj, fmap.shape[1:3],
+                                     scale, cap)
 
 
 def resident_smem_bytes(h: int, w: int, C: int, P: int) -> int:
@@ -398,10 +672,18 @@ def corr_level_resident_cuda(gmap, fmap, coords, kk, jj, scale) -> torch.Tensor:
     return out
 
 
-KERNELS = ("mono", "split", "pair", "pair2")
+KERNELS = ("mono", "mono2", "mono3", "mono4", "pair", "pair2", "split",
+           "split2", "g8c")
 # the kernels that take both levels in one launch
-_TWO_LEVEL = {"mono": corr_pyramid_cuda, "pair": corr_pair_cuda,
-              "pair2": corr_pair2_cuda}
+_TWO_LEVEL = {
+    "mono": corr_pyramid_cuda, "pair": corr_pair_cuda,
+    "pair2": corr_pair2_cuda, "mono3": corr_mono3_cuda,
+    "mono2": functools.partial(corr_mono2_cuda, concat=True),
+    "mono4": functools.partial(corr_mono2_cuda, concat=False)}
+# the kernels that take one level a launch: (kernel, its plain version)
+_PER_LEVEL = {"split": (corr_level_cuda, plain.corr_level),
+              "split2": (corr_level_pipe_cuda, plain.corr_level),
+              "g8c": (corr_group_cuda, plain.corr_level_group)}
 
 
 def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
@@ -410,15 +692,17 @@ def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
     """Two-level correlation feature (E, 2*49*P*P) f32 in [dx, dy, pixel,
     level] order: the plain versions for CPU tensors, the CUDA kernels for
     CUDA tensors. `scales`: per level the (mem,) f32 scales of an int8 ring.
-    `kernel`: "mono", "pair", "pair2" = both levels in one launch, by
-    corr.cu, corr_pair.cu, corr_pair2.cu; "split" = one launch per level,
-    and with `resident` the last level from the resident-ring kernel (int8
-    rings only)."""
+    `kernel`: one of KERNELS. "mono", "mono2", "mono3", "mono4", "pair",
+    "pair2" = both levels in one launch (plain version: ops/corr.corr_pyramid);
+    "split", "split2" = one launch per level (ops/corr.corr_level); "g8c" =
+    one launch per level through a bf16 product surface
+    (ops/corr.corr_level_group). With `resident` the last level of a
+    per-level kernel comes from the resident-ring kernel (int8 rings only)."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    if resident and (kernel != "split" or scales is None):
-        raise ValueError("the resident level needs kernel='split' and int8 "
-                         "rings with scales")
+    if resident and (kernel not in _PER_LEVEL or scales is None):
+        raise ValueError("the resident level needs a per-level kernel "
+                         f"({', '.join(_PER_LEVEL)}) and int8 rings with scales")
     if kernel in _TWO_LEVEL:
         if gmap.device.type == "cpu":
             return plain.corr_pyramid(gmap, pyramid, coords, kk, jj, radius,
@@ -432,14 +716,18 @@ def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
                               f"{_RADIUS}")
     if scales is None:
         scales = (None,) * len(pyramid)
+    on_card, on_cpu = _PER_LEVEL[kernel]
     outs = []
     for n, (fmap, lvl, scale) in enumerate(zip(pyramid, levels, scales)):
         at_level = coords / lvl
         if gmap.device.type == "cpu":
-            fn = plain.corr_level
+            # the resident kernel computes corr_level: a level it would take
+            # on the card takes that plain version here
+            last = resident and n == len(pyramid) - 1
+            fn = plain.corr_level if last else on_cpu
         elif resident and n == len(pyramid) - 1:
             fn = corr_level_resident_cuda
         else:
-            fn = corr_level_cuda
+            fn = on_card
         outs.append(fn(gmap, fmap, at_level, kk, jj, scale))
     return plain.stack_levels(outs)

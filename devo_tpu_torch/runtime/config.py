@@ -8,12 +8,15 @@ imported without jax): the reference knobs of the yacs node
 Three of the JAX package's correlation knobs are kept, with its names and
 defaults, because they choose what the correlation computes or which of the
 port's kernels computes it: CORR_RING_I8 (int8 feature rings with one
-dequantisation scale per ring slot), CORR_KERNEL ("mono", "pair", "pair2":
-both levels in one launch, by three different kernels; "split": one launch
-per level) and CORR_L4_RESIDENT (level 4 read from a ring slot held in
-shared memory). The rest stay out: CORR_IMPL,
-CORR_WIN_L1, VOXEL_WIRE and the encoder-layout switches choose TPU
-schedules, window budgets and transports, not functions.
+dequantisation scale per ring slot), CORR_KERNEL (nine names, as
+devo_tpu's bench takes them: "mono", "mono2", "mono3", "mono4", "pair",
+"pair2": both levels in one launch, by five different kernels; "split",
+"split2": one launch per level, by two; "g8c": one launch per level through
+a bf16 product surface) and CORR_L4_RESIDENT (level 4 of a per-level kernel
+read from a ring slot held in shared memory). The rest stay out: CORR_IMPL
+(with the "g8" and "full" kernels that only it reaches), CORR_WIN_L1,
+VOXEL_WIRE and the encoder-layout switches choose TPU schedules, window
+budgets and transports, not functions.
 """
 from __future__ import annotations
 
@@ -81,7 +84,23 @@ class VOConfig:
                                          # "pair2": the same by persistent
                                          #   blocks with the next edge's
                                          #   windows in flight
-                                         #   (csrc/corr_pair2.cu)
+                                         #   (csrc/corr_pair2.cu);
+                                         # "split2": one launch per level by
+                                         #   such persistent blocks
+                                         #   (csrc/corr_level_pipe.cu);
+                                         # "g8c": one launch per level; the
+                                         #   kernel writes the raw bf16
+                                         #   products of groups of 8 edges,
+                                         #   the taps are read from them
+                                         #   afterwards (csrc/corr_group.cu);
+                                         # "mono2", "mono4": both levels, two
+                                         #   edges a block, their windows
+                                         #   gathered into one buffer or read
+                                         #   in place (csrc/corr_mono2.cu);
+                                         # "mono3": both levels from a
+                                         #   per-edge product surface in
+                                         #   shared memory
+                                         #   (csrc/corr_mono3.cu)
     CORR_L4_RESIDENT: str = "off"        # level 4 from a ring slot held whole
                                          #   in a block's shared memory
                                          #   (csrc/corr_level_resident.cu):
@@ -91,7 +110,9 @@ class VOConfig:
                                          #   on an H100 corr_level reads level
                                          #   4 faster, so "off" is the quicker
                                          #   choice there, see PERF.md). Needs
-                                         #   int8 rings and CORR_KERNEL="split"
+                                         #   int8 rings and a per-level
+                                         #   CORR_KERNEL ("split", "split2",
+                                         #   "g8c")
     CORR_RING_I8: bool = True            # store the correlation feature rings
                                          #   as per-frame-scaled int8: the
                                          #   correlation is linear in the frame

@@ -54,10 +54,11 @@ class StepAux(NamedTuple):
 
 def l4_resident(cfg: VOConfig, ht: int, wd: int) -> bool:
     """Whether level 4 of the correlation is read by the resident-ring
-    kernel. It needs int8 rings, a per-level kernel (CORR_KERNEL="split")
-    and a level-4 frame that fits a block's shared memory beside the
-    kernel's scratch (corr_cuda.resident_fits). "on" raises where it cannot
-    hold; "auto" turns it on where it can."""
+    kernel. It needs int8 rings, a per-level kernel (CORR_KERNEL="split",
+    "split2" or "g8c": a kernel that takes both levels in one launch has no
+    level to hand over) and a level-4 frame that fits a block's shared
+    memory beside the kernel's scratch (corr_cuda.resident_fits). "on"
+    raises where it cannot hold; "auto" turns it on where it can."""
     mode = cfg.CORR_L4_RESIDENT
     if mode not in ("on", "off", "auto"):
         raise ValueError(f"CORR_L4_RESIDENT={mode!r}: 'on', 'off' or 'auto'")
@@ -65,8 +66,9 @@ def l4_resident(cfg: VOConfig, ht: int, wd: int) -> bool:
         return False
     h4, w4 = ht // 16, wd // 16
     for ok, why in (
-            (cfg.CORR_KERNEL == "split",
-             f"needs CORR_KERNEL='split', not {cfg.CORR_KERNEL!r}"),
+            (cfg.CORR_KERNEL in ("split", "split2", "g8c"),
+             f"needs a per-level kernel (CORR_KERNEL='split', 'split2' or "
+             f"'g8c'), not {cfg.CORR_KERNEL!r}"),
             (cfg.CORR_RING_I8, "requires CORR_RING_I8"),
             (corr_cuda.resident_fits(h4, w4, cfg.DIM_FNET, cfg.P),
              f"a {h4}x{w4}x{cfg.DIM_FNET} int8 frame and the kernel's "
@@ -110,9 +112,8 @@ class DEVO:
             raise NotImplementedError(
                 f"PATCH_SELECTOR={cfg.PATCH_SELECTOR!r}: only the scorer is ported")
         if cfg.CORR_KERNEL not in corr_cuda.KERNELS:
-            raise NotImplementedError(
-                f"CORR_KERNEL={cfg.CORR_KERNEL!r}: only {corr_cuda.KERNELS} "
-                f"are ported (ROADMAP Queue 2 lists the rest)")
+            raise ValueError(f"CORR_KERNEL={cfg.CORR_KERNEL!r}: one of "
+                             f"{corr_cuda.KERNELS}")
         self.cfg = cfg
         self._ht, self._wd = ht, wd
         self.l4_resident = l4_resident(cfg, ht, wd)
@@ -158,6 +159,8 @@ class DEVO:
             dtype=torch.bfloat16 if cfg.ENET_BF16 else torch.float32, device=dev)
         self.n = 0                  # keyframes
         self.counter = 0            # frames tracked
+        self.update_edges = 0       # edges the last update ran on (a cull
+                                    #   shrinks the table after it)
         self.initialized = False
         self.aux_log: List[Tuple[float, StepAux]] = []
 
@@ -250,6 +253,7 @@ class DEVO:
         """One tracking update: reproject -> corr -> recurrent update -> 2
         Gauss-Newton iterations of BA (devo.py:308-344)."""
         cfg = self.cfg
+        self.update_edges = self.n_edges
         if self.n_edges == 0:
             return
         geo, corr, ctx = self._edge_features(self.ii, self.jj, self.kk)

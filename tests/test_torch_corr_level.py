@@ -222,7 +222,7 @@ def test_entry_point_rejects_what_no_kernel_computes():
     args = (_t(gmap), (_t(fmap), _t(_pool2(fmap))), _t(coords), _t(kk).int(),
             _t(jj).int())
     with pytest.raises(ValueError):
-        corr_cuda.corr_pyramid(*args, kernel="mono3")
+        corr_cuda.corr_pyramid(*args, kernel="mono5")
     with pytest.raises(ValueError):          # resident needs "split"
         corr_cuda.corr_pyramid(*args, kernel="mono", resident=True)
     with pytest.raises(ValueError):          # and int8 rings

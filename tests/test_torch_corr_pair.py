@@ -97,14 +97,16 @@ def test_pair_kernels_on_cpu_tensors_take_the_plain_version(kernel, i8):
 
 
 def test_kernel_names_and_counters():
-    assert corr_cuda.KERNELS == ("mono", "split", "pair", "pair2")
+    assert corr_cuda.KERNELS == ("mono", "mono2", "mono3", "mono4", "pair",
+                                 "pair2", "split", "split2", "g8c")
     assert set(corr_cuda.launches) == {
         "corr_pyramid", "corr_level", "corr_level_resident", "corr_pair",
-        "corr_pair2"}
+        "corr_pair2", "corr_level_pipe", "corr_group", "corr_mono2",
+        "corr_mono3"}
     gmap, fmap, coords, kk, jj, _ = make_case(4, E=4, C=16)
     args = (_t(gmap), (_t(fmap), _t(_pool2(fmap))), _t(coords), _t(kk).int(),
             _t(jj).int())
-    for unknown in ("pair3", "mono2", "", None):
+    for unknown in ("pair3", "mono5", "", None):
         with pytest.raises(ValueError, match="kernel must be one of"):
             corr_cuda.corr_pyramid(*args, kernel=unknown)
 
@@ -113,7 +115,8 @@ def test_kernel_names_and_counters():
 def test_l4_resident_rules_for_the_pair_kernels(kernel):
     """devo_tpu's rule (runtime/engine.py _l4_resident): with "pair" the
     resident level 4 is off under "auto" and "on" raises; the port holds
-    "pair2" to the same, as it does everything but "split"."""
+    "pair2" to the same, as it does every kernel that takes both levels in
+    one launch."""
     cfg = VOConfig(CORR_KERNEL=kernel)
     assert not l4_resident(cfg, 480, 640)
     assert not l4_resident(cfg.replace(CORR_L4_RESIDENT="auto"), 480, 640)

@@ -262,8 +262,11 @@ def test_corr_knob_rules():
     with pytest.raises(ValueError):
         l4_resident(split.replace(CORR_L4_RESIDENT="maybe"), 480, 640)
     weights = jax_params_to_state_dict(make_params(JCFG))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        DEVO(BASE.replace(CORR_KERNEL="mono3"), weights, ht=HT, wd=WD,
+    for name in corr_cuda.KERNELS:           # every name builds an engine
+        assert DEVO(BASE.replace(CORR_KERNEL=name), weights, ht=HT, wd=WD,
+                    device="cpu").cfg.CORR_KERNEL == name
+    with pytest.raises(ValueError, match="CORR_KERNEL='mono5'"):
+        DEVO(BASE.replace(CORR_KERNEL="mono5"), weights, ht=HT, wd=WD,
              device="cpu")
     with pytest.raises(ValueError):
         DEVO(BASE.replace(CORR_L4_RESIDENT="on"), weights, ht=HT, wd=WD,

@@ -62,7 +62,7 @@ def test_new_modules_are_covered():
             "devo_tpu_torch.eval.ate", "devo_tpu_torch.eval.ate_check",
             "devo_tpu_torch.utils.pose_utils",
             "devo_tpu_torch.data.event_utils", "devo_tpu_torch.data.loaders",
-            "devo_tpu_torch.data.benchmarks"} <= names
+            "devo_tpu_torch.data.benchmarks", "devo_tpu_torch.bench"} <= names
 
 
 OPTIONAL = ("h5py", "cv2", "yaml", "matplotlib")
