@@ -14,7 +14,12 @@
    (corr_pyramid, corr_pair, corr_pair2, corr_mono2 with and without its
    gathering copy, corr_mono3) on bf16 and on int8 rings, the per-level
    kernels (corr_level, corr_level_pipe, corr_group) on both levels and
-   both ring types, the resident level-4 kernel on int8 rings; every kernel
+   both ring types, the resident level-4 kernel on int8 rings, and the
+   per-level kernels that take float rings only (corr_fixed for
+   CORR_IMPL="pallas", corr_group8 for "g8", corr_level_full for "full") on
+   both levels, on bf16 and f32 rings; corr_level_full's stage instances
+   (no extraction, no product, no copy) against their plain versions and
+   timed beside it at E = 12288; every kernel
    choice of the entry point against corr_pyramid's kernel (both must floor
    the same coordinates); the kernels with staged windows at a narrow width
    (C = 8) whose int8 feature vectors are too short for the 16-byte copies,
@@ -28,38 +33,46 @@
    positions its taps touch, the distinct patch features, coordinates,
    indices, scales and the output, each once; for corr_group also its
    surface, written and read) over 3.35 TB/s and its operations over 989
-   TFLOP/s.
+   TFLOP/s (67 TFLOP/s, the f32 rate outside the tensor cores, on f32
+   rings).
 4. Reference phase: the port's DEVO on the card against the same engine on
    the CPU (plain correlation; the CPU tests hold that path against the JAX
    package) at a small f32 size, for unquantised rings on every kernel
-   choice and for the int8 configurations: the same keyframes, culls and
-   edge sets per frame, and poses and terminate() output within the stated
-   tolerance.
+   choice and family (CORR_IMPL "pallas", "window", "gather") and for the
+   int8 configurations: the same keyframes, culls and edge sets per frame,
+   and poses and terminate() output within the stated tolerance.
 5. Slice phase: the port's DEVO at full width (480x640, 96 patches, mixed
    precision) with seeded random weights over frames of a sliding event
    texture, then 12 update() calls and terminate(), on three paths of 48
    timed frames each, so that their frame rates compare: the bf16 path (the
    two-level kernel on bf16 rings), the default path (int8 rings, the
-   two-level kernel) and, after the eval phase, the quantised split path
+   two-level kernel), five bf16 paths of the other configurations
+   (CORR_IMPL="pallas" on corr_fixed, "g8" on corr_group8, "full" on
+   corr_level_full, and "window" and "gather", which launch no kernel and
+   take their own tensor path) and, after the eval phase, the quantised
+   split path
    (int8 rings, one launch per level, level 4 from the resident ring),
    which then runs 8 more frames under torch.profiler (where the time
    goes, by engine phase). The launch counts are set to 0 just
    before each path and read just after it. Each path must end with a
    finite trajectory with one pose per frame, at least one keyframe cull,
-   launches > 0 of the kernels it names and no plain-correlation call; then
-   its kernels are held against the plain versions once more on the
-   engine's own final edges and rings.
+   launches > 0 of the kernels it names and of no other, no plain-correlation
+   call, and rings of the type its configuration implies; then its kernels
+   (a tensor path: itself on the CPU) are held against the plain versions
+   once more on the engine's own final edges and rings.
 6. Eval phase: the evaluation entry point at full width.
    devo_tpu_torch.eval.harness.evaluate_sequence with EVAL_CONFIGS["eds"]
    (bf16 rings) and CORR_KERNEL="pair", then with int8 rings and
-   CORR_KERNEL="pair2": random weights from seed 0, an in-memory iterator
+   CORR_KERNEL="pair2", then with CORR_IMPL="pallas" (bf16 rings,
+   corr_fixed): random weights from seed 0, an in-memory iterator
    of 48 frames of the same texture with intrinsics and timestamps, a
    straight-line ground truth, two trials on one cached engine, TUM dumps
    and a results JSON under chiprun_out/. It must hold one engine per
    configuration, as many poses from trial 0 as from a fresh engine, finite
    ATE / MPE / R_rmse that the independent ATE cross-check confirms, the
    artifacts on disk, one launch of the configuration's kernel per
-   correlation of the run and no plain-correlation call. Under random
+   correlation of the run (two for corr_fixed, one a level) and no
+   plain-correlation call. Under random
    weights the ATE says nothing about accuracy.
 7. Bench phase: the bench entry point at full width,
    devo_tpu_torch.bench.run: the saturated 12288-edge point with the default
@@ -97,6 +110,7 @@ TOL = dict(atol=1e-3, rtol=1e-4)   # f32 sums of the same products, in
                                    # another order
 PEAK_BYTES_S = 3.35e12             # H100 SXM device memory
 PEAK_FLOP_S = 989e12               # H100 SXM dense bf16
+PEAK_F32_FLOP_S = 67e12            # H100 SXM f32 outside the tensor cores
 E_MAIN = 12288
 
 # name -> (source, TPU kernel replaced, kernel function in a profile)
@@ -121,20 +135,43 @@ KERNELS = {
                    "devo_tpu/ops/corr_pallas.py:1618", "corr_mono2_kernel"),
     "corr_mono3": ("devo_tpu_torch/csrc/corr_mono3.cu",
                    "devo_tpu/ops/corr_pallas.py:1736", "corr_mono3_kernel"),
+    "corr_fixed": ("devo_tpu_torch/csrc/corr_fixed.cu",
+                   "devo_tpu/ops/corr_pallas.py:63", "corr_fixed_kernel"),
+    "corr_group8": ("devo_tpu_torch/csrc/corr_group8.cu",
+                    "devo_tpu/ops/corr_pallas.py:549", "corr_group8_kernel"),
+    "corr_level_full": ("devo_tpu_torch/csrc/corr_level_full.cu",
+                        "devo_tpu/ops/corr_pallas.py:289",
+                        "corr_level_full_kernel"),
 }
-# the three paths of the slice phase: VOConfig overrides and the kernels
-# each must launch. The profiled path runs last, so that no path is timed
-# in a process that torch.profiler has already traced (its tracing may stay
-# attached and cost the host time at every later launch).
+# the kernels that take float rings only, one level a launch: the entry
+# point's (impl, kernel) that reaches each
+FLOAT_LEVEL = {"corr_fixed": ("pallas", "mono"), "corr_group8": ("banded", "g8"),
+               "corr_level_full": ("banded", "full")}
+# the paths of the slice phase: VOConfig overrides and the kernels each must
+# launch ("window" and "gather" launch none and take their own tensor path).
+# "pallas", "window" and "gather" keep the default CORR_RING_I8, which only
+# "banded" reads: their rings must come out bf16. The profiled path runs
+# last, so that no path is timed in a process that torch.profiler has
+# already traced (its tracing may stay attached and cost the host time at
+# every later launch).
 PATHS = {
     "bf16-mono": (dict(CORR_RING_I8=False, CORR_KERNEL="mono",
                        CORR_L4_RESIDENT="off"), ("corr_pyramid",)),
     "i8-mono": (dict(CORR_RING_I8=True, CORR_KERNEL="mono",
                      CORR_L4_RESIDENT="off"), ("corr_pyramid",)),
+    "bf16-pallas": (dict(CORR_IMPL="pallas"), ("corr_fixed",)),
+    "bf16-g8": (dict(CORR_RING_I8=False, CORR_KERNEL="g8"), ("corr_group8",)),
+    "bf16-full": (dict(CORR_RING_I8=False, CORR_KERNEL="full"),
+                  ("corr_level_full",)),
+    "bf16-window": (dict(CORR_IMPL="window"), ()),
+    "bf16-gather": (dict(CORR_IMPL="gather"), ()),
     "i8-split-resident": (dict(CORR_RING_I8=True, CORR_KERNEL="split",
                                CORR_L4_RESIDENT="auto"),
                           ("corr_level", "corr_level_resident")),
 }
+# the counters of ops/corr.py that each family's correlation adds to on the
+# card: the tensor paths their own, every kernel none
+TENSOR_PATH = {"window": "window_calls", "gather": "gather_calls"}
 PROFILED = "i8-split-resident"
 # the two configurations of the eval phase, on EVAL_CONFIGS["eds"]: VOConfig
 # overrides and the kernel each must launch
@@ -142,6 +179,7 @@ EVAL_PATHS = {
     "eval-eds-bf16-pair": (dict(CORR_KERNEL="pair"), "corr_pair"),
     "eval-eds-i8-pair2": (dict(CORR_KERNEL="pair2", CORR_RING_I8=True),
                           "corr_pair2"),
+    "eval-eds-bf16-pallas": (dict(CORR_IMPL="pallas"), "corr_fixed"),
 }
 EVAL_TRIALS = 2
 OUT_DIR = "chiprun_out/eval_smoke"
@@ -247,9 +285,9 @@ def surface_bytes(coords):
 def bound_ms(gmap, rings, strides, scales, coords, kk, jj, surface=False):
     """The least time the card could take for the correlation of these
     inputs over `rings` (one per level, coords divided by its stride): the
-    larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s. `surface`: the
-    function also writes and reads corr_group's surface. Returns
-    (ms, "bytes" or "operations")."""
+    larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s (bf16 and int8
+    rings), 67 TFLOP/s (f32 rings). `surface`: the function also writes and
+    reads corr_group's surface. Returns (ms, "bytes" or "operations")."""
     E, P = coords.shape[0], coords.shape[1]
     C = gmap.shape[-1]
     n_out = E * 49 * P * P * len(rings)
@@ -263,7 +301,8 @@ def bound_ms(gmap, rings, strides, scales, coords, kk, jj, surface=False):
         if surface:
             nbytes += surface_bytes(coords / stride)
         flops += 2 * C * taps
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+    peak = PEAK_F32_FLOP_S if rings[0].dtype == torch.float32 else PEAK_FLOP_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -319,6 +358,19 @@ def variants(case):
                 lambda: cc.corr_level_resident_cuda(gmap, i8[1], c4, kk, jj, sc[1]),
                 lambda: plain.corr_level(gmap, i8[1], c4, kk, jj, sc[1]),
                 ((i8[1],), (4,), (sc[1],))))
+    # the kernels that take float rings only: bf16, and f32 rings (and patch
+    # features) holding the same values
+    for label, g, pyr in (("bf16", gmap, bf),
+                          ("f32", gmap.float(), tuple(r.float() for r in bf))):
+        for n, (lvl, c) in enumerate(((1, coords), (4, c4))):
+            for name, fn in (("corr_fixed", cc.corr_fixed_cuda),
+                             ("corr_group8", cc.corr_group8_cuda),
+                             ("corr_level_full", cc.corr_level_full_cuda)):
+                out.append((name, f"level {lvl} {label}",
+                            lambda fn=fn, g=g, r=pyr[n], c=c: fn(g, r, c, kk, jj),
+                            lambda g=g, r=pyr[n], c=c: plain.corr_level(
+                                g, r, c, kk, jj),
+                            ((pyr[n],), (lvl,), (None,))))
     return out
 
 
@@ -328,7 +380,8 @@ REPORTED = {"corr_pyramid": "both levels i8", "corr_level": "level 1 i8",
             "corr_level_resident": "level 4 i8", "corr_pair": "both levels i8",
             "corr_pair2": "both levels i8", "corr_level_pipe": "level 1 i8",
             "corr_group": "level 1 i8", "corr_mono2": "both levels i8 gathered",
-            "corr_mono3": "both levels i8"}
+            "corr_mono3": "both levels i8", "corr_fixed": "level 1 bf16",
+            "corr_group8": "level 1 bf16", "corr_level_full": "level 1 bf16"}
 # the kernel choices of the entry point that compute corr_pyramid's function
 EXACT = ("pair", "pair2", "mono2", "mono4", "mono3", "split2")
 
@@ -375,7 +428,9 @@ def kernel_phase(dev, gpu: str):
             torch.testing.assert_close(got, want, **tol)
             ms = median_ms(kernel)
             plain_ms = median_ms(plain, launches=2, repeats=3)
-            b_ms, b_by = bound_ms(gmap, rings, strides, scales, coords, kk, jj,
+            # the patch features are read in the rings' float type
+            g = gmap.float() if rings[0].dtype == torch.float32 else gmap
+            b_ms, b_by = bound_ms(g, rings, strides, scales, coords, kk, jj,
                                   surface=name == "corr_group")
             print(f"{name} [{label}] E={E}: max_abs_err {err:.3e} within atol "
                   f"{tol['atol']:.3g} + rtol {tol['rtol']}; median kernel "
@@ -415,8 +470,19 @@ def kernel_phase(dev, gpu: str):
                       flush=True)
             group_vs_mono(cc, "g8c", False, label, mono, gmap, pyr, coords, kk,
                           jj, scales, E, gpu)
+            if scales is None:
+                # the float-ring configurations through the entry point
+                for impl, kernel in FLOAT_LEVEL.values():
+                    got = cc.corr_pyramid(gmap, pyr, coords, kk, jj,
+                                          kernel=kernel, impl=impl)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, mono, **TOL)
+                    print(f"{impl} {kernel} vs mono [{label}] E={E}: max abs "
+                          f"diff {(got - mono).abs().max().item():.3e} [{gpu}]",
+                          flush=True)
         if E == E_MAIN:
             group_stages(case, gpu)
+            full_stages(case, gpu, record)
     for ring in (torch.bfloat16, torch.int8):
         blocks = cc.pair2_blocks_per_sm(3, 128, torch.bfloat16, ring)
         print(f"corr_pair2 [{ring} rings, C=128]: {blocks} block(s) of 384 "
@@ -471,20 +537,51 @@ def group_stages(case, gpu: str):
               f"[{gpu}]", flush=True)
 
 
+def full_stages(case, gpu: str, record):
+    """corr_level_full's stage instances at the step's edge count, level 1,
+    bf16 rings, each against its plain version (ops/corr.corr_level_stage)
+    and timed beside the whole kernel: the copy, product and extraction
+    apart."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = case
+    ring = bf[0]
+    cap = cc.full_plan(gmap.shape[1], gmap.shape[-1], ring.dtype)[0]
+    rec = record["corr_level_full"]
+    rec["stages"] = {}
+    for stage in plain.STAGES:
+        got = cc.corr_level_full_cuda(gmap, ring, coords, kk, jj, stage=stage)
+        want = plain.corr_level_stage(gmap, ring, coords, kk, jj, stage, cap)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **TOL)
+        ms = median_ms(lambda stage=stage: cc.corr_level_full_cuda(
+            gmap, ring, coords, kk, jj, stage=stage))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["stages"][stage] = dict(ms=ms, max_abs_err=err)
+    print(f"corr_level_full stages [level 1 bf16] E={coords.shape[0]}: "
+          + ", ".join(f"{k} {v['ms']:.4f} ms (max_abs_err {v['max_abs_err']:.3e})"
+                      for k, v in rec["stages"].items())
+          + f" [{gpu}]", flush=True)
+
+
 def empty_case(dev, gpu: str):
     """E = 0: an empty result of the right shape and no launch, on every
-    kernel choice."""
+    kernel choice and family (int8 rings where the choice takes them)."""
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = corr_case(8, dev, 4)
     before = dict(cc.launches)
-    for kernel in cc.KERNELS:
-        got = cc.corr_pyramid(gmap, i8, coords[:0], kk[:0], jj[:0], scales=sc,
-                              kernel=kernel)
+    for impl, kernel in ([("banded", k) for k in cc.KERNELS]
+                         + [(impl, "mono") for impl in cc.IMPLS[1:]]):
+        floats = impl != "banded" or kernel in cc.FLOAT_ONLY
+        pyr, scales = (bf, None) if floats else (i8, sc)
+        got = cc.corr_pyramid(gmap, pyr, coords[:0], kk[:0], jj[:0],
+                              scales=scales, kernel=kernel, impl=impl)
         if got.shape != (0, 882) or cc.launches != before:
-            raise RuntimeError(f"{kernel} at E=0: {tuple(got.shape)}, "
+            raise RuntimeError(f"{impl} {kernel} at E=0: {tuple(got.shape)}, "
                                f"launches {cc.launches}")
-    print(f"E=0: every kernel choice returns (0, 882) and launches nothing "
-          f"[{gpu}]", flush=True)
+    print(f"E=0: every kernel choice and family returns (0, 882) and launches "
+          f"nothing [{gpu}]", flush=True)
 
 
 # kernel choice -> the launch counters it runs on
@@ -505,6 +602,27 @@ def narrow_case(dev, gpu: str, record):
                                ("bf16, staged", bf, None)):
         held_to_plain(cc, "C=8 " + label, gmap, pyr, coords, kk, jj, scales,
                       record, gpu)
+    held_float_to_plain(cc, "C=8", gmap, bf, coords, kk, jj, record, gpu)
+
+
+def held_float_to_plain(cc, label, gmap, bf, coords, kk, jj, record, gpu):
+    """The float-ring kernels (FLOAT_LEVEL) through the entry point on one
+    case, on its bf16 rings and on f32 rings of the same values, against
+    corr_pyramid."""
+    from devo_tpu_torch.ops import corr as plain
+    for ring, g, pyr in (("bf16", gmap, bf),
+                         ("f32", gmap.float(), tuple(r.float() for r in bf))):
+        ref = plain.corr_pyramid(g, pyr, coords, kk, jj)
+        for name, (impl, kernel) in FLOAT_LEVEL.items():
+            got = cc.corr_pyramid(g, pyr, coords, kk, jj, kernel=kernel,
+                                  impl=impl)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            torch.testing.assert_close(got, ref, **TOL)
+            record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+            print(f"{name} [{label} {ring}] E={coords.shape[0]}: max_abs_err "
+                  f"{err:.3e} within atol {TOL['atol']} + rtol {TOL['rtol']} "
+                  f"[{gpu}]", flush=True)
 
 
 def held_to_plain(cc, label, gmap, pyr, coords, kk, jj, scales, record, gpu):
@@ -541,6 +659,8 @@ def wide_case(dev, gpu: str, record):
                                ("wide windows bf16", bf, None)):
         held_to_plain(cc, label, gmap, pyr, coords, kk, jj, scales, record,
                       gpu)
+    held_float_to_plain(cc, "wide windows", gmap, bf, coords, kk, jj, record,
+                        gpu)
 
 
 def profile_frames(slam, stream, intr, gpu: str):
@@ -619,6 +739,12 @@ REFERENCE = {
                                CORR_L4_RESIDENT="auto"),
     "i8-mono3": dict(CORR_RING_I8=True, CORR_KERNEL="mono3"),
     "i8-g8c": dict(CORR_RING_I8=True, CORR_KERNEL="g8c"),
+    # the other families keep float rings whatever CORR_RING_I8 says
+    "f32 rings pallas": dict(CORR_IMPL="pallas"),
+    "f32 rings window": dict(CORR_IMPL="window"),
+    "f32 rings gather": dict(CORR_IMPL="gather"),
+    "f32 rings g8": dict(CORR_RING_I8=False, CORR_KERNEL="g8"),
+    "f32 rings full": dict(CORR_RING_I8=False, CORR_KERNEL="full"),
 }
 # pose atol: float noise compounds over the 12-update initialization and the
 # per-frame BA; with int8 rings a feature that rounds the other way on the
@@ -634,9 +760,10 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     texture. Per frame the same keyframe count, cull decision and (kk, jj)
     edge set, poses within REF_TOL; then the same terminate() output."""
     from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
     from devo_tpu_torch.runtime.config import VOConfig
-    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.runtime.engine import DEVO, ring_i8
     from devo_tpu_torch.utils.params import random_state_dict
 
     cfg = VOConfig(BUFFER_SIZE=32, HT=REF_HT, WD=REF_WD, PATCHES_PER_FRAME=4,
@@ -644,7 +771,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
                    MOTION_PROBE_THRESH=-1.0, MEM=16, DIM_INET=32, DIM_FNET=16,
                    DIM=8, MIXED_PRECISION=False, SCORER_EVAL_MODE="topk",
                    **knobs)
-    tol = REF_TOL[cfg.CORR_RING_I8]
+    tol = REF_TOL[ring_i8(cfg)]
     weights = random_state_dict(
         EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=1)
     rng = np.random.default_rng(1)
@@ -656,6 +783,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     engines = {d.type: DEVO(cfg, weights, ht=REF_HT, wd=REF_WD, device=d)
                for d in (torch.device("cpu"), dev)}
     corr_cuda.reset_launches()
+    corr_plain.window_calls = corr_plain.gather_calls = 0
     culls = 0
     for i in range(REF_FRAMES):
         vox = base[:, 3 * i:3 * i + REF_WD]
@@ -692,7 +820,13 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
         raise RuntimeError(f"reference {label}: terminate() outputs differ")
     if culls < 1:
         raise RuntimeError(f"reference {label}: no keyframe cull happened")
-    if not any(corr_cuda.launches.values()):
+    path = TENSOR_PATH.get(cfg.CORR_IMPL)
+    if path is not None:
+        # both engines took the tensor path, and the card no kernel
+        if any(corr_cuda.launches.values()) or getattr(corr_plain, path) < 1:
+            raise RuntimeError(f"reference {label}: expected the {path} path "
+                               f"and no kernel: {corr_cuda.launches}")
+    elif not any(corr_cuda.launches.values()):
         raise RuntimeError(f"reference {label}: no kernel was launched")
 
 
@@ -720,7 +854,7 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     corr_cuda.reset_launches()
-    corr_plain.calls = 0
+    corr_plain.calls = corr_plain.window_calls = corr_plain.gather_calls = 0
     frame_s = []
     for i, vox in enumerate(stream[:n_frames]):
         if i == SKIP:
@@ -740,13 +874,15 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     torch.cuda.synchronize()
     t_end = time.perf_counter() - t0
     launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
+    paths = {impl: getattr(corr_plain, name) for impl, name in TENSOR_PATH.items()}
 
     n_all = len(stream)
     culls = sum(bool(aux.kf_removed) for _, aux in slam.aux_log)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     tail = frame_s[SKIP:]
-    print(f"slice [{label}]: {HT}x{WD}, rings {slam.fmap1.dtype}, resident "
-          f"level 4 {slam.l4_resident}; frames {SKIP}-{n_frames - 1}: "
+    print(f"slice [{label}]: {HT}x{WD}, CORR_IMPL={slam.cfg.CORR_IMPL!r}, "
+          f"CORR_KERNEL={slam.cfg.CORR_KERNEL!r}, rings {slam.fmap1.dtype}, "
+          f"resident level 4 {slam.l4_resident}; frames {SKIP}-{n_frames - 1}: "
           f"{len(tail) / sum(tail):.2f} frames/s (median frame "
           f"{1e3 * np.median(tail):.2f} ms), kernel launches per frame "
           f"{per_frame}; first frame "
@@ -754,7 +890,8 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
           f"ms; {N_UPDATES} updates + terminate {1e3 * t_end:.1f} ms; after "
           f"{n_all} frames: live edges {slam.n_edges}, keyframes {slam.n}, "
           f"culls {culls}; peak memory {peak_gib:.3f} GiB; kernel launches "
-          f"{launches}, plain corr calls {plain_calls} [{gpu}]", flush=True)
+          f"{launches}, plain corr calls {plain_calls}, tensor path calls "
+          f"{paths} [{gpu}]", flush=True)
     if poses.shape != (n_all, 7) or tss.shape != (n_all,):
         raise RuntimeError(f"{label}: trajectory shape {poses.shape}, {tss.shape}")
     if not np.isfinite(poses).all():
@@ -762,9 +899,15 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     if culls < 1:
         raise RuntimeError(f"{label}: no keyframe cull happened")
     unnamed = [k for k in launches if k not in named and launches[k]]
-    if any(launches[k] < 1 for k in named) or unnamed or plain_calls != 0:
+    impl = slam.cfg.CORR_IMPL
+    if (any(launches[k] < 1 for k in named) or unnamed or plain_calls != 0
+            or any(n < 1 if k == impl else n > 0 for k, n in paths.items())):
         raise RuntimeError(f"{label}: the step did not run on its kernels "
-                           f"{named} alone: {launches}, {plain_calls} plain calls")
+                           f"{named} alone: {launches}, {plain_calls} plain "
+                           f"calls, tensor paths {paths}")
+    if slam.fmap1.dtype != (torch.int8 if knobs.get("CORR_RING_I8", True)
+                            and impl == "banded" else torch.bfloat16):
+        raise RuntimeError(f"{label}: rings {slam.fmap1.dtype}")
 
     return launches, engine_state_check(slam, label, gpu)
 
@@ -781,14 +924,28 @@ def engine_state_check(slam, label: str, gpu: str) -> float:
     args = (slam.gmap, (slam.fmap1, slam.fmap2),
             edgewise.coords_to_corr_format(geo, cfg.P),
             (slam.kk % (cfg.M * cfg.MEM)).int(), (slam.jj % cfg.MEM).int())
-    scales = (slam.fsc1, slam.fsc2) if cfg.CORR_RING_I8 else None
-    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=cfg.CORR_KERNEL,
-                                 resident=slam.l4_resident)
-    want, tol = own_plain(cfg.CORR_KERNEL, *args, scales)
+    scales = (slam.fsc1, slam.fsc2) if slam.ring_i8 else None
+    impl = cfg.CORR_IMPL
+    if impl in TENSOR_PATH:
+        # no kernel: the tensor path on the card against itself on the CPU,
+        # on the first edges
+        n = min(slam.n_edges, 2048)
+        args = (args[0], args[1], *(t[:n] for t in args[2:]))
+        got = corr_cuda.corr_pyramid(*args, impl=impl)
+        want = corr_cuda.corr_pyramid(
+            args[0].cpu(), tuple(r.cpu() for r in args[1]),
+            *(t.cpu() for t in args[2:]), impl=impl).to(got.device)
+        tol = TOL
+    else:
+        got = corr_cuda.corr_pyramid(*args, scales=scales,
+                                     kernel=cfg.CORR_KERNEL,
+                                     resident=slam.l4_resident, impl=impl)
+        want, tol = own_plain(cfg.CORR_KERNEL if impl == "banded" else "mono",
+                              *args, scales)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, **tol)
-    print(f"engine state [{label}] E={slam.n_edges}: max_abs_err {err:.3e} "
+    print(f"engine state [{label}] E={got.shape[0]}: max_abs_err {err:.3e} "
           f"within atol {tol['atol']:.3g} + rtol {tol['rtol']} [{gpu}]",
           flush=True)
     return err
@@ -885,14 +1042,15 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
                            f"were cached for one configuration")
     slam = next(s for k, s in engine_cache.items() if k[2] == cfg)
     # correlations of one trial: the probe of frames 1-7, 12 updates at
-    # initialization (frame 8), one per later frame, 12 final updates
+    # initialization (frame 8), one per later frame, 12 final updates; a
+    # kernel that takes one level a launch is launched twice for each
     per_trial = 7 + 12 + (n - 8) + N_UPDATES
+    want = EVAL_TRIALS * per_trial * (2 if kernel in FLOAT_LEVEL else 1)
     others = [k for k, v in launches.items() if v and k != kernel]
-    if (launches[kernel] != EVAL_TRIALS * per_trial or others
-            or plain_calls != 0):
-        raise RuntimeError(f"{label}: expected {EVAL_TRIALS * per_trial} "
-                           f"launches of {kernel} alone, got {launches} and "
-                           f"{plain_calls} plain calls")
+    if launches[kernel] != want or others or plain_calls != 0:
+        raise RuntimeError(f"{label}: expected {want} launches of {kernel} "
+                           f"alone, got {launches} and {plain_calls} plain "
+                           f"calls")
     if not all(np.isfinite([r.ate, r.mpe, r.r_rmse]).all() for r in results):
         raise RuntimeError(f"{label}: metrics are not finite: {results}")
     for trial in range(EVAL_TRIALS):
@@ -931,7 +1089,8 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     frame_ms = [round(float(1e3 * np.median(np.diff(ts)[SKIP:])), 2)
                 for ts in yields[:EVAL_TRIALS]]
     print(f"eval [{label}]: evaluate_sequence, {HT}x{WD}, rings "
-          f"{slam.fmap1.dtype}, CORR_KERNEL={cfg.CORR_KERNEL!r}, {n} frames + "
+          f"{slam.fmap1.dtype}, CORR_IMPL={cfg.CORR_IMPL!r}, "
+          f"CORR_KERNEL={cfg.CORR_KERNEL!r}, {n} frames + "
           f"{N_UPDATES} updates x {EVAL_TRIALS} trials on one engine: "
           f"run_voxel frames/s per trial {[round(f, 2) for f in fps]} (first "
           f"frame, initialization and final updates included); frames "
@@ -1014,7 +1173,8 @@ def main():
                           if name == "corr_group" else "")
                          + f"atol {TOL['atol']} + rtol {TOL['rtol']}",
             "reported_variant": f"{REPORTED[name]}, E={E_MAIN}",
-            "variants": rec["variants"]})
+            "variants": rec["variants"],
+            **({"stages": rec["stages"]} if "stages" in rec else {})})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
     print(json.dumps({"kernels": kernels}), flush=True)

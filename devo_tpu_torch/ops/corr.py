@@ -19,18 +19,29 @@ csrc/corr_mono3.cu (both levels: the kernels "mono", "pair", "pair2",
 csrc/corr_level.cu, csrc/corr_level_pipe.cu and csrc/corr_level_resident.cu
 (one level), and `group_surface` of csrc/corr_group.cu, which with
 `extract_blend_group` makes `corr_level_group`: one level whose products
-pass through a bf16 surface (the kernel "g8c"). The tests hold them against
-the JAX package, and the kernels are held against them on the card.
-`ops/corr_cuda.corr_pyramid` is the engine's entry point; it calls these
-versions only for tensors on the CPU.
+pass through a bf16 surface (the kernel "g8c"). `corr_level` is also the
+plain version of csrc/corr_fixed.cu (CORR_IMPL="pallas"), csrc/corr_group8.cu
+("g8") and csrc/corr_level_full.cu ("full"), and `corr_level_stage` that of
+the latter's stage instances, which time its copy, product and extraction
+apart. The tests hold them against the JAX package, and the kernels are held
+against them on the card. `ops/corr_cuda.corr_pyramid` is the engine's entry
+point; it calls these versions only for tensors on the CPU.
+
+Two implementation families of the engine are tensor code on either device,
+with no kernel: `corr_pyramid_gather` (CORR_IMPL="gather": the coordinates
+and the bilinear weights in the features' type) and `corr_pyramid_window`
+(CORR_IMPL="window": products over one fixed 16x24 window an edge, taps
+clamped into it).
 """
 from __future__ import annotations
 
 import torch
 
-# calls of corr_pyramid, corr_level and group_surface, counted so a run can
-# show which path it took
+# calls of corr_pyramid, corr_level and group_surface, and of the two tensor
+# paths, counted so a run can show which path it took
 calls = 0
+gather_calls = 0
+window_calls = 0
 
 GROUP_EDGES = 8       # edges that share one block of surface rows
 GROUP_LANES = 16      # lanes of an edge in a surface row (P*P used)
@@ -62,6 +73,12 @@ def corr(gmap: torch.Tensor, fmap: torch.Tensor, coords: torch.Tensor,
     whatever the feature dtype; one gather per tap keeps memory at one
     (E, P*P, C) slab.
     """
+    return _corr(gmap, fmap, coords, kk, jj, radius, scale)
+
+
+def _corr(gmap, fmap, coords, kk, jj, radius=3, scale=None, frac_dtype=None):
+    """`corr`, with the fractional parts of the coordinates, the bilinear
+    weights, rounded to `frac_dtype` first where it is given."""
     if (fmap.dtype == torch.int8) != (scale is not None):
         raise ValueError("an int8 ring, and only an int8 ring, takes a scale")
     N, H, W, C = fmap.shape
@@ -74,6 +91,8 @@ def corr(gmap: torch.Tensor, fmap: torch.Tensor, coords: torch.Tensor,
     y = coords[..., 1].reshape(E, PP).float()
     xf, yf = torch.floor(x), torch.floor(y)
     dx, dy = x - xf, y - yf
+    if frac_dtype is not None:
+        dx, dy = dx.to(frac_dtype).float(), dy.to(frac_dtype).float()
     x0, y0 = xf.long(), yf.long()
     flat = fmap.reshape(N * H * W, C)
     base = jj.long()[:, None] * (H * W)
@@ -245,3 +264,151 @@ def corr_level_group(gmap: torch.Tensor, fmap: torch.Tensor,
         raise ValueError("an int8 ring, and only an int8 ring, takes a scale")
     surface = group_surface(gmap, fmap, coords, kk, jj)
     return extract_blend_group(surface, coords, jj, fmap.shape[1:3], scale)
+
+
+def corr_pyramid_gather(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
+                        kk: torch.Tensor, jj: torch.Tensor, radius: int = 3,
+                        levels=(1, 4)) -> torch.Tensor:
+    """The correlation of CORR_IMPL="gather", as devo_tpu's engine calls its
+    corr_ops.corr_pyramid (engine.py:414-417, corr.py:61-62): the
+    coordinates are cast to the patch features' type before each level
+    divides them, and every level's bilinear weights are rounded to its
+    ring's type. Under mixed precision both are bf16, a coarser function
+    than `corr_pyramid` (level-1 coordinates beyond 128 step by a whole
+    pixel); with f32 features it is `corr_pyramid`. Float rings only.
+    Tensor code on either device. Returns (E, L*(2r+1)^2*P*P) f32 in
+    [dx, dy, pixel, level] order."""
+    global gather_calls
+    gather_calls += 1
+    c = coords.to(gmap.dtype)
+    return stack_levels([_corr(gmap, fm, c / lvl, kk, jj, radius,
+                               frac_dtype=fm.dtype)
+                         for fm, lvl in zip(pyramid, levels)])
+
+
+WIN, WINX, WPAD = 16, 24, 12    # the fixed window: rows, columns, border
+WINDOW_CHUNK = 1024             # edges whose windows are gathered at once
+
+
+def corr_window(gmap: torch.Tensor, fmap: torch.Tensor, coords: torch.Tensor,
+                kk: torch.Tensor, jj: torch.Tensor) -> torch.Tensor:
+    """One level of CORR_IMPL="window", devo_tpu's corr_window with
+    blend_strips (corr.py:95-202) as tensor code on either device: every
+    edge's fixed window against its patch's pixels in one batched product
+    (16 rows x 24 columns, zero off the image, placed as devo_tpu places it,
+    corr.py:134-141: the origin at the least tap corner, clamped into the
+    ring bordered by 12, x aligned down to 8), each pixel's 8x8 taps taken
+    from that surface by indexing, blended to 7x7. A pixel whose taps leave
+    the window (a patch spread beyond 8 px, or coordinates far off the
+    image) has its tap origin clamped into it, as devo_tpu's does: this
+    path keeps that clamp, so it is `corr_level` only where every pixel's
+    taps lie in the window. Float rings; products and sums f32. coords is at
+    this level's resolution. Returns (E, 49*P*P) f32 in [dx, dy, pixel]
+    order."""
+    N, H, W, C = fmap.shape
+    E, P = coords.shape[0], coords.shape[1]
+    PP = P * P
+    x = coords[..., 0].reshape(E, PP).float()
+    y = coords[..., 1].reshape(E, PP).float()
+    xf, yf = torch.floor(x), torch.floor(y)
+    fx, fy = x - xf, y - yf
+    x0, y0 = xf.clamp(-1e6, 1e6).long(), yf.clamp(-1e6, 1e6).long()
+    # the window's origin in ring coordinates (negative inside the border)
+    wx0 = (x0.amin(1) - 3 + WPAD).clamp(0, W + 2 * WPAD - WINX) // 8 * 8 - WPAD
+    wy0 = (y0.amin(1) - 3 + WPAD).clamp(0, H + 2 * WPAD - WIN) - WPAD
+    rx = (x0 - 3 - wx0[:, None]).clamp(0, WINX - 9)
+    ry = (y0 - 3 - wy0[:, None]).clamp(0, WIN - 8)
+    flat = fmap.reshape(N * H * W, C)
+    d = torch.arange(8, device=coords.device)
+    rows = torch.arange(WIN, device=coords.device)[:, None]
+    cols = torch.arange(WINX, device=coords.device)[None, :]
+    taps = []
+    for a in range(0, E, WINDOW_CHUNK):
+        b = min(a + WINDOW_CHUNK, E)
+        iy = wy0[a:b, None, None] + rows                    # (e, 16, 1)
+        ix = wx0[a:b, None, None] + cols                    # (e, 1, 24)
+        inb = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+        idx = (jj[a:b].long()[:, None, None] * (H * W)
+               + iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1))
+        win = torch.where(inb[..., None], flat[idx].float(), 0.0)
+        g = gmap[kk[a:b].long()].reshape(b - a, PP, C).float()
+        surf = torch.bmm(g, win.reshape(b - a, WIN * WINX, C).transpose(1, 2))
+        at = (((ry[a:b, :, None, None] + d[:, None]) * WINX
+               + rx[a:b, :, None, None] + d[None, :])
+              + torch.arange(PP, device=coords.device)[:, None, None]
+              * (WIN * WINX))                                # (e, PP, 8, 8)
+        taps.append(surf.reshape(b - a, -1).gather(
+            1, at.reshape(b - a, -1)).reshape(b - a, PP, 8, 8))
+    taps = torch.cat(taps) if taps else coords.new_zeros((0, PP, 8, 8))
+    fyb, fxb = fy[:, :, None, None], fx[:, :, None, None]
+    Y = (1 - fyb) * taps[:, :, :7] + fyb * taps[:, :, 1:]   # (E, PP, dy, 8)
+    out = (1 - fxb) * Y[..., :7] + fxb * Y[..., 1:]         # (E, PP, dy, dx)
+    return out.permute(0, 3, 2, 1).reshape(E, 49 * PP)
+
+
+def corr_pyramid_window(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
+                        kk: torch.Tensor, jj: torch.Tensor,
+                        levels=(1, 4)) -> torch.Tensor:
+    """The correlation of CORR_IMPL="window": `corr_window` a level, coords
+    at level-1 resolution divided by each level's stride. Returns
+    (E, L*49*P*P) f32 in [dx, dy, pixel, level] order."""
+    global window_calls
+    window_calls += 1
+    return stack_levels([corr_window(gmap, fm, coords / lvl, kk, jj)
+                         for fm, lvl in zip(pyramid, levels)])
+
+
+STAGES = ("full", "noext", "nomm", "noDMA")
+
+
+def corr_level_stage(gmap: torch.Tensor, fmap: torch.Tensor,
+                     coords: torch.Tensor, kk: torch.Tensor, jj: torch.Tensor,
+                     stage: str, cap: int) -> torch.Tensor:
+    """What a stage instance of csrc/corr_level_full.cu writes, (E, 49*P*P)
+    f32, for a float ring and the window capacity `cap` the kernel was
+    launched with. The kernel stages an edge's covering window (the union of
+    its pixels' 8x8 tap grids, see `_group_index`) where it has at most
+    `cap` positions, else reads that edge's taps from the ring. Stages:
+
+    - "full": the correlation, `corr_level`;
+    - "noext" (no extraction): row i of a staged edge is its product
+      surface at window position i // P*P (row-major), pixel i % P*P, 0
+      beyond the window or off the image; an edge not staged is 0;
+    - "nomm" (no product): `corr_level` with pixel p's patch feature
+      replaced by the unit vector of channel p % C, so that every tap is one
+      ring value;
+    - "noDMA" (no copy): a staged edge reads a zeroed window and is 0; an
+      edge not staged is `corr_level`.
+
+    Only "full" is a correlation; the others exist to time the kernel's
+    stages and are defined here so that the kernel can be held to them."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    if fmap.dtype == torch.int8:
+        raise ValueError("the stages take float rings")
+    if stage == "full":
+        return corr_level(gmap, fmap, coords, kk, jj)
+    N, H, W, C = fmap.shape
+    E, P = coords.shape[0], coords.shape[1]
+    PP = P * P
+    x0, y0, wx0, wy0, ww, wide = _group_index(coords, cap)
+    if stage == "noDMA":
+        return torch.where(wide, corr(gmap, fmap, coords, kk, jj), 0.0)
+    if stage == "nomm":
+        unit = torch.zeros((1, PP, C), device=gmap.device)
+        unit[0, torch.arange(PP), torch.arange(PP) % C] = 1.0
+        return corr(unit.reshape(1, P, P, C), fmap, coords,
+                    torch.zeros_like(kk), jj)
+    wh = y0.amax(1, keepdim=True) - y0.amin(1, keepdim=True) + 8
+    g = gmap[kk.long()].reshape(E, PP, C).float()
+    flat = fmap.reshape(N * H * W, C)
+    at = torch.arange(49, device=gmap.device).expand(E, 49)  # window position
+    iy, ix = wy0 + at // ww, wx0 + at % ww
+    ok = ((at < ww * wh) & ~wide & (iy >= 0) & (iy < H) & (ix >= 0)
+          & (ix < W))
+    idx = (jj.long()[:, None] * (H * W) + iy.clamp(0, H - 1) * W
+           + ix.clamp(0, W - 1))
+    rows = flat[idx]                                       # (E, 49, C)
+    out = torch.stack([(g[:, p, None, :] * rows.float()).sum(-1)
+                       for p in range(PP)], -1)            # (E, 49, PP)
+    return torch.where(ok[..., None], out, 0.0).reshape(E, 49 * PP)

@@ -28,10 +28,24 @@ fallback from one to the other. Nine kernels, one launch counter each
   ("mono2") or read where the copies landed ("mono4");
 - "mono3", `corr_mono3_cuda` (csrc/corr_mono3.cu): both levels in one launch
   from a per-edge product surface in shared memory, a block walking a run of
-  edges behind a ring of window copies.
+  edges behind a ring of window copies;
+- "g8", `corr_group8_cuda` (csrc/corr_group8.cu): one level per launch, eight
+  consecutive edges a block, their f32 product surfaces kept in the block
+  and extracted there;
+- "full", `corr_level_full_cuda` (csrc/corr_level_full.cu): one level per
+  launch, a block walking a run of edges with the copy, the product surface
+  and the extraction of every edge interleaved; its stage instances
+  ("noext", "nomm", "noDMA") time those parts apart.
+
+`impl` (the engine's CORR_IMPL) chooses the family: "banded" is the kernel
+`kernel` names; "pallas" is `corr_fixed_cuda` (csrc/corr_fixed.cu), one
+level per launch over a fixed 16x24 window an edge; "window" and "gather"
+are tensor code on either device (ops/corr.corr_pyramid_window,
+ops/corr.corr_pyramid_gather), with no kernel.
 
 All take float rings (bf16 or f32, the type of the patch features) or, with
-per-slot scales, int8 rings; the resident kernel int8 only. The sources are
+per-slot scales, int8 rings; the resident kernel int8 only; "g8", "full" and
+every family but "banded" float rings only. The sources are
 compiled for sm_90a, one `nvcc` process each at the same time, and linked
 into devo_tpu_torch/_build/ at first use (a shared library with a plain C
 interface, loaded with ctypes), once per version of the sources.
@@ -53,7 +67,8 @@ from . import corr as plain
 # launches of each kernel, counted so a run can show it went through them
 launches = {"corr_pyramid": 0, "corr_level": 0, "corr_level_resident": 0,
             "corr_pair": 0, "corr_pair2": 0, "corr_level_pipe": 0,
-            "corr_group": 0, "corr_mono2": 0, "corr_mono3": 0}
+            "corr_group": 0, "corr_mono2": 0, "corr_mono3": 0,
+            "corr_fixed": 0, "corr_group8": 0, "corr_level_full": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -67,9 +82,15 @@ LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
 _PAIR_STATIC = 4096           # bound on the static shared memory of the pair
                               #   kernels (their per-edge index tables)
 _MONO3_STATIC = 6144          # the same of corr_mono3 (ten such tables)
-_GROUP_STATIC = 5120          # and of corr_group (eight)
+_GROUP_STATIC = 5120          # and of corr_group and corr_group8 (eight)
+_FULL_STATIC = 4096           # and of corr_level_full (six)
+_SMEM_SM = 233_472            # shared memory of an SM on sm_90
+_SMEM_RESERVED = 1024         # of which each resident block takes this much
 MONO3_RUN = 64                # edges a corr_mono3 block walks
 MONO3_MAX_DEPTH = 8           # stages of its window ring
+FULL_RUN = 64                 # edges a corr_level_full block walks
+FULL_MAX_DEPTH = 4            # stages of its window ring
+_FIXED_POSITIONS = 16 * 24    # corr_fixed's window
 _RESIDENT_WARPS = 8           # warps of a corr_level_resident block
 _RESIDENT_SPLIT = 8           # blocks per ring slot (grid.y)
 _lib = None
@@ -156,7 +177,12 @@ def _load():
                                         + [i] * 3 + [ptr])
         lib.devo_corr_mono3.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
                                         + [i] * 4 + [ptr])
-        for fn in (lib.devo_corr_pyramid, lib.devo_corr_level,
+        lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
+        lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 7 + [ptr]
+        lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
+        for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
+                   lib.devo_corr_level_full, lib.devo_corr_pyramid,
+                   lib.devo_corr_level,
                    lib.devo_corr_level_resident, lib.devo_corr_pair,
                    lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm,
                    lib.devo_corr_level_pipe,
@@ -322,18 +348,15 @@ def _pair_smem(name: str, P: int, C: int, gmap_dtype, ring_dtype, cap: int):
     return pair2_smem_bytes(P, C, gmap_dtype, ring_dtype, cap)
 
 
-def _fit_cap(smem_of_cap, C: int, ring_dtype, static: int) -> int:
+def _fit_cap(smem_of_cap, C: int, ring_dtype, room: int) -> int:
     """Feature vectors of each staged window of a kernel whose block takes
-    `smem_of_cap(cap)` bytes of dynamic and `static` bytes of static shared
-    memory: LEVEL_WINDOW_CAP, fewer where a block's shared memory holds no
-    more, and 0 (every tap reads the ring) where a feature vector is no
-    multiple of the 16-byte copies."""
+    `smem_of_cap(cap)` bytes of shared memory: LEVEL_WINDOW_CAP, fewer where
+    `room` bytes hold no more, and 0 (every tap reads the ring) where none
+    fits or a feature vector is no multiple of the 16-byte copies."""
     if C * _item(ring_dtype) % 16 != 0:
         return 0
-    fixed = smem_of_cap(0)
-    per_vector = smem_of_cap(1) - fixed
-    room = SMEM_MAX - static - fixed
-    return max(0, min(LEVEL_WINDOW_CAP, room // per_vector))
+    return next((cap for cap in range(LEVEL_WINDOW_CAP, 0, -1)
+                 if smem_of_cap(cap) <= room), 0)
 
 
 def pair_cap(name: str, P: int, C: int, gmap_dtype, ring_dtype) -> int:
@@ -341,7 +364,7 @@ def pair_cap(name: str, P: int, C: int, gmap_dtype, ring_dtype) -> int:
     ("corr_pair" or "corr_pair2"), see `_fit_cap`."""
     return _fit_cap(
         lambda cap: _pair_smem(name, P, C, gmap_dtype, ring_dtype, cap), C,
-        ring_dtype, _PAIR_STATIC)
+        ring_dtype, SMEM_MAX - _PAIR_STATIC)
 
 
 def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
@@ -448,7 +471,7 @@ def level_pipe_cap(P: int, C: int, gmap_dtype, ring_dtype) -> int:
     """Feature vectors of corr_level_pipe's staged window, see `_fit_cap`."""
     return _fit_cap(
         lambda cap: level_pipe_smem_bytes(P, C, gmap_dtype, ring_dtype, cap),
-        C, ring_dtype, _PAIR_STATIC)
+        C, ring_dtype, SMEM_MAX - _PAIR_STATIC)
 
 
 def corr_level_pipe_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
@@ -490,7 +513,7 @@ def mono2_cap(P: int, C: int, ring_dtype, concat: bool) -> int:
     """Feature vectors of each of corr_mono2's staged windows, see
     `_fit_cap`."""
     return _fit_cap(lambda cap: mono2_smem_bytes(P, C, ring_dtype, cap, concat),
-                    C, ring_dtype, _PAIR_STATIC)
+                    C, ring_dtype, SMEM_MAX - _PAIR_STATIC)
 
 
 def corr_mono2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
@@ -522,7 +545,7 @@ def mono3_plan(P: int, C: int, ring_dtype):
     stages (see `_fit_cap`), then as many stages, at most MONO3_MAX_DEPTH, as
     a block's shared memory holds at that size."""
     cap = _fit_cap(lambda cap: mono3_smem_bytes(P, C, ring_dtype, cap, 2), C,
-                   ring_dtype, _MONO3_STATIC)
+                   ring_dtype, SMEM_MAX - _MONO3_STATIC)
     depth = 2
     while (depth < MONO3_MAX_DEPTH
            and mono3_smem_bytes(P, C, ring_dtype, cap, depth + 1)
@@ -565,7 +588,7 @@ def group_cap(P: int, C: int, ring_dtype) -> int:
     """Positions of corr_group's staged window, see `_fit_cap`; an edge whose
     window has more keeps its taps in the surface instead."""
     return _fit_cap(lambda cap: group_smem_bytes(P, C, ring_dtype, cap), C,
-                    ring_dtype, _GROUP_STATIC)
+                    ring_dtype, SMEM_MAX - _GROUP_STATIC)
 
 
 _SURFACE_STEP = 256           # groups by which the cached surface grows
@@ -672,8 +695,159 @@ def corr_level_resident_cuda(gmap, fmap, coords, kk, jj, scale) -> torch.Tensor:
     return out
 
 
+def _float_level_call(gmap, fmap, coords, kk, jj, scale):
+    """What the kernels that take one float-ring level ask of their
+    arguments. Returns (E, P, C)."""
+    _check(scale is None and fmap.dtype != torch.int8,
+           "the kernel takes float rings (bf16 or f32) without scales")
+    E, P, C, _ = _check_call(gmap, (fmap,), (None,), coords, kk, jj)
+    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
+    for name, t in (("gmap", gmap), ("coords", coords)):
+        _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
+    return E, P, C
+
+
+def fixed_smem_bytes(P: int, C: int) -> int:
+    """Dynamic shared memory of a corr_fixed block: the f32 patch feature,
+    the f32 product surface of the 384 window positions, and a pixel's 64
+    taps for every pixel, as f32."""
+    PP = P * P
+    return (PP * C + (_FIXED_POSITIONS + _TAPS) * PP) * 4
+
+
+def corr_fixed_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
+    """Launch csrc/corr_fixed.cu, one pyramid level over a fixed 16x24 window
+    an edge (CORR_IMPL="pallas"): gmap (Mring, P, P, C) and fmap
+    (mem, h, w, C) both bf16 or both f32; coords (E, P, P, 2) f32 at this
+    level's resolution; kk, jj (E,) int32. Returns (E, 49*P*P) f32 in
+    [dx, dy, pixel] order; the plain version is ops/corr.corr_level."""
+    E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
+    _check(fixed_smem_bytes(P, C) <= SMEM_MAX,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
+                      device=gmap.device)
+    if E == 0:
+        return out
+    lib = _load()
+    code = lib.devo_corr_fixed(
+        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap.shape[1],
+        fmap.shape[2], int(gmap.dtype == torch.bfloat16),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched("corr_fixed", code)
+    return out
+
+
+def group8_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
+    """Dynamic shared memory of a corr_group8 block: two parities of two
+    edges' f32 patch features, eight f32 surface slots of max(cap, 64)
+    positions, and two parities of two windows with padded vectors."""
+    PP = P * P
+    return ((4 * PP * C + 8 * max(cap, _TAPS) * PP) * 4
+            + 4 * cap * _padded(C, ring_dtype))
+
+
+def group8_cap(P: int, C: int, ring_dtype) -> int:
+    """Positions of corr_group8's staged windows; an edge whose window has
+    more keeps its taps in its surface slot instead."""
+    return _fit_cap(lambda cap: group8_smem_bytes(P, C, ring_dtype, cap), C,
+                    ring_dtype, SMEM_MAX - _GROUP_STATIC)
+
+
+def corr_group8_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
+    """Launch csrc/corr_group8.cu, one pyramid level, eight edges a block
+    (CORR_KERNEL="g8"). Arguments and result as `corr_fixed_cuda`; the plain
+    version is ops/corr.corr_level."""
+    E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
+    cap = group8_cap(P, C, fmap.dtype)
+    _check(group8_smem_bytes(P, C, fmap.dtype, cap) <= SMEM_MAX - _GROUP_STATIC,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
+                      device=gmap.device)
+    if E == 0:
+        return out
+    lib = _load()
+    code = lib.devo_corr_group8(
+        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap.shape[1],
+        fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched("corr_group8", code)
+    return out
+
+
+def full_smem_bytes(P: int, C: int, ring_dtype, cap: int, depth: int) -> int:
+    """Dynamic shared memory of a corr_level_full block: `depth` window
+    stages with padded vectors, and two slots each of the f32 patch
+    feature, the f32 product surface (cap positions) and the tap buffer."""
+    PP = P * P
+    return ((2 * PP * C + 2 * cap * PP + 2 * PP * _TAPS) * 4
+            + depth * cap * _padded(C, ring_dtype))
+
+
+def full_plan(P: int, C: int, ring_dtype):
+    """(cap, depth, blocks an SM) of corr_level_full: two blocks an SM where
+    their shared memory holds full windows (LEVEL_WINDOW_CAP vectors) in a
+    ring of two stages, else one; then as many stages, at most
+    FULL_MAX_DEPTH, as that share holds."""
+    for blocks in (2, 1):
+        room = (_SMEM_SM // blocks - _SMEM_RESERVED if blocks > 1
+                else SMEM_MAX) - _FULL_STATIC
+        cap = _fit_cap(lambda cap: full_smem_bytes(P, C, ring_dtype, cap, 2),
+                       C, ring_dtype, room)
+        if cap == LEVEL_WINDOW_CAP or blocks == 1 or cap == 0:
+            break
+    depth = 2
+    while (depth < FULL_MAX_DEPTH
+           and full_smem_bytes(P, C, ring_dtype, cap, depth + 1) <= room):
+        depth += 1
+    return cap, depth, blocks
+
+
+def full_run(E: int, device, blocks: int) -> int:
+    """Consecutive edges a corr_level_full block walks: at most FULL_RUN, and
+    such that the runs come to a whole number of rounds over the `blocks`
+    blocks an SM of `device` holds (as `mono3_run`)."""
+    slots = blocks * torch.cuda.get_device_properties(device).multi_processor_count
+    rounds = max(1, -(-E // (slots * FULL_RUN)))
+    return max(1, -(-E // (slots * rounds)))
+
+
+def corr_level_full_cuda(gmap, fmap, coords, kk, jj, scale=None,
+                         stage: str = "full") -> torch.Tensor:
+    """Launch csrc/corr_level_full.cu, one pyramid level
+    (CORR_KERNEL="full"). Arguments and result as `corr_fixed_cuda`; the
+    plain version is ops/corr.corr_level. `stage` picks the kernel's
+    instance: "full" (the correlation) or one that skips a part of it to
+    time the rest, "noext" (no extraction), "nomm" (no product), "noDMA" (no
+    copy); those write what ops/corr.corr_level_stage defines."""
+    if stage not in plain.STAGES:
+        raise ValueError(f"stage must be one of {plain.STAGES}, got {stage!r}")
+    E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
+    cap, depth, blocks = full_plan(P, C, fmap.dtype)
+    _check(full_smem_bytes(P, C, fmap.dtype, cap, depth)
+           <= SMEM_MAX - _FULL_STATIC,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
+                      device=gmap.device)
+    if E == 0:
+        return out
+    lib = _load()
+    code = lib.devo_corr_level_full(
+        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap.shape[1],
+        fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16), depth,
+        full_run(E, gmap.device, blocks), plain.STAGES.index(stage),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched("corr_level_full", code)
+    return out
+
+
 KERNELS = ("mono", "mono2", "mono3", "mono4", "pair", "pair2", "split",
-           "split2", "g8c")
+           "split2", "g8c", "g8", "full")
+IMPLS = ("banded", "pallas", "window", "gather")
+# the kernels that take float rings only
+FLOAT_ONLY = ("g8", "full")
 # the kernels that take both levels in one launch
 _TWO_LEVEL = {
     "mono": corr_pyramid_cuda, "pair": corr_pair_cuda,
@@ -683,26 +857,55 @@ _TWO_LEVEL = {
 # the kernels that take one level a launch: (kernel, its plain version)
 _PER_LEVEL = {"split": (corr_level_cuda, plain.corr_level),
               "split2": (corr_level_pipe_cuda, plain.corr_level),
-              "g8c": (corr_group_cuda, plain.corr_level_group)}
+              "g8c": (corr_group_cuda, plain.corr_level_group),
+              "g8": (corr_group8_cuda, plain.corr_level),
+              "full": (corr_level_full_cuda, plain.corr_level)}
+# the kernels that may hand their last level to the resident kernel
+RESIDENT_KERNELS = ("split", "split2", "g8c")
 
 
 def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
                  levels=(1, 4), scales=None, kernel: str = "mono",
-                 resident: bool = False) -> torch.Tensor:
+                 resident: bool = False, impl: str = "banded") -> torch.Tensor:
     """Two-level correlation feature (E, 2*49*P*P) f32 in [dx, dy, pixel,
     level] order: the plain versions for CPU tensors, the CUDA kernels for
     CUDA tensors. `scales`: per level the (mem,) f32 scales of an int8 ring.
-    `kernel`: one of KERNELS. "mono", "mono2", "mono3", "mono4", "pair",
-    "pair2" = both levels in one launch (plain version: ops/corr.corr_pyramid);
-    "split", "split2" = one launch per level (ops/corr.corr_level); "g8c" =
-    one launch per level through a bf16 product surface
-    (ops/corr.corr_level_group). With `resident` the last level of a
-    per-level kernel comes from the resident-ring kernel (int8 rings only)."""
+    `impl`: one of IMPLS, the engine's CORR_IMPL. "banded" = the kernel
+    `kernel` names; "pallas" = csrc/corr_fixed.cu, one launch per level
+    (plain version: ops/corr.corr_level); "window", "gather" = tensor code on
+    either device (ops/corr.corr_pyramid_window, corr_pyramid_gather). Every
+    family but "banded" takes float rings. `kernel`: one of KERNELS. "mono",
+    "mono2", "mono3", "mono4", "pair", "pair2" = both levels in one launch
+    (plain version: ops/corr.corr_pyramid); "split", "split2", "g8", "full"
+    = one launch per level (ops/corr.corr_level; "g8" and "full" float rings
+    only); "g8c" = one launch per level through a bf16 product surface
+    (ops/corr.corr_level_group). With `resident` the last level of "split",
+    "split2" or "g8c" comes from the resident-ring kernel (int8 rings
+    only)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl != "banded":
+        if scales is not None or resident:
+            raise ValueError(f"impl={impl!r} takes float rings, without "
+                             "scales or a resident level")
+        if impl == "gather":
+            return plain.corr_pyramid_gather(gmap, pyramid, coords, kk, jj,
+                                             radius, levels)
+        _check(radius == _RADIUS, f"impl={impl!r} is built for radius "
+                                  f"{_RADIUS}")
+        if impl == "window":
+            return plain.corr_pyramid_window(gmap, pyramid, coords, kk, jj,
+                                             levels)
+        return _per_level(corr_fixed_cuda, plain.corr_level, gmap, pyramid,
+                          coords, kk, jj, levels, None, False)
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    if resident and (kernel not in _PER_LEVEL or scales is None):
+    if kernel in FLOAT_ONLY and scales is not None:
+        raise ValueError(f"kernel {kernel!r} takes float rings, without scales")
+    if resident and (kernel not in RESIDENT_KERNELS or scales is None):
         raise ValueError("the resident level needs a per-level kernel "
-                         f"({', '.join(_PER_LEVEL)}) and int8 rings with scales")
+                         f"({', '.join(RESIDENT_KERNELS)}) and int8 rings with "
+                         "scales")
     if kernel in _TWO_LEVEL:
         if gmap.device.type == "cpu":
             return plain.corr_pyramid(gmap, pyramid, coords, kk, jj, radius,
@@ -714,20 +917,25 @@ def corr_pyramid(gmap, pyramid, coords, kk, jj, radius: int = 3,
 
     _check(radius == _RADIUS, f"the per-level kernels are built for radius "
                               f"{_RADIUS}")
+    return _per_level(*_PER_LEVEL[kernel], gmap, pyramid, coords, kk, jj,
+                      levels, scales, resident)
+
+
+def _per_level(on_card, on_cpu, gmap, pyramid, coords, kk, jj, levels, scales,
+               resident):
+    """A kernel that takes one level a launch (`on_card`, plain version
+    `on_cpu`) over the levels of `pyramid`, coords divided by each level's
+    stride here. With `resident` the last level comes from the resident-ring
+    kernel, whose plain version is corr_level."""
     if scales is None:
         scales = (None,) * len(pyramid)
-    on_card, on_cpu = _PER_LEVEL[kernel]
     outs = []
     for n, (fmap, lvl, scale) in enumerate(zip(pyramid, levels, scales)):
         at_level = coords / lvl
+        last = resident and n == len(pyramid) - 1
         if gmap.device.type == "cpu":
-            # the resident kernel computes corr_level: a level it would take
-            # on the card takes that plain version here
-            last = resident and n == len(pyramid) - 1
             fn = plain.corr_level if last else on_cpu
-        elif resident and n == len(pyramid) - 1:
-            fn = corr_level_resident_cuda
         else:
-            fn = on_card
+            fn = corr_level_resident_cuda if last else on_card
         outs.append(fn(gmap, fmap, at_level, kk, jj, scale))
     return plain.stack_levels(outs)

@@ -5,23 +5,41 @@ imported without jax): the reference knobs of the yacs node
 (upstream DEVO's devo/config.py) plus the static sizes the engine keeps
 (ring depth, edge bound, precision switches).
 
-Three of the JAX package's correlation knobs are kept, with its names and
-defaults, because they choose what the correlation computes or which of the
-port's kernels computes it: CORR_RING_I8 (int8 feature rings with one
-dequantisation scale per ring slot), CORR_KERNEL (nine names, as
-devo_tpu's bench takes them: "mono", "mono2", "mono3", "mono4", "pair",
-"pair2": both levels in one launch, by five different kernels; "split",
-"split2": one launch per level, by two; "g8c": one launch per level through
-a bf16 product surface) and CORR_L4_RESIDENT (level 4 of a per-level kernel
-read from a ring slot held in shared memory). The rest stay out: CORR_IMPL
-(with the "g8" and "full" kernels that only it reaches), CORR_WIN_L1,
-VOXEL_WIRE and the encoder-layout switches choose TPU schedules, window
-budgets and transports, not functions.
+Four of the JAX package's correlation knobs are kept, with its names,
+values and defaults, because they choose what the correlation computes or
+which of the port's kernels computes it:
+
+- CORR_IMPL chooses the implementation family: "banded" (the default: the
+  kernel CORR_KERNEL names), "pallas" (one kernel a level over a fixed
+  16x24 window, csrc/corr_fixed.cu), "window" (PyTorch tensor code over the
+  same fixed window, ops/corr.corr_pyramid_window) or "gather" (PyTorch
+  tensor code with the coordinates in the patch features' type,
+  ops/corr.corr_pyramid_gather). Any other value raises.
+- CORR_KERNEL chooses the kernel of the "banded" family and is read there
+  alone: "mono", "mono2", "mono3", "mono4", "pair", "pair2" (both levels in
+  one launch, by five different kernels), "split", "split2" (one launch a
+  level, by two), "g8c" (one launch a level through a bf16 product
+  surface), "g8" (one launch a level, eight edges a block, the surface kept
+  in the block) and "full" (one launch a level, a block walking a run of
+  edges behind a ring of window copies). "g8" and "full" take float rings
+  only.
+- CORR_RING_I8 (int8 feature rings with one dequantisation scale per ring
+  slot) holds under "banded" alone: every other family keeps its rings in
+  the net dtype, as devo_tpu's does.
+- CORR_L4_RESIDENT (level 4 of a per-level kernel read from a ring slot
+  held in shared memory) needs "banded" and int8 rings; elsewhere it is
+  off without an error.
+
+The rest stay out: CORR_WIN_L1, VOXEL_WIRE and the encoder-layout switches
+choose TPU window budgets, transports and layouts, not functions.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+
+CORR_IMPLS = ("banded", "pallas", "window", "gather")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,6 +90,11 @@ class VOConfig:
                                          #   operator LayerNorms it first)
 
     # what the correlation computes, and with which kernel
+    CORR_IMPL: str = "banded"            # the implementation family:
+                                         #   "banded" (CORR_KERNEL's kernel),
+                                         #   "pallas" (csrc/corr_fixed.cu),
+                                         #   "window", "gather" (tensor
+                                         #   code, ops/corr.py)
     CORR_KERNEL: str = "mono"            # "mono": both pyramid levels in one
                                          #   launch, a warp per tap
                                          #   (csrc/corr.cu);
@@ -100,7 +123,17 @@ class VOConfig:
                                          # "mono3": both levels from a
                                          #   per-edge product surface in
                                          #   shared memory
-                                         #   (csrc/corr_mono3.cu)
+                                         #   (csrc/corr_mono3.cu);
+                                         # "g8": one launch per level, eight
+                                         #   edges a block, the f32 surface
+                                         #   kept in the block
+                                         #   (csrc/corr_group8.cu);
+                                         # "full": one launch per level, a
+                                         #   block walking a run of edges
+                                         #   behind a ring of window copies
+                                         #   (csrc/corr_level_full.cu).
+                                         #   "g8" and "full" take float
+                                         #   rings only
     CORR_L4_RESIDENT: str = "off"        # level 4 from a ring slot held whole
                                          #   in a block's shared memory
                                          #   (csrc/corr_level_resident.cu):
@@ -118,9 +151,12 @@ class VOConfig:
                                          #   correlation is linear in the frame
                                          #   features, so one per-slot scale on
                                          #   the output dequantises it. False =
-                                         #   rings in the net dtype
+                                         #   rings in the net dtype. Read
+                                         #   under CORR_IMPL="banded" alone
 
     def __post_init__(self):
+        if self.CORR_IMPL not in CORR_IMPLS:
+            raise ValueError(f"CORR_IMPL={self.CORR_IMPL!r}: one of {CORR_IMPLS}")
         if self.EDGE_CAP == 0:
             # worst-case live edges: patches from the last REMOVAL_WINDOW+2
             # frames, each with at most 2*PATCH_LIFETIME-1 edges, plus one

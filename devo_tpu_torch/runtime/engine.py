@@ -15,9 +15,11 @@ motion probe before initialization, and the keyframe test once per frame.
 The edge table has a dynamic size up to cfg.EDGE_CAP; an append past it
 drops the table's tail. A keyframe cull drops its edges at once.
 Feature rings hold cfg.MEM frames: per-frame-scaled int8 with one
-dequantisation scale per ring slot under cfg.CORR_RING_I8 (the default),
-else the net dtype (bf16 under mixed precision). cfg.CORR_KERNEL and
-cfg.CORR_L4_RESIDENT choose the correlation kernels (ops/corr_cuda.py).
+dequantisation scale per ring slot under cfg.CORR_RING_I8 (the default) and
+CORR_IMPL="banded", else the net dtype (bf16 under mixed precision).
+cfg.CORR_IMPL, cfg.CORR_KERNEL and cfg.CORR_L4_RESIDENT choose the
+correlation (ops/corr_cuda.py), by devo_tpu's rules (`ring_i8`,
+`l4_resident`, `_check_corr_knobs`).
 
 The phases carry `torch.profiler.record_function` spans (devo.patchify,
 devo.probe, devo.append, devo.update, devo.keyframe) that a profiler run
@@ -52,21 +54,55 @@ class StepAux(NamedTuple):
     kf_dP: Optional[torch.Tensor] = None   # (7,) P_k * P_{k-1}^-1
 
 
+def ring_i8(cfg: VOConfig) -> bool:
+    """Whether the feature rings are int8 with per-slot scales: under
+    CORR_RING_I8 and CORR_IMPL="banded" alone. devo_tpu allocates int8
+    rings and scales for its banded family only (engine.py:189-205); every
+    other family keeps its rings in the net dtype, whatever CORR_RING_I8
+    says."""
+    return cfg.CORR_RING_I8 and cfg.CORR_IMPL == "banded"
+
+
+# names that devo_tpu's corr_level_banded takes as `ablate` to time its
+# kernel's stages: they compute no correlation
+STAGE_NAMES = corr_ops.STAGES[1:]
+
+
+def _check_corr_knobs(cfg: VOConfig):
+    """Raise on a correlation configuration the engine does not run:
+    CORR_KERNEL outside corr_cuda.KERNELS (K10's stage names among them: they
+    compute no correlation, and bench.py refuses them too), and "g8" or
+    "full" on int8 rings (devo_tpu asserts there, corr_pallas.py:770-773)."""
+    kern = cfg.CORR_KERNEL
+    if kern in STAGE_NAMES:
+        raise ValueError(
+            f"CORR_KERNEL={kern!r} names a stage of the 'full' kernel, which "
+            f"computes no correlation: ops/corr_cuda.corr_level_full_cuda("
+            f"stage={kern!r}) times it")
+    if kern not in corr_cuda.KERNELS:
+        raise ValueError(f"CORR_KERNEL={kern!r}: one of {corr_cuda.KERNELS}")
+    if kern in corr_cuda.FLOAT_ONLY and ring_i8(cfg):
+        raise ValueError(f"CORR_KERNEL={kern!r} takes float rings: set "
+                         f"CORR_RING_I8=False")
+
+
 def l4_resident(cfg: VOConfig, ht: int, wd: int) -> bool:
     """Whether level 4 of the correlation is read by the resident-ring
-    kernel. It needs int8 rings, a per-level kernel (CORR_KERNEL="split",
-    "split2" or "g8c": a kernel that takes both levels in one launch has no
-    level to hand over) and a level-4 frame that fits a block's shared
-    memory beside the kernel's scratch (corr_cuda.resident_fits). "on"
-    raises where it cannot hold; "auto" turns it on where it can."""
+    kernel. It needs CORR_IMPL="banded" (elsewhere it is off without an
+    error, as devo_tpu's _l4_resident is), int8 rings, a per-level kernel
+    (CORR_KERNEL="split", "split2" or "g8c": a kernel that takes both levels
+    in one launch has no level to hand over, and "g8" / "full" take float
+    rings) and a level-4 frame that fits a block's shared memory beside the
+    kernel's scratch (corr_cuda.resident_fits). "on" raises where it cannot
+    hold; "auto" turns it on where it can."""
     mode = cfg.CORR_L4_RESIDENT
     if mode not in ("on", "off", "auto"):
         raise ValueError(f"CORR_L4_RESIDENT={mode!r}: 'on', 'off' or 'auto'")
-    if mode == "off":
+    if mode == "off" or cfg.CORR_IMPL != "banded":
         return False
     h4, w4 = ht // 16, wd // 16
     for ok, why in (
-            (cfg.CORR_KERNEL in ("split", "split2", "g8c"),
+            (cfg.CORR_KERNEL in corr_cuda.RESIDENT_KERNELS,
              f"needs a per-level kernel (CORR_KERNEL='split', 'split2' or "
              f"'g8c'), not {cfg.CORR_KERNEL!r}"),
             (cfg.CORR_RING_I8, "requires CORR_RING_I8"),
@@ -111,11 +147,10 @@ class DEVO:
         if cfg.PATCH_SELECTOR != "scorer":
             raise NotImplementedError(
                 f"PATCH_SELECTOR={cfg.PATCH_SELECTOR!r}: only the scorer is ported")
-        if cfg.CORR_KERNEL not in corr_cuda.KERNELS:
-            raise ValueError(f"CORR_KERNEL={cfg.CORR_KERNEL!r}: one of "
-                             f"{corr_cuda.KERNELS}")
+        _check_corr_knobs(cfg)
         self.cfg = cfg
         self._ht, self._wd = ht, wd
+        self.ring_i8 = ring_i8(cfg)
         self.l4_resident = l4_resident(cfg, ht, wd)
         self.device = device
         self.net = EVONet(P=cfg.P, dim_inet=cfg.DIM_INET, dim_fnet=cfg.DIM_FNET,
@@ -142,14 +177,14 @@ class DEVO:
         self.imap = torch.zeros((mem * M, cfg.DIM_INET), dtype=fdt, device=dev)
         self.gmap = torch.zeros((mem * M, P, P, cfg.DIM_FNET), dtype=fdt,
                                 device=dev)
-        rdt = torch.int8 if cfg.CORR_RING_I8 else fdt
+        rdt = torch.int8 if self.ring_i8 else fdt
         self.fmap1 = torch.zeros((mem, h1, w1, cfg.DIM_FNET), dtype=rdt,
                                  device=dev)
         self.fmap2 = torch.zeros((mem, h1 // 4, w1 // 4, cfg.DIM_FNET),
                                  dtype=rdt, device=dev)
         # dequantisation scale of each ring slot (int8 rings only)
-        self.fsc1 = torch.ones((mem,), device=dev) if cfg.CORR_RING_I8 else None
-        self.fsc2 = torch.ones((mem,), device=dev) if cfg.CORR_RING_I8 else None
+        self.fsc1 = torch.ones((mem,), device=dev) if self.ring_i8 else None
+        self.fsc2 = torch.ones((mem,), device=dev) if self.ring_i8 else None
         # the edge table, packed and sorted by (kk, jj)
         self.ii = torch.zeros(0, dtype=torch.long, device=dev)
         self.jj = torch.zeros(0, dtype=torch.long, device=dev)
@@ -244,8 +279,9 @@ class DEVO:
             self.gmap, (self.fmap1, self.fmap2), coords,
             kk_ring.to(torch.int32), (jj % mem).to(torch.int32),
             radius=cfg.CORR_RADIUS, levels=cfg.CORR_LEVELS,
-            scales=(self.fsc1, self.fsc2) if cfg.CORR_RING_I8 else None,
-            kernel=cfg.CORR_KERNEL, resident=self.l4_resident)
+            scales=(self.fsc1, self.fsc2) if self.ring_i8 else None,
+            kernel=cfg.CORR_KERNEL, resident=self.l4_resident,
+            impl=cfg.CORR_IMPL)
         return geo, corr, self.imap[kk_ring].float()
 
     @record_function("devo.update")
@@ -355,7 +391,7 @@ class DEVO:
             self.gmap[dst * M:(dst + 1) * M] = self.gmap[src * M:(src + 1) * M]
             self.fmap1[dst] = self.fmap1[src]
             self.fmap2[dst] = self.fmap2[src]
-            if cfg.CORR_RING_I8:     # a slot's scale moves with its frame
+            if self.ring_i8:         # a slot's scale moves with its frame
                 self.fsc1[dst] = self.fsc1[src]
                 self.fsc2[dst] = self.fsc2[src]
         self.n -= 1
@@ -408,7 +444,7 @@ class DEVO:
         # which drops trailing rows and columns (a 65 x 86 map at 260 x 344)
         h2, w2 = h1 // 4, w1 // 4
         fmap2 = fmap[:4 * h2, :4 * w2].reshape(h2, 4, w2, 4, -1).mean((1, 3))
-        if cfg.CORR_RING_I8:         # each level with its own scale
+        if self.ring_i8:             # each level with its own scale
             self.fmap1[slot], self.fsc1[slot] = corr_ops.quantize_frame(fmap)
             self.fmap2[slot], self.fsc2[slot] = corr_ops.quantize_frame(fmap2)
         else:

@@ -92,7 +92,8 @@ def test_bench_defaults_are_the_jax_bench_shape():
     assert (bench.N_WARM, bench.N_POST, bench.N_POST_MAX, bench.N_BENCH,
             bench.WINDOWS) == (48, 8, 336, 336, 12)
     assert bench.EDGE_POINT == 12288 and bench.NEAR_CAP == 128
-    assert set(bench.KERNELS) == set(corr_cuda.KERNELS)
+    # every banded kernel but the two that bench.py refuses too
+    assert set(bench.KERNELS) == set(corr_cuda.KERNELS) - {"g8", "full"}
 
 
 @pytest.mark.parametrize("kernel", ["mono", "split2", "g8c"])

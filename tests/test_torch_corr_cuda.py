@@ -476,3 +476,158 @@ def test_new_kernels_occupancy_and_plans(dev):
         # whole rounds over the SMs, the last one nearly full
         assert blocks <= sms * -(-blocks // sms) and run * blocks >= E
         assert E < sms or blocks % sms == 0 or blocks % sms > sms * 0.9
+
+
+# --- CORR_IMPL="pallas" and the kernels "g8" and "full" ---------------------
+
+FLOAT_LEVEL = {"corr_fixed": corr_cuda.corr_fixed_cuda,
+               "corr_group8": corr_cuda.corr_group8_cuda,
+               "corr_level_full": corr_cuda.corr_level_full_cuda}
+FLOAT_KERNELS = pytest.mark.parametrize("name", list(FLOAT_LEVEL))
+FLOAT_DTYPES = pytest.mark.parametrize("dtype", ["bf16", "f32"])
+
+
+@FLOAT_KERNELS
+@FLOAT_DTYPES
+@pytest.mark.parametrize("E", [0, 96, 5003, 12288])
+@pytest.mark.parametrize("level", [0, 1])
+def test_float_level_kernels_match_plain(dev, name, dtype, E, level):
+    """corr_fixed, corr_group8 and corr_level_full compute corr_level: at the
+    motion probe's E, a ragged E (corr_group8's last group has three edges)
+    and the step's E, on edges that share ring slots and patches, with
+    coordinates partly off the image and on the integer grid; E = 0 is an
+    empty result and no launch."""
+    args = _level(_case(dev, dtype, E=E), level)
+    before = dict(corr_cuda.launches)
+    got = FLOAT_LEVEL[name](*args)
+    torch.cuda.synchronize()
+    assert corr_cuda.launches == {**before, name: before[name] + (E > 0)}
+    assert got.shape == (E, 49 * 9) and got.dtype == torch.float32
+    torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+@FLOAT_KERNELS
+@FLOAT_DTYPES
+def test_float_level_kernels_distorted_patches(dev, name, dtype):
+    """Patches distorted beyond the staged window (jitter 3 px: covering
+    windows up to ~20x20 vectors) and beyond corr_fixed's 16x24 window:
+    corr_group8 and corr_level_full read such an edge's taps from the ring,
+    corr_fixed such a pixel's; nothing is clipped."""
+    args = _level(_case(dev, dtype, E=400, jitter=3.0), 0)
+    wide = corr_plain._group_index(args[2], corr_plain.GROUP_ROWS)[-1]
+    assert 20 < int(wide.sum()) < 400
+    got = FLOAT_LEVEL[name](*args)
+    torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+@FLOAT_KERNELS
+@pytest.mark.parametrize("dtype,C", [("bf16", 8), ("bf16", 12), ("f32", 8),
+                                     ("f32", 4)])
+def test_float_level_kernels_narrow_feature_vectors(dev, name, dtype, C):
+    """C = 8 in bf16 and f32 and C = 4 in f32 are staged at the narrowest;
+    C = 12 in bf16 (24 bytes a vector) is no multiple of the 16-byte copies,
+    so nothing is staged and every tap reads the ring."""
+    for level in (0, 1):
+        args = _level(_case(dev, dtype, E=501, C=C), level)
+        got = FLOAT_LEVEL[name](*args)
+        torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+@FLOAT_KERNELS
+def test_float_level_kernels_full_size_rings(dev, name):
+    """The slice's rings (32 slots of 120x160 and 30x40, C = 128) at more
+    edges than corr_level_full's grid has blocks."""
+    case = _case(dev, "bf16", E=3001, mem=32, H=120, W=160)
+    for level in (0, 1):
+        args = _level(case, level)
+        got = FLOAT_LEVEL[name](*args)
+        torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+@FLOAT_KERNELS
+def test_float_level_kernels_take_float_rings_only(dev, name):
+    with pytest.raises(ValueError):
+        FLOAT_LEVEL[name](*_level(_case(dev, "i8", E=8), 0))
+
+
+@pytest.mark.parametrize("stage", ["noext", "nomm", "noDMA"])
+@FLOAT_DTYPES
+@pytest.mark.parametrize("E,jitter", [(96, 0.0), (5003, 0.0), (400, 3.0)])
+def test_full_kernel_stages_match_their_plain_versions(dev, stage, dtype, E,
+                                                       jitter):
+    """The stage instances of csrc/corr_level_full.cu against
+    ops/corr.corr_level_stage at the window capacity the wrapper launches
+    with: on staged windows and, with jitter 3 px, on edges whose windows
+    are not staged."""
+    args = _level(_case(dev, dtype, E=E, jitter=jitter), 0)
+    cap = corr_cuda.full_plan(3, 128, args[1].dtype)[0]
+    got = corr_cuda.corr_level_full_cuda(*args, stage=stage)
+    want = corr_plain.corr_level_stage(*args[:5], stage, cap)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (E, 49 * 9)
+    torch.testing.assert_close(got, want, **TOL)
+    if stage != "nomm":
+        # what the stage skips shows: it is not the correlation
+        assert not torch.allclose(got, corr_plain.corr_level(*args), **TOL)
+    with pytest.raises(ValueError):
+        corr_cuda.corr_level_full_cuda(*args, stage="nodma")
+
+
+@pytest.mark.parametrize("impl,kernel,name", [
+    ("pallas", "mono", "corr_fixed"), ("banded", "g8", "corr_group8"),
+    ("banded", "full", "corr_level_full")])
+@FLOAT_DTYPES
+def test_entry_point_takes_the_new_kernels(dev, impl, kernel, name, dtype):
+    """The engine's entry point: one launch a level of the configuration's
+    kernel and no other, the plain two-level function, off-image taps zero,
+    and E = 0 an empty result without a launch."""
+    *args, _ = _case(dev, dtype, E=300)
+    corr_cuda.reset_launches()
+    got = corr_cuda.corr_pyramid(*args, kernel=kernel, impl=impl)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in corr_cuda.launches.items() if v} == {name: 2}
+    torch.testing.assert_close(got, corr_plain.corr_pyramid(*args), **TOL)
+    gmap, pyr, coords, kk, jj = args
+    off = corr_cuda.corr_pyramid(gmap, pyr, coords - 400.0, kk, jj,
+                                 kernel=kernel, impl=impl)
+    assert torch.equal(off, torch.zeros_like(off))
+    corr_cuda.reset_launches()
+    empty = corr_cuda.corr_pyramid(gmap, pyr, coords[:0], kk[:0], jj[:0],
+                                   kernel=kernel, impl=impl)
+    assert empty.shape == (0, 2 * 49 * 9) and not any(corr_cuda.launches.values())
+
+
+@pytest.mark.parametrize("impl", ["window", "gather"])
+def test_tensor_paths_on_the_card_launch_no_kernel(dev, impl):
+    """CORR_IMPL="window" and "gather" are tensor code on the card: no
+    kernel launch, no plain-correlation call, their own counter; on bf16
+    features their functions differ from corr_pyramid as on the CPU."""
+    *args, _ = _case(dev, "bf16", E=300)
+    corr_cuda.reset_launches()
+    calls = (corr_plain.calls, corr_plain.window_calls, corr_plain.gather_calls)
+    got = corr_cuda.corr_pyramid(*args, impl=impl)
+    torch.cuda.synchronize()
+    assert not any(corr_cuda.launches.values())
+    assert (corr_plain.calls, corr_plain.window_calls,
+            corr_plain.gather_calls) == (
+        calls[0], calls[1] + (impl == "window"), calls[2] + (impl == "gather"))
+    cpu = [a.cpu() for a in args[:1]] + [tuple(r.cpu() for r in args[1])] + [
+        a.cpu() for a in args[2:]]
+    want = corr_cuda.corr_pyramid(*cpu, impl=impl)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_new_kernel_plans(dev):
+    """corr_level_full: two blocks an SM with a ring of two full windows on
+    bf16 rings, one block on f32 rings; corr_group8 stages full windows on
+    bf16 rings and smaller ones on f32 rings, none at C = 12 in bf16."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert corr_cuda.full_plan(3, 128, bf) == (144, 2, 2)
+    assert corr_cuda.full_plan(3, 128, f32) == (144, 2, 1)
+    assert corr_cuda.full_plan(3, 12, bf)[0] == 0
+    assert corr_cuda.group8_cap(3, 128, bf) == 144
+    assert 64 <= corr_cuda.group8_cap(3, 128, f32) < 144
+    assert corr_cuda.group8_cap(3, 12, bf) == 0
+    for E in (1, 96, 5003, 12288):
+        run = corr_cuda.full_run(E, dev, 2)
+        assert 1 <= run <= corr_cuda.FULL_RUN and run * -(-E // run) >= E

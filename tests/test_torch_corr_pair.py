@@ -98,11 +98,12 @@ def test_pair_kernels_on_cpu_tensors_take_the_plain_version(kernel, i8):
 
 def test_kernel_names_and_counters():
     assert corr_cuda.KERNELS == ("mono", "mono2", "mono3", "mono4", "pair",
-                                 "pair2", "split", "split2", "g8c")
+                                 "pair2", "split", "split2", "g8c", "g8",
+                                 "full")
     assert set(corr_cuda.launches) == {
         "corr_pyramid", "corr_level", "corr_level_resident", "corr_pair",
         "corr_pair2", "corr_level_pipe", "corr_group", "corr_mono2",
-        "corr_mono3"}
+        "corr_mono3", "corr_fixed", "corr_group8", "corr_level_full"}
     gmap, fmap, coords, kk, jj, _ = make_case(4, E=4, C=16)
     args = (_t(gmap), (_t(fmap), _t(_pool2(fmap))), _t(coords), _t(kk).int(),
             _t(jj).int())
