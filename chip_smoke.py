@@ -35,12 +35,33 @@
    surface, written and read) over 3.35 TB/s and its operations over 989
    TFLOP/s (67 TFLOP/s, the f32 rate outside the tensor cores, on f32
    rings).
+   Probe phase: the three probe kernels (ops/probe_cuda.py) against their
+   plain versions (ops/probe.py) at their drivers' shapes, each timed beside
+   its bound: the banded window ablation (corr_band_ablate, E = 15360 of
+   which 6144 live, a 623 MB bf16 band ring) in its four modes and six index
+   layouts within TOL on the live blocks, the copy probe (copy_probe, 9600
+   window copies of an int8 band ring) in seven modes on both copy routes,
+   on one block and one block an SM, exactly, and its refusal of tall8, and
+   the one-frame window product (corr_frame_probe, E = 15360) with and
+   without extraction within TOL. Then every driver of
+   devo_tpu_torch/scripts/ but profile_step runs once through its main(),
+   at its full repeat counts or fewer where those would not fit, its output
+   under chiprun_out/probes/; each must launch the kernels it names and no
+   other, and its launches are those the JSON record counts for the probe
+   kernels.
 4. Reference phase: the port's DEVO on the card against the same engine on
    the CPU (plain correlation; the CPU tests hold that path against the JAX
    package) at a small f32 size, for unquantised rings on every kernel
    choice and family (CORR_IMPL "pallas", "window", "gather") and for the
    int8 configurations: the same keyframes, culls and edge sets per frame,
    and poses and terminate() output within the stated tolerance.
+   Determinism phase: BA's system (ops/ba.assemble) at E = 12288 on the
+   card assembled twice from the same inputs, bitwise equal, and timed
+   beside the index_add_ sums it replaced; then the i8-mono and bf16-gather
+   paths of phase 5, each run twice (48 frames, 12 updates, terminate())
+   from a fresh engine with the same seed: the live edge table (ii, jj, kk),
+   the patches, the keyframe poses and terminate()'s output compared as
+   bytes.
 5. Slice phase: the port's DEVO at full width (480x640, 96 patches, mixed
    precision) with seeded random weights over frames of a sliding event
    texture, then 12 update() calls and terminate(), on three paths of 48
@@ -83,8 +104,10 @@
    default kernel. Each prints the bench's JSON line and must reach its
    operating point, end with a finite pose per frame, and show launches > 0
    of the kernel it names, of no other, and no plain-correlation call. The
-   profiled path of phase 5 runs after this one, last.
-8. Prints the kernels' JSON record, the card line, and as its last line
+   profiled path of phase 5 runs after this one, and after it the
+   profile_step driver, last.
+8. Prints the kernels' JSON record (all fifteen kernels; the probe kernels'
+   launches are their drivers'), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 With no CUDA device it exits non-zero before any result. Any failed build,
@@ -142,6 +165,12 @@ KERNELS = {
     "corr_level_full": ("devo_tpu_torch/csrc/corr_level_full.cu",
                         "devo_tpu/ops/corr_pallas.py:289",
                         "corr_level_full_kernel"),
+    "corr_band_ablate": ("devo_tpu_torch/csrc/corr_band_ablate.cu",
+                         "scripts/bench_banded_ablate.py:27", "window_kernel"),
+    "copy_probe": ("devo_tpu_torch/csrc/copy_probe.cu",
+                   "scripts/probe_desc_wall.py:110", "copy_probe_kernel"),
+    "corr_frame_probe": ("devo_tpu_torch/csrc/corr_frame_probe.cu",
+                         "scripts/bench_gather.py:75", "window_kernel"),
 }
 # the kernels that take float rings only, one level a launch: the entry
 # point's (impl, kernel) that reaches each
@@ -1109,6 +1138,351 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# Determinism: the port repeats itself bitwise on the card.
+
+DETERMINISM_PATHS = ("i8-mono", "bf16-gather")
+
+
+def assemble_index_add(Ji, Jj, Jz, r, w, li, lj, pk, n, m):
+    """BA's system summed by index_add_ (atomics on the card), as the port
+    assembled it before its sums took a fixed order: timed beside
+    ops/ba.assemble only, never used by the port."""
+    mi = (li >= 0)[:, None].to(w.dtype)
+    mj = (lj >= 0)[:, None].to(w.dtype)
+    wi, wj, wij = w * mi, w * mj, w * mi * mj
+    li, lj = li.clamp(0, n - 1), lj.clamp(0, n - 1)
+
+    def outer(wt, A, B):
+        return torch.einsum("er,eri,erj->eij", wt, A, B)
+
+    z = dict(dtype=w.dtype, device=w.device)
+    B = torch.zeros((n * n, 6, 6), **z)
+    Hij = outer(wij, Ji, Jj)
+    B.index_add_(0, li * n + li, outer(wi, Ji, Ji))
+    B.index_add_(0, li * n + lj, Hij)
+    B.index_add_(0, lj * n + li, Hij.transpose(1, 2))
+    B.index_add_(0, lj * n + lj, outer(wj, Jj, Jj))
+    v = torch.zeros((n, 6), **z)
+    v.index_add_(0, li, torch.einsum("er,eri->ei", wi * r, Ji))
+    v.index_add_(0, lj, torch.einsum("er,eri->ei", wj * r, Jj))
+    Eb = torch.zeros((n * m, 6), **z)
+    Eb.index_add_(0, li * m + pk, torch.einsum("er,eri->ei", wi * Jz, Ji))
+    Eb.index_add_(0, lj * m + pk, torch.einsum("er,eri->ei", wj * Jz, Jj))
+    C = torch.zeros(m, **z).index_add_(0, pk, (w * Jz * Jz).sum(-1))
+    u = torch.zeros(m, **z).index_add_(0, pk, (w * Jz * r).sum(-1))
+    return B, v, Eb, C, u
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def ba_determinism(dev, gpu: str):
+    """ops/ba.assemble at E = 12288 on the card, twice from the same
+    inputs: bitwise equal; against index_add_ within TOL, and both timed."""
+    from devo_tpu_torch.ops import ba
+    from devo_tpu_torch.runtime.config import VOConfig
+    cfg = VOConfig()
+    n, m, E = cfg.ba_window, cfg.patch_slots, E_MAIN
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    args = (randn(E, 2, 6), randn(E, 2, 6), randn(E, 2), randn(E, 2),
+            torch.rand((E, 2), generator=g, device=dev),
+            torch.randint(-1, n, (E,), generator=g, device=dev),
+            torch.randint(-1, n, (E,), generator=g, device=dev),
+            torch.randint(0, m, (E,), generator=g, device=dev))
+    first, second = ba.assemble(*args, n, m), ba.assemble(*args, n, m)
+    torch.cuda.synchronize()
+    for name, a, b in zip(first._fields, first, second):
+        if not same_bits(a.cpu().numpy(), b.cpu().numpy()):
+            raise RuntimeError(f"determinism: BA's {name} differs between two "
+                               f"assemblies of the same inputs")
+    old = assemble_index_add(*args, n, m)
+    B_old = old[0].reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
+    errs = [(first.B - B_old).abs().max().item(),
+            (first.v - old[1].reshape(-1)).abs().max().item(),
+            (first.C - old[3]).abs().max().item(),
+            (first.u - old[4]).abs().max().item()]
+    for got, want in ((first.B, B_old), (first.C, old[3]), (first.u, old[4])):
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-4)
+    new_ms = median_ms(lambda: ba.assemble(*args, n, m))
+    old_ms = median_ms(lambda: assemble_index_add(*args, n, m))
+    print(f"determinism: BA's system at E={E} (n={n} poses, {m} patch slots) "
+          f"bitwise equal over two assemblies; max abs diff to the index_add_ "
+          f"sums {max(errs):.3e}; fixed-order sums {new_ms:.4f} ms, index_add_ "
+          f"{old_ms:.4f} ms an assembly [{gpu}]", flush=True)
+
+
+def determinism_run(dev, label: str, n_frames: int):
+    """One fresh engine on the path `label` over n_frames, N_UPDATES updates
+    and terminate(): what must repeat bitwise."""
+    from devo_tpu_torch.bench import frames
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.runtime.config import VOConfig
+    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.utils.params import random_state_dict
+    cfg = VOConfig(MOTION_PROBE_THRESH=-1.0, **PATHS[label][0])
+    weights = random_state_dict(
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=0)
+    slam = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
+    intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
+    for i, vox in enumerate(frames(n_frames)):
+        slam(i / 30.0, vox, intr)
+    for _ in range(N_UPDATES):
+        slam.update()
+    state = {name: getattr(slam, name).cpu().numpy()
+             for name in ("ii", "jj", "kk", "patches", "poses")}
+    poses, tss = slam.terminate()
+    state.update(trajectory=poses, timestamps=tss)
+    return state, slam.n_edges, slam.n
+
+
+def determinism_phase(dev, gpu: str):
+    """BA's system, then the paths that changed their decisions from run to
+    run while their sums went through atomics (DETERMINISM_PATHS), each run
+    twice from a fresh engine with the same seed: the edge table (ii, jj,
+    kk), the patches, the keyframe poses and terminate()'s output bitwise
+    equal."""
+    ba_determinism(dev, gpu)
+    for label in DETERMINISM_PATHS:
+        (a, edges, n), (b, _, _) = (determinism_run(dev, label, N_FRAMES),
+                                    determinism_run(dev, label, N_FRAMES))
+        differ = [k for k in a if not same_bits(a[k], b[k])]
+        if differ:
+            raise RuntimeError(f"determinism [{label}]: two runs differ in "
+                               f"{differ}")
+        print(f"determinism [{label}]: two fresh engines, {N_FRAMES} frames + "
+              f"{N_UPDATES} updates + terminate(): {sorted(a)} bitwise equal; "
+              f"live edges {edges}, keyframes {n} [{gpu}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The probe kernels and their drivers (devo_tpu_torch/scripts/).
+
+PROBE_E, PROBE_LIVE = 15360, 6144        # the ablation's and the gather's E
+PROBE_MEM, PROBE_NBX, PROBE_HP = 32, 22, 144
+COPY_ND = 9600
+# the variant whose numbers stand for a probe kernel in the JSON record
+PROBE_REPORTED = {"corr_band_ablate": "random full",
+                  "copy_probe": "single cp.async, one block an SM",
+                  "corr_frame_probe": "extract=True"}
+OUT_PROBES = "chiprun_out/probes"
+
+
+def bound_of(nbytes: int, flops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ablate_bound(ring, slot, band, y0, live: int, mode: str):
+    """The least time of the banded ablation on these inputs: the distinct
+    ring rows (24 x 128 bf16 each) the live blocks' windows cover, the patch
+    rows, offsets and indices of the live edges, the output, each once, and
+    the products (none under "nomm"); "noDMA" reads no ring."""
+    rows = ((slot[:live].long() * ring.shape[1] + band[:live].long())
+            * ring.shape[2] + y0[:live].long())[:, None] + torch.arange(16, device=slot.device)
+    window = int(torch.unique(rows).numel()) * 24 * 128 * 2
+    g_bytes = live * 16 * 128 * 2
+    offsets = live * 16 * 4 * 2
+    out = live * 8 * 144 * 4
+    ops = 2.0 * live * 384 * 16 * 128
+    nbytes = {"full": window + g_bytes + offsets, "noext": window + g_bytes,
+              "nomm": window, "noDMA": g_bytes + offsets}[mode]
+    return bound_of(nbytes + out + live * 12 + 4, 0.0 if mode == "nomm" else ops)
+
+
+def copy_bound(ring, slot, row0, mode: str):
+    """The least time of the copy probe on these inputs: the distinct ring
+    rows its copies read from device memory (for "local" the column's
+    rows), the indices and the output, each once."""
+    from devo_tpu_torch.ops import probe
+    S, M, _ = probe.copy_plan(mode)
+    n = slot.shape[0]
+    if mode == "local":
+        moved = probe.COLR * 128
+    else:
+        span = torch.arange(M * probe.WR, device=slot.device)
+        rows = torch.cat([((slot.long() + s) * ring.shape[1] + row0.long())[:, None]
+                          + span for s in range(S)])
+        moved = int(torch.unique(rows).numel()) * 128
+    return bound_of(moved + n * 8 + 128 * 4, n * S * 128)
+
+
+def frame_bound(fmap, inputs, extract: bool):
+    """The least time of the one-frame window product: the distinct frame
+    positions the windows cover, the patch rows, offsets and the output,
+    each once, and the products."""
+    _, gm, y0, x08, ry, rx8 = inputs
+    E = gm.shape[0]
+    dev = gm.device
+    pos = ((y0.long().reshape(E, 1, 1) + torch.arange(16, device=dev)[:, None])
+           * fmap.shape[1] + 8 * x08.long().reshape(E, 1, 1)
+           + torch.arange(24, device=dev))
+    nbytes = (int(torch.unique(pos).numel()) * 128 * 2 + gm.numel() * 2
+              + (y0.numel() + x08.numel() + ry.numel() + rx8.numel()) * 4
+              + E * (8 if extract else 16) * 144 * 4)
+    return bound_of(nbytes, 2.0 * E * 384 * 16 * 128)
+
+
+def probe_record(record, name, label, err, ms, plain_ms, bound, gpu, extra=""):
+    b_ms, b_by = bound
+    print(f"{name} [{label}]: max_abs_err {err:.3e}{extra}; median kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+          f"[{gpu}]", flush=True)
+    rec = record[name]
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    rec["variants"].append(dict(label=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    if label == PROBE_REPORTED[name]:
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def probe_phase(dev, gpu: str, record):
+    """The three probe kernels against their plain versions (ops/probe.py) on
+    the card at their drivers' shapes, timed beside their bounds: the banded
+    ablation in every mode and index layout (TOL, on the live blocks), the
+    copy probe in every mode and route on one block and on one block an SM
+    (exactly), tall8's refusal, and the one-frame window product with and
+    without extraction (TOL)."""
+    from devo_tpu_torch.ops import probe, probe_cuda
+    from devo_tpu_torch.scripts import bench_banded_ablate as ablate
+    from devo_tpu_torch.scripts import bench_gather, probe_desc_wall
+    for name in PROBE_REPORTED:
+        record[name] = dict(max_abs_err=0.0, variants=[])
+
+    ring, g, ry, rx, layouts = ablate.inputs(dev, PROBE_E, PROBE_MEM, PROBE_NBX,
+                                             PROBE_HP)
+    nlive = torch.tensor([PROBE_LIVE], dtype=torch.int32, device=dev)
+    live = -(-PROBE_LIVE // probe.BE) * probe.BE
+    for layout, (slot, band, y0) in layouts.items():
+        for mode in probe.ABLATE_MODES:
+            args = (nlive, slot, band, y0, g, ry, rx, ring, mode)
+            got = probe_cuda.band_ablate_cuda(*args)
+            want = probe.band_ablate(*args)
+            torch.cuda.synchronize()
+            # the rows of blocks past nlive are left unwritten
+            err = (got[:live] - want[:live]).abs().max().item()
+            torch.testing.assert_close(got[:live], want[:live], **TOL)
+            probe_record(record, "corr_band_ablate", f"{layout} {mode}", err,
+                         median_ms(lambda: probe_cuda.band_ablate_cuda(*args)),
+                         median_ms(lambda: probe.band_ablate(*args), 2, 3),
+                         ablate_bound(ring, slot, band, y0, live, mode), gpu,
+                         f" within atol {TOL['atol']} + rtol {TOL['rtol']} on "
+                         f"{live} live rows of {PROBE_E}, output scale "
+                         f"{want.abs().max().item():.3g}")
+    del ring, g, ry, rx, layouts
+
+    rows = probe.banded_shape(120, 160)[0] * probe.BWIN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ring8 = torch.randint(-127, 127, (PROBE_MEM, rows, 128), generator=gen,
+                          device=dev, dtype=torch.int8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(0)
+    for mode in probe_desc_wall.MODES:
+        n = probe.copy_count(mode, COPY_ND)
+        slot, row0 = probe_desc_wall.offsets(rng, mode, n, PROBE_MEM, rows, dev)
+        want = probe.copy_probe(ring8, slot, row0, mode)
+        plain_ms = median_ms(lambda: probe.copy_probe(ring8, slot, row0, mode), 2, 3)
+        bound = copy_bound(ring8, slot, row0, mode)
+        depth, ns = probe_cuda.copy_depth(mode)
+        for route in probe_cuda.ROUTES:
+            for blocks, what in ((1, "one block"), (sms, "one block an SM")):
+                def fn(route=route, blocks=blocks):
+                    return probe_cuda.copy_probe_cuda(ring8, slot, row0, mode,
+                                                      route, blocks)
+                got = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"copy_probe [{mode} {route} {what}] is "
+                                       f"not exact: max abs diff "
+                                       f"{(got - want).abs().max().item()}")
+                probe_record(record, "copy_probe", f"{mode} {route}, {what}",
+                             0.0, median_ms(fn), plain_ms, bound, gpu,
+                             f" (exact); {n} copies, ring of {depth} stage(s) "
+                             f"in {ns} ring(s)")
+    try:
+        probe_cuda.copy_probe_cuda(ring8, slot[:8], row0[:8], "tall8")
+    except ValueError as err:
+        print(f"copy_probe [tall8]: refused as it must be: {err} [{gpu}]",
+              flush=True)
+    else:
+        raise RuntimeError("copy_probe [tall8] was not refused")
+    del ring8
+
+    inputs = bench_gather.frame_inputs(rng, dev, PROBE_E)
+    for extract in (True, False):
+        got = probe_cuda.frame_probe_cuda(*inputs, extract=extract)
+        want = probe.frame_windows(*inputs, extract=extract)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **TOL)
+        probe_record(record, "corr_frame_probe", f"extract={extract}", err,
+                     median_ms(lambda: probe_cuda.frame_probe_cuda(*inputs,
+                                                                   extract=extract)),
+                     median_ms(lambda: probe.frame_windows(*inputs, extract=extract),
+                               2, 3),
+                     frame_bound(inputs[0], inputs, extract), gpu,
+                     f" within atol {TOL['atol']} + rtol {TOL['rtol']}, output "
+                     f"scale {want.abs().max().item():.1f}")
+
+
+# the drivers of devo_tpu_torch/scripts/: arguments (repeats cut where the
+# full count would not fit the run) and the kernels each must launch, and no
+# other; profile_step runs last of all (PROFILED_DRIVER)
+DRIVERS = {
+    "bench_banded_ablate": ([], ("corr_band_ablate",)),
+    "bench_banded_ablate --drift": (["--drift", "--layouts", "random",
+                                     "cyclic"], ("corr_band_ablate",)),
+    "probe_desc_wall": (["--nit", "4", "--repeats", "3"], ("copy_probe",)),
+    "bench_gather": ([], ("corr_frame_probe",)),
+    "bench_banded_tune": ([], ("corr_level_full",)),
+    "bench_banded_tune --depth 4 --stage noext": (
+        ["--depth", "4", "--stage", "noext", "--repeats", "3"],
+        ("corr_level_full",)),
+    "bench_pallas": ([], ("corr_fixed",)),
+    "bench_pallas2": ([], ("corr_fixed",)),
+    "probe_level_split": ([], ("corr_level",)),
+    "probe_l4_resident": ([], ("corr_level", "corr_level_resident")),
+    "bench_eval_path": (["96", "--warm", "48"], ("corr_pyramid",)),
+    "profile_step": ([], ("corr_pyramid",)),
+}
+PROFILED_DRIVER = "profile_step"
+
+
+def driver_phase(dev, gpu: str, label: str):
+    """One driver of DRIVERS through its main(), its output to
+    chiprun_out/probes/. Returns the launches of each kernel in its run."""
+    import contextlib
+    import importlib
+    import os
+    from devo_tpu_torch.ops import corr_cuda
+    argv, named = DRIVERS[label]
+    module = importlib.import_module(f"devo_tpu_torch.scripts.{label.split()[0]}")
+    os.makedirs(OUT_PROBES, exist_ok=True)
+    path = os.path.join(OUT_PROBES, label.replace(" ", "_").replace("-", "") + ".txt")
+    corr_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        module.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(corr_cuda.launches)
+    with open(path) as f:
+        tail = f.read().strip().splitlines()[-1]
+    print(f"driver [{label}] ({wall:.1f} s, output in {path}): launches "
+          f"{ {k: v for k, v in launches.items() if v} }; last line: {tail}",
+          flush=True)
+    others = [k for k, v in launches.items() if v and k not in named]
+    if any(launches[k] < 1 for k in named) or others:
+        raise RuntimeError(f"driver {label}: expected launches of {named} "
+                           f"alone, got {launches}")
+    return launches
+
+
 def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -1130,10 +1504,15 @@ def main():
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
     record = kernel_phase(dev, gpu)
+    by_path = {}
+    probe_phase(dev, gpu, record)
+    for label in DRIVERS:
+        if label != PROFILED_DRIVER:
+            by_path[label] = driver_phase(dev, gpu, label)
     for label, knobs in REFERENCE.items():
         reference_phase(dev, gpu, label, knobs)
+    determinism_phase(dev, gpu)
 
-    by_path = {}
 
     def run_slice(label):
         launches, err = slice_phase(dev, gpu, label, N_FRAMES,
@@ -1156,6 +1535,7 @@ def main():
         by_path[label], err = bench_phase(dev, gpu, label)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     run_slice(PROFILED)              # last: nothing is timed after a profile
+    by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -1169,14 +1549,24 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "tolerance": ("one bf16 ulp of the largest product + "
-                          if name == "corr_group" else "")
-                         + f"atol {TOL['atol']} + rtol {TOL['rtol']}",
-            "reported_variant": f"{REPORTED[name]}, E={E_MAIN}",
+            "tolerance": ("exact" if name == "copy_probe" else
+                          ("one bf16 ulp of the largest product + "
+                           if name == "corr_group" else "")
+                          + f"atol {TOL['atol']} + rtol {TOL['rtol']}"),
+            "reported_variant": (f"{PROBE_REPORTED[name]}, the driver's point"
+                                 if name in PROBE_REPORTED
+                                 else f"{REPORTED[name]}, E={E_MAIN}"),
             "variants": rec["variants"],
             **({"stages": rec["stages"]} if "stages" in rec else {})})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
+    # the order of the port's kernel work: a kernel slower than a PyTorch call
+    # for the same function first (none has one), then by the time it loses
+    # to its bound over this run's launches
+    order = sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
+    print("kernels by launches x (ms - bound_ms), this run: " + ", ".join(
+        f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.1f}"
+        for k in order), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

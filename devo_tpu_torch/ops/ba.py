@@ -2,9 +2,10 @@
 devo_tpu/ops/ba.py; the inference path of the reference's fused CUDA BA,
 upstream DEVO's devo/fastba/ba_cuda.cu:461-537).
 
-The block Hessian is assembled with segment sums (`index_add_`) over the
-free poses of the window and the active patch slots, reduced by the Schur
-complement onto the poses, and solved by Cholesky. Window bounds (t0, t1,
+The block Hessian is assembled with segment sums in a fixed order
+(ops/segment.py) over the free poses of the window and the active patch
+slots, reduced by the Schur complement onto the poses, and solved by
+Cholesky. Window bounds (t0, t1,
 kbase) are host ints. `run_ba` updates `poses` and `patches` in place.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from devo_tpu_torch.geom import edgewise
 from devo_tpu_torch.lie import se3
+from devo_tpu_torch.ops import segment
 
 
 class BASystem(NamedTuple):
@@ -38,27 +40,33 @@ def assemble(Ji, Jj, Jz, r, w, li, lj, pk, n_poses: int,
     def outer(wt, A, B):
         return torch.einsum("er,eri,erj->eij", wt, A, B)
 
+    # segment sums in a fixed order (ops/segment.py): the n*n pose blocks and
+    # the n rows of v are few segments of thousands of rows each, a one-hot
+    # product; the patch sums many short segments, sorted once per index
     Hij = outer(wij, Ji, Jj)
-    B = torch.zeros((n * n, 6, 6), dtype=w.dtype, device=w.device)
-    B.index_add_(0, li_c * n + li_c, outer(wi, Ji, Ji))
-    B.index_add_(0, li_c * n + lj_c, Hij)
-    B.index_add_(0, lj_c * n + li_c, Hij.transpose(1, 2))
-    B.index_add_(0, lj_c * n + lj_c, outer(wj, Jj, Jj))
+    B = segment.dense_segment_sum(
+        torch.cat([outer(wi, Ji, Ji), Hij, Hij.transpose(1, 2),
+                   outer(wj, Jj, Jj)]),
+        torch.cat([li_c * n + li_c, li_c * n + lj_c, lj_c * n + li_c,
+                   lj_c * n + lj_c]), n * n)
     B = B.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
 
-    v = torch.zeros((n, 6), dtype=w.dtype, device=w.device)
-    v.index_add_(0, li_c, torch.einsum("er,eri->ei", wi * r, Ji))
-    v.index_add_(0, lj_c, torch.einsum("er,eri->ei", wj * r, Jj))
+    v = segment.dense_segment_sum(
+        torch.cat([torch.einsum("er,eri->ei", wi * r, Ji),
+                   torch.einsum("er,eri->ei", wj * r, Jj)]),
+        torch.cat([li_c, lj_c]), n)
 
-    Eb = torch.zeros((n * n_patches, 6), dtype=w.dtype, device=w.device)
-    Eb.index_add_(0, li_c * n_patches + pk, torch.einsum("er,eri->ei", wi * Jz, Ji))
-    Eb.index_add_(0, lj_c * n_patches + pk, torch.einsum("er,eri->ei", wj * Jz, Jj))
+    Eb = segment.segment_sum(
+        torch.cat([torch.einsum("er,eri->ei", wi * Jz, Ji),
+                   torch.einsum("er,eri->ei", wj * Jz, Jj)]),
+        segment.segments(torch.cat([li_c * n_patches + pk,
+                                    lj_c * n_patches + pk]), n * n_patches))
     E = Eb.reshape(n, n_patches, 6).permute(0, 2, 1).reshape(6 * n, n_patches)
 
-    C = torch.zeros(n_patches, dtype=w.dtype, device=w.device)
-    C.index_add_(0, pk, (w * Jz * Jz).sum(-1))
-    u = torch.zeros(n_patches, dtype=w.dtype, device=w.device)
-    u.index_add_(0, pk, (w * Jz * r).sum(-1))
+    Cu = segment.segment_sum(
+        torch.stack([(w * Jz * Jz).sum(-1), (w * Jz * r).sum(-1)], -1),
+        segment.segments(pk, n_patches))
+    C, u = Cu[:, 0], Cu[:, 1]
     return BASystem(B, E, C, v.reshape(-1), u)
 
 

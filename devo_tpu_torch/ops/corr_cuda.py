@@ -43,6 +43,9 @@ level per launch over a fixed 16x24 window an edge; "window" and "gather"
 are tensor code on either device (ops/corr.corr_pyramid_window,
 ops/corr.corr_pyramid_gather), with no kernel.
 
+The probe kernels of the drivers in devo_tpu_torch/scripts/ are bound in
+ops/probe_cuda.py, built into the same library and counted in `launches`.
+
 All take float rings (bf16 or f32, the type of the patch features) or, with
 per-slot scales, int8 rings; the resident kernel int8 only; "g8", "full" and
 every family but "banded" float rings only. The sources are
@@ -68,7 +71,9 @@ from . import corr as plain
 launches = {"corr_pyramid": 0, "corr_level": 0, "corr_level_resident": 0,
             "corr_pair": 0, "corr_pair2": 0, "corr_level_pipe": 0,
             "corr_group": 0, "corr_mono2": 0, "corr_mono3": 0,
-            "corr_fixed": 0, "corr_group8": 0, "corr_level_full": 0}
+            "corr_fixed": 0, "corr_group8": 0, "corr_level_full": 0,
+            # the probe kernels, launched by ops/probe_cuda.py
+            "corr_band_ablate": 0, "copy_probe": 0, "corr_frame_probe": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -180,6 +185,10 @@ def _load():
         lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
         lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 7 + [ptr]
         lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
+        lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
+        lib.devo_corr_frame_probe.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+        lib.devo_copy_probe.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
+                                        + [i] * 9 + [ptr])
         for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
                    lib.devo_corr_level_full, lib.devo_corr_pyramid,
                    lib.devo_corr_level,
@@ -188,7 +197,8 @@ def _load():
                    lib.devo_corr_level_pipe,
                    lib.devo_corr_level_pipe_blocks_per_sm,
                    lib.devo_corr_group, lib.devo_corr_mono2,
-                   lib.devo_corr_mono3):
+                   lib.devo_corr_mono3, lib.devo_corr_band_ablate,
+                   lib.devo_corr_frame_probe, lib.devo_copy_probe):
             fn.restype = ctypes.c_int
         lib.devo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.devo_cuda_error_string.restype = ctypes.c_char_p
@@ -804,6 +814,24 @@ def full_plan(P: int, C: int, ring_dtype):
     return cap, depth, blocks
 
 
+def full_knobs(P: int, C: int, ring_dtype, depth: int = None,
+               run: int = None):
+    """(cap, depth, blocks an SM) of corr_level_full: full_plan's, with
+    `depth` in its place where given. Raises ValueError on a depth outside
+    2 .. FULL_MAX_DEPTH or beyond a block's shared memory, and on a run
+    below 1."""
+    cap, plan_depth, blocks = full_plan(P, C, ring_dtype)
+    depth = plan_depth if depth is None else depth
+    if not 2 <= depth <= FULL_MAX_DEPTH:
+        raise ValueError(f"depth must be 2 to {FULL_MAX_DEPTH}, got {depth}")
+    if run is not None and run < 1:
+        raise ValueError(f"run must be at least 1, got {run}")
+    if full_smem_bytes(P, C, ring_dtype, cap, depth) > SMEM_MAX - _FULL_STATIC:
+        raise ValueError(f"P={P}, C={C} with a ring of {depth} stages needs "
+                         f"more shared memory than a block can have")
+    return cap, depth, blocks
+
+
 def full_run(E: int, device, blocks: int) -> int:
     """Consecutive edges a corr_level_full block walks: at most FULL_RUN, and
     such that the runs come to a whole number of rounds over the `blocks`
@@ -814,20 +842,21 @@ def full_run(E: int, device, blocks: int) -> int:
 
 
 def corr_level_full_cuda(gmap, fmap, coords, kk, jj, scale=None,
-                         stage: str = "full") -> torch.Tensor:
+                         stage: str = "full", depth: int = None,
+                         run: int = None) -> torch.Tensor:
     """Launch csrc/corr_level_full.cu, one pyramid level
     (CORR_KERNEL="full"). Arguments and result as `corr_fixed_cuda`; the
     plain version is ops/corr.corr_level. `stage` picks the kernel's
     instance: "full" (the correlation) or one that skips a part of it to
     time the rest, "noext" (no extraction), "nomm" (no product), "noDMA" (no
-    copy); those write what ops/corr.corr_level_stage defines."""
+    copy); those write what ops/corr.corr_level_stage defines. `depth` (2 ..
+    FULL_MAX_DEPTH, as many as a block's shared memory holds) and `run` (at
+    least 1) override full_plan's ring depth and full_run's edges a block,
+    for tuning."""
     if stage not in plain.STAGES:
         raise ValueError(f"stage must be one of {plain.STAGES}, got {stage!r}")
     E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
-    cap, depth, blocks = full_plan(P, C, fmap.dtype)
-    _check(full_smem_bytes(P, C, fmap.dtype, cap, depth)
-           <= SMEM_MAX - _FULL_STATIC,
-           f"P={P}, C={C} needs more shared memory than a block can have")
+    cap, depth, blocks = full_knobs(P, C, fmap.dtype, depth, run)
     out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
                       device=gmap.device)
     if E == 0:
@@ -837,7 +866,7 @@ def corr_level_full_cuda(gmap, fmap, coords, kk, jj, scale=None,
         gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
         jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap.shape[1],
         fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16), depth,
-        full_run(E, gmap.device, blocks), plain.STAGES.index(stage),
+        run or full_run(E, gmap.device, blocks), plain.STAGES.index(stage),
         torch.cuda.current_stream(gmap.device).cuda_stream)
     _launched("corr_level_full", code)
     return out

@@ -1,10 +1,13 @@
 """Patch-graph index operations (counterpart of devo_tpu/ops/graph.py):
 temporal neighbors on the (kk, jj)-sorted edge table and the segment
 softmax-sum of the SoftAgg blocks (devo/blocks.py:31-48), as segment
-reductions with `scatter_reduce` / `index_add_`."""
+reductions: `scatter_reduce` for the maximum, whose result no order
+changes, and ops/segment's sums in a fixed order for the rest."""
 from __future__ import annotations
 
 import torch
+
+from devo_tpu_torch.ops import segment
 
 
 def sorted_neighbors(kk: torch.Tensor, mask: torch.Tensor = None):
@@ -45,11 +48,10 @@ def segment_softmax_sum(values: torch.Tensor, logits: torch.Tensor,
                          device=logits.device)
     seg_max = seg_max.scatter_reduce(0, idx, logits, "amax", include_self=True)
     ex = torch.exp(logits - seg_max[seg]) * mask[:, None]
-    denom = torch.zeros((S, C), dtype=ex.dtype, device=ex.device)
-    denom.index_add_(0, seg, ex)
+    # one sort serves both sums
+    order = segment.segments(seg, S)
+    denom = segment.segment_sum(ex, order)
     # non-empty segments hold their max term exp(0) = 1; the guard only
     # keeps the dummy segment's 0/0 at 0
     w = ex / denom[seg].clamp_min(1e-30)
-    agg = torch.zeros((S, C), dtype=values.dtype, device=values.device)
-    agg.index_add_(0, seg, values * w)
-    return agg[seg]
+    return segment.segment_sum(values * w, order)[seg]

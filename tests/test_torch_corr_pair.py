@@ -103,7 +103,8 @@ def test_kernel_names_and_counters():
     assert set(corr_cuda.launches) == {
         "corr_pyramid", "corr_level", "corr_level_resident", "corr_pair",
         "corr_pair2", "corr_level_pipe", "corr_group", "corr_mono2",
-        "corr_mono3", "corr_fixed", "corr_group8", "corr_level_full"}
+        "corr_mono3", "corr_fixed", "corr_group8", "corr_level_full",
+        "corr_band_ablate", "copy_probe", "corr_frame_probe"}
     gmap, fmap, coords, kk, jj, _ = make_case(4, E=4, C=16)
     args = (_t(gmap), (_t(fmap), _t(_pool2(fmap))), _t(coords), _t(kk).int(),
             _t(jj).int())

@@ -62,7 +62,20 @@ def test_new_modules_are_covered():
             "devo_tpu_torch.eval.ate", "devo_tpu_torch.eval.ate_check",
             "devo_tpu_torch.utils.pose_utils",
             "devo_tpu_torch.data.event_utils", "devo_tpu_torch.data.loaders",
-            "devo_tpu_torch.data.benchmarks", "devo_tpu_torch.bench"} <= names
+            "devo_tpu_torch.data.benchmarks", "devo_tpu_torch.bench",
+            "devo_tpu_torch.ops.segment", "devo_tpu_torch.ops.probe",
+            "devo_tpu_torch.ops.probe_cuda", "devo_tpu_torch.scripts",
+            "devo_tpu_torch.scripts.common",
+            "devo_tpu_torch.scripts.bench_banded_ablate",
+            "devo_tpu_torch.scripts.probe_desc_wall",
+            "devo_tpu_torch.scripts.bench_gather",
+            "devo_tpu_torch.scripts.bench_banded_tune",
+            "devo_tpu_torch.scripts.bench_pallas",
+            "devo_tpu_torch.scripts.bench_pallas2",
+            "devo_tpu_torch.scripts.probe_level_split",
+            "devo_tpu_torch.scripts.probe_l4_resident",
+            "devo_tpu_torch.scripts.profile_step",
+            "devo_tpu_torch.scripts.bench_eval_path"} <= names
 
 
 OPTIONAL = ("h5py", "cv2", "yaml", "matplotlib")
