@@ -1,6 +1,6 @@
 """Smoke run of devo_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 1. Prints the card (`nvidia-smi` name and power limit) and the torch / CUDA
    versions.
@@ -34,7 +34,13 @@
    indices, scales and the output, each once; for corr_group also its
    surface, written and read) over 3.35 TB/s and its operations over 989
    TFLOP/s (67 TFLOP/s, the f32 rate outside the tensor cores, on f32
-   rings).
+   rings). The plans of the tensor-core kernels (corr_pyramid, corr_fixed):
+   windows, stages and blocks an SM, planned and by the occupancy query.
+   With --parent DIR, a directory holding the parent commit's corr.cu,
+   corr_fixed.cu and corr_common.cuh, those are built into a library of
+   their own and the redesigned kernels are timed against them at E = 12288
+   in turns (parent, this tree, this tree, parent), after both are held to
+   each other within the tolerance.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound: the banded window ablation (corr_band_ablate, E = 15360 of
@@ -343,14 +349,19 @@ def variants(case):
     gmap, bf, i8, sc, coords, kk, jj = case
     c4 = coords / 4
     out = []
+    # corr_pyramid also on f32 patch features and rings of the same values
+    # (MIXED_PRECISION=False), whose products stay on the CUDA cores
+    f32 = tuple(r.float() for r in bf)
+    for label, g, pyr, scales in (("bf16", gmap, bf, None), ("i8", gmap, i8, sc),
+                                  ("f32", gmap.float(), f32, None)):
+        out.append(("corr_pyramid", f"both levels {label}",
+                    lambda g=g, pyr=pyr, scales=scales: cc.corr_pyramid_cuda(
+                        g, pyr[0], pyr[1], coords, kk, jj, scales=scales),
+                    lambda g=g, pyr=pyr, scales=scales: plain.corr_pyramid(
+                        g, pyr, coords, kk, jj, scales=scales),
+                    (pyr, (1, 4), scales or (None, None))))
     for label, pyr, scales in (("bf16", bf, None), ("i8", i8, sc)):
         ss = scales or (None, None)
-        out.append(("corr_pyramid", f"both levels {label}",
-                    lambda pyr=pyr, scales=scales: cc.corr_pyramid_cuda(
-                        gmap, pyr[0], pyr[1], coords, kk, jj, scales=scales),
-                    lambda pyr=pyr, scales=scales: plain.corr_pyramid(
-                        gmap, pyr, coords, kk, jj, scales=scales),
-                    (pyr, (1, 4), ss)))
         for name, what, fn in (
                 ("corr_pair", "", cc.corr_pair_cuda),
                 ("corr_pair2", "", cc.corr_pair2_cuda),
@@ -523,10 +534,114 @@ def kernel_phase(dev, gpu: str):
         print(f"corr_mono3 [{ring} rings, C=128]: windows of {cap} vectors, a "
               f"ring of {depth} stages, runs of {cc.mono3_run(E_MAIN, dev)} "
               f"edges at E={E_MAIN} [{gpu}]", flush=True)
+        cap, depth, blocks = cc.mono_plan(3, 128, torch.bfloat16, ring)
+        print(f"corr_pyramid [{ring} rings, C=128]: windows of {cap} vectors, "
+              f"a ring of {depth} stages, {blocks} block(s) of 512 threads "
+              f"per SM planned ({cc.mono_blocks_per_sm(3, 128, torch.bfloat16, ring)}"
+              f" by the occupancy query), runs of {cc.mono_run(E_MAIN, dev)} "
+              f"edges at E={E_MAIN} [{gpu}]", flush=True)
+    stages, blocks = cc.fixed_plan(3, 128, torch.bfloat16)
+    print(f"corr_fixed [bf16 rings, C=128]: a ring of {stages} stages of 384 "
+          f"positions x 32 channels, {blocks} block(s) of 256 threads per SM "
+          f"planned ({cc.fixed_blocks_per_sm(3, 128, torch.bfloat16)} by the "
+          f"occupancy query), a block an edge [{gpu}]", flush=True)
     empty_case(dev, gpu)
     narrow_case(dev, gpu, record)
     wide_case(dev, gpu, record)
     return record
+
+
+# the kernels redesigned since the parent commit, and the sources a build of
+# the parent's versions takes from the directory given by --parent
+PARENT_SOURCES = ("corr.cu", "corr_fixed.cu", "corr_common.cuh")
+
+
+def parent_library(parent_dir: str):
+    """The parent commit's corr.cu and corr_fixed.cu built from parent_dir (a
+    copy of them and their header) into a library of their own, with the
+    parent's C interfaces."""
+    import ctypes
+    from pathlib import Path
+    from devo_tpu_torch.ops import corr_cuda
+    src = Path(parent_dir)
+    missing = [n for n in PARENT_SOURCES if not (src / n).is_file()]
+    if missing:
+        raise RuntimeError(f"--parent {parent_dir}: missing {missing}")
+    lib = ctypes.CDLL(str(corr_cuda.build(src)))
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.devo_corr_pyramid.argtypes = [ptr] * 9 + [i] * 7 + [f] * 2 + [i, i, ptr]
+    lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
+    lib.devo_corr_pyramid.restype = lib.devo_corr_fixed.restype = ctypes.c_int
+    return lib
+
+
+def parent_pyramid(lib, gmap, pyr, coords, kk, jj, scales):
+    """The parent's corr_pyramid kernel (one block an edge, a warp a tap)."""
+    E, C = coords.shape[0], gmap.shape[-1]
+    out = torch.empty((E, 2 * 49 * 9), dtype=torch.float32, device=gmap.device)
+    ss = scales or (None, None)
+    code = lib.devo_corr_pyramid(
+        gmap.data_ptr(), pyr[0].data_ptr(), pyr[1].data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ss), coords.data_ptr(),
+        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, pyr[0].shape[1],
+        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], 1.0, 4.0,
+        int(gmap.dtype == torch.bfloat16), int(scales is not None),
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"parent corr_pyramid launch failed: {code}")
+    return out
+
+
+def parent_fixed(lib, gmap, fmap, coords, kk, jj):
+    """The parent's corr_fixed kernel (products on the CUDA cores)."""
+    E, C = coords.shape[0], gmap.shape[-1]
+    out = torch.empty((E, 49 * 9), dtype=torch.float32, device=gmap.device)
+    code = lib.devo_corr_fixed(
+        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), out.data_ptr(), E, 9, C, fmap.shape[1], fmap.shape[2],
+        int(gmap.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"parent corr_fixed launch failed: {code}")
+    return out
+
+
+def parent_phase(dev, gpu: str, parent_dir: str, record):
+    """The redesigned kernels against the parent commit's versions of them,
+    on the kernel phase's inputs at E = 12288 (K1 on int8 and bf16 rings,
+    K12' on bf16 rings at both levels): both held to each other within TOL,
+    then timed in turns, parent, this tree, this tree, parent, in one
+    process on one card."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    lib = parent_library(parent_dir)
+    gmap, bf, i8, sc, coords, kk, jj = corr_case(E_MAIN, dev, 0)
+    c4 = coords / 4
+    cases = [
+        ("corr_pyramid", "both levels i8",
+         lambda: parent_pyramid(lib, gmap, i8, coords, kk, jj, sc),
+         lambda: cc.corr_pyramid_cuda(gmap, i8[0], i8[1], coords, kk, jj,
+                                      scales=sc)),
+        ("corr_pyramid", "both levels bf16",
+         lambda: parent_pyramid(lib, gmap, bf, coords, kk, jj, None),
+         lambda: cc.corr_pyramid_cuda(gmap, bf[0], bf[1], coords, kk, jj)),
+        ("corr_fixed", "level 1 bf16",
+         lambda: parent_fixed(lib, gmap, bf[0], coords, kk, jj),
+         lambda: cc.corr_fixed_cuda(gmap, bf[0], coords, kk, jj)),
+        ("corr_fixed", "level 4 bf16",
+         lambda: parent_fixed(lib, gmap, bf[1], c4, kk, jj),
+         lambda: cc.corr_fixed_cuda(gmap, bf[1], c4, kk, jj)),
+    ]
+    for name, label, old, new in cases:
+        a, b = old(), new()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(b, a, **TOL)
+        times = [median_ms(fn) for fn in (old, new, new, old)]
+        record[name].setdefault("parent_ab", []).append(
+            dict(label=label, E=E_MAIN, parent_ms=[times[0], times[3]],
+                 ms=[times[1], times[2]]))
+        print(f"A/B {name} [{label}] E={E_MAIN}: parent {times[0]:.4f}, "
+              f"{times[3]:.4f} ms; this tree {times[1]:.4f}, {times[2]:.4f} "
+              f"ms (in turns parent, tree, tree, parent); max abs diff "
+              f"{(b - a).abs().max().item():.3e} [{gpu}]", flush=True)
 
 
 def group_vs_mono(cc, kernel, resident, label, mono, gmap, pyr, coords, kk, jj,
@@ -614,7 +729,8 @@ def empty_case(dev, gpu: str):
 
 
 # kernel choice -> the launch counters it runs on
-COUNTERS = {"pair": ("corr_pair",), "pair2": ("corr_pair2",),
+COUNTERS = {"mono": ("corr_pyramid",), "pair": ("corr_pair",),
+            "pair2": ("corr_pair2",),
             "mono2": ("corr_mono2",), "mono4": ("corr_mono2",),
             "mono3": ("corr_mono3",), "split2": ("corr_level_pipe",),
             "g8c": ("corr_group",)}
@@ -637,12 +753,15 @@ def narrow_case(dev, gpu: str, record):
 def held_float_to_plain(cc, label, gmap, bf, coords, kk, jj, record, gpu):
     """The float-ring kernels (FLOAT_LEVEL) through the entry point on one
     case, on its bf16 rings and on f32 rings of the same values, against
-    corr_pyramid."""
+    corr_pyramid; and corr_pyramid's kernel on the f32 rings."""
     from devo_tpu_torch.ops import corr as plain
     for ring, g, pyr in (("bf16", gmap, bf),
                          ("f32", gmap.float(), tuple(r.float() for r in bf))):
         ref = plain.corr_pyramid(g, pyr, coords, kk, jj)
-        for name, (impl, kernel) in FLOAT_LEVEL.items():
+        kernels = dict(FLOAT_LEVEL)
+        if ring == "f32":
+            kernels["corr_pyramid"] = ("banded", "mono")
+        for name, (impl, kernel) in kernels.items():
             got = cc.corr_pyramid(g, pyr, coords, kk, jj, kernel=kernel,
                                   impl=impl)
             torch.cuda.synchronize()
@@ -1483,7 +1602,15 @@ def driver_phase(dev, gpu: str, label: str):
     return launches
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of devo_tpu_torch on "
+                                 "one CUDA GPU (see the module's docstring).")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a directory holding the parent commit's "
+                    f"{', '.join(PARENT_SOURCES)}: time the redesigned kernels "
+                    "against them after the kernel phase")
+    args = ap.parse_args(argv)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     if not torch.cuda.is_available():
@@ -1504,6 +1631,8 @@ def main():
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
     record = kernel_phase(dev, gpu)
+    if args.parent:
+        parent_phase(dev, gpu, args.parent, record)
     by_path = {}
     probe_phase(dev, gpu, record)
     for label in DRIVERS:
@@ -1557,7 +1686,7 @@ def main():
                                  if name in PROBE_REPORTED
                                  else f"{REPORTED[name]}, E={E_MAIN}"),
             "variants": rec["variants"],
-            **({"stages": rec["stages"]} if "stages" in rec else {})})
+            **{key: rec[key] for key in ("stages", "parent_ab") if key in rec}})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
     # the order of the port's kernel work: a kernel slower than a PyTorch call

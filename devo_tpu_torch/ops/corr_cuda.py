@@ -7,7 +7,9 @@ fallback from one to the other. Nine kernels, one launch counter each
 (`launches`), chosen by `kernel` (the engine's CORR_KERNEL) and `resident`:
 
 - "mono", `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one
-  launch, one warp per tap reading the ring;
+  launch, blocks walking runs of edges behind a ring of staged windows, the
+  window products on the tensor cores (csrc/corr_mma.cuh) for bf16 patch
+  features;
 - "split", `corr_level_cuda` (csrc/corr_level.cu): one level per launch;
 - `resident`, `corr_level_resident_cuda` (csrc/corr_level_resident.cu): the
   last level of a per-level kernel from an int8 ring slot held in a block's
@@ -39,7 +41,8 @@ fallback from one to the other. Nine kernels, one launch counter each
 
 `impl` (the engine's CORR_IMPL) chooses the family: "banded" is the kernel
 `kernel` names; "pallas" is `corr_fixed_cuda` (csrc/corr_fixed.cu), one
-level per launch over a fixed 16x24 window an edge; "window" and "gather"
+level per launch over a fixed 16x24 window an edge (its product on the tensor
+cores for bf16 rings); "window" and "gather"
 are tensor code on either device (ops/corr.corr_pyramid_window,
 ops/corr.corr_pyramid_gather), with no kernel.
 
@@ -81,12 +84,12 @@ BUILD_DIR = _PKG / "_build"
 _RADIUS = 3
 _TAPS = (2 * _RADIUS + 2) ** 2          # integer taps of one pixel
 _FEATS = (2 * _RADIUS + 1) ** 2         # blended offsets of one pixel
-_SMEM_DEFAULT = 48 * 1024     # dynamic shared memory of a block by default
 SMEM_MAX = 232_448            # the most a block can have on sm_90
 LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
 _PAIR_STATIC = 4096           # bound on the static shared memory of the pair
                               #   kernels (their per-edge index tables)
 _MONO3_STATIC = 6144          # the same of corr_mono3 (ten such tables)
+_MONO_STATIC = 4096           # and of corr_pyramid (six)
 _GROUP_STATIC = 5120          # and of corr_group and corr_group8 (eight)
 _FULL_STATIC = 4096           # and of corr_level_full (six)
 _SMEM_SM = 233_472            # shared memory of an SM on sm_90
@@ -96,6 +99,10 @@ MONO3_MAX_DEPTH = 8           # stages of its window ring
 FULL_RUN = 64                 # edges a corr_level_full block walks
 FULL_MAX_DEPTH = 4            # stages of its window ring
 _FIXED_POSITIONS = 16 * 24    # corr_fixed's window
+_FIXED_STAGES = 2             # chunk stages of its bf16 kernel's window
+_FIXED_STATIC = 1024          # bound on its static shared memory
+MONO_MAX_DEPTH = 4            # stages of corr_pyramid's window ring
+_MMA_CHUNK = 32               # channels of a chunk of a tensor-core product
 _RESIDENT_WARPS = 8           # warps of a corr_level_resident block
 _RESIDENT_SPLIT = 8           # blocks per ring slot (grid.y)
 _lib = None
@@ -106,9 +113,9 @@ def reset_launches():
         launches[name] = 0
 
 
-def sources():
-    """The CUDA sources, headers included, in a fixed order."""
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path = CSRC):
+    """The CUDA sources of `csrc`, headers included, in a fixed order."""
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -121,14 +128,14 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile every csrc/*.cu for sm_90a into one library unless this
-    version of the sources is built already: one `nvcc -c` per source, all
-    started together, then one link. Returns the library's path; ptxas's
-    register and shared memory report is kept beside it with the suffix
-    .log."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile every .cu of `csrc` (the package's csrc/ unless given) for
+    sm_90a into one library unless this version of the sources is built
+    already: one `nvcc -c` per source, all started together, then one link.
+    Returns the library's path; ptxas's register and shared memory report is
+    kept beside it with the suffix .log."""
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources(csrc):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     lib = BUILD_DIR / f"libdevo_corr_{digest.hexdigest()[:16]}.so"
     if lib.is_file():
@@ -136,7 +143,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
     nvcc = _nvcc()
-    units = [s for s in sources() if s.suffix == ".cu"]
+    units = [s for s in sources(csrc) if s.suffix == ".cu"]
     objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in units]
     cmds = [[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC", "-c", "-o", str(obj),
@@ -169,7 +176,14 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.devo_corr_pyramid.argtypes = [ptr] * 9 + [i] * 7 + [f] * 2 + [i, i, ptr]
+        lib.devo_corr_pyramid.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
+                                          + [i] * 4 + [ptr])
+        lib.devo_corr_pyramid_smem.argtypes = [i] * 6
+        lib.devo_corr_pyramid_smem.restype = ctypes.c_longlong
+        lib.devo_corr_pyramid_blocks_per_sm.argtypes = [i] * 6
+        lib.devo_corr_fixed_smem.argtypes = [i] * 3
+        lib.devo_corr_fixed_smem.restype = ctypes.c_longlong
+        lib.devo_corr_fixed_blocks_per_sm.argtypes = [i] * 3
         lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
         lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
         lib.devo_corr_pair.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i, i, ptr]
@@ -191,6 +205,8 @@ def _load():
                                         + [i] * 9 + [ptr])
         for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
                    lib.devo_corr_level_full, lib.devo_corr_pyramid,
+                   lib.devo_corr_pyramid_blocks_per_sm,
+                   lib.devo_corr_fixed_blocks_per_sm,
                    lib.devo_corr_level,
                    lib.devo_corr_level_resident, lib.devo_corr_pair,
                    lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm,
@@ -261,37 +277,6 @@ def _check_call(gmap, rings, scales, coords, kk, jj):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def corr_pyramid_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
-                      scales=None) -> torch.Tensor:
-    """Launch csrc/corr.cu: gmap (Mring, P, P, C) bf16 or f32; fmap1
-    (mem, h1, w1, C) and fmap2 (mem, h2, w2, C) of gmap's dtype, or int8
-    with scales = (scale1, scale2), each (mem,) f32; coords (E, P, P, 2) f32
-    at level-1 resolution; kk, jj (E,) int32 ring indices. Returns
-    (E, 2*49*P*P) f32 in [dx, dy, pixel, level] order."""
-    scales = (None, None) if scales is None else tuple(scales)
-    _check(len(levels) == 2 and len(scales) == 2,
-           "the kernel computes two levels")
-    E, P, C, i8 = _check_call(gmap, (fmap1, fmap2), scales, coords, kk, jj)
-    PP = P * P
-    _check((PP * C + 2 * PP * _TAPS) * 4 <= _SMEM_DEFAULT,
-           f"P={P}, C={C} needs more shared memory than a block gets")
-
-    out = torch.empty((E, 2 * _FEATS * PP), dtype=torch.float32,
-                      device=gmap.device)
-    if E == 0:
-        return out
-    lib = _load()
-    code = lib.devo_corr_pyramid(
-        gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
-        _ptr(scales[0]), _ptr(scales[1]), coords.data_ptr(), kk.data_ptr(),
-        jj.data_ptr(), out.data_ptr(), E, PP, C, fmap1.shape[1],
-        fmap1.shape[2], fmap2.shape[1], fmap2.shape[2], float(levels[0]),
-        float(levels[1]), int(gmap.dtype == torch.bfloat16), int(i8),
-        torch.cuda.current_stream(gmap.device).cuda_stream)
-    _launched("corr_pyramid", code)
-    return out
 
 
 def level_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
@@ -541,6 +526,103 @@ def corr_mono2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
         jj, levels, scales)
 
 
+def _mma_stride(C: int) -> int:
+    """Elements between two rows of an operand staged for the tensor cores
+    (csrc/corr_mma.cuh, mma_stride): C rounded up to chunks of 32 channels,
+    and one chunk more where their number is even."""
+    chans = -(-C // _MMA_CHUNK) * _MMA_CHUNK
+    return chans if chans // _MMA_CHUNK % 2 else chans + _MMA_CHUNK
+
+
+def _surface_row(P: int) -> int:
+    """Floats of a row of a product surface: a column per pixel, rounded up
+    to even."""
+    return P * P + P * P % 2
+
+
+def mono_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                    depth: int) -> int:
+    """Dynamic shared memory of a corr_pyramid block (csrc/corr.cu,
+    MonoLayout): `depth` stages, each the patch feature (rounded up to 16
+    bytes) and both levels' windows of `cap` vectors, then four f32 surface
+    slots (two halves of the block x two levels) of cap rows, or a level's
+    taps where that is more. bf16 patch features stage rows for the tensor cores
+    (_mma_stride); f32 ones the plain patch feature and padded vectors."""
+    PP = P * P
+    if gmap_dtype == torch.bfloat16:
+        graw = PP * _mma_stride(C) * 2
+        vector = _mma_stride(C) * _item(ring_dtype)
+    else:
+        graw, vector = PP * C * 4, _padded(C, ring_dtype)
+    stage = -(-graw // 16) * 16 + 2 * cap * vector
+    return depth * stage + 4 * max(cap * _surface_row(P), PP * _TAPS) * 4
+
+
+def mono_plan(P: int, C: int, gmap_dtype, ring_dtype):
+    """(cap, depth, blocks an SM) of corr_pyramid, whose block of 512 threads
+    (two halves, each its own pipeline of edges with depth / 2 stages) takes
+    an SM to itself: windows as large as a ring of two stages allows, at
+    most LEVEL_WINDOW_CAP vectors (in whole m-tiles of 16 positions for bf16
+    patch features), then four stages where they fit. f32 patch features on
+    a ring whose vector is no multiple of 16 bytes stage nothing (cap = 0:
+    every tap reads the ring). Raises ValueError on what the kernel does
+    not take."""
+    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
+    _check(C % 4 == 0, f"C must be a multiple of 4, got {C}")
+    mma = gmap_dtype == torch.bfloat16
+    room = SMEM_MAX - _MONO_STATIC
+
+    def smem(cap, depth):
+        return mono_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, depth)
+
+    cap = 0
+    if mma or C * _item(ring_dtype) % 16 == 0:
+        cap = next((cap for cap in range(LEVEL_WINDOW_CAP, 0, -16 if mma else -1)
+                    if smem(cap, 2) <= room), 0)
+    _check(smem(cap, 2) <= room,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    depth = MONO_MAX_DEPTH if smem(cap, MONO_MAX_DEPTH) <= room else 2
+    return cap, depth, 1
+
+
+def mono_run(E: int, device) -> int:
+    """Consecutive edges a corr_pyramid block walks: the E edges spread over
+    one round of blocks, one on every SM of `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, -(-E // sms))
+
+
+def corr_pyramid_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                      scales=None) -> torch.Tensor:
+    """Launch csrc/corr.cu: gmap (Mring, P, P, C) bf16 or f32; fmap1
+    (mem, h1, w1, C) and fmap2 (mem, h2, w2, C) of gmap's dtype, or int8
+    with scales = (scale1, scale2), each (mem,) f32; coords (E, P, P, 2) f32
+    at level-1 resolution; kk, jj (E,) int32 ring indices. Returns
+    (E, 2*49*P*P) f32 in [dx, dy, pixel, level] order; the plain version is
+    ops/corr.corr_pyramid."""
+    P, C = _patch_shape(gmap)
+    cap, depth, _ = mono_plan(P, C, gmap.dtype, fmap1.dtype)
+    run = mono_run(coords.shape[0], gmap.device) if gmap.is_cuda else 1
+    return _staged_call(
+        "corr_pyramid",
+        mono_smem_bytes(P, C, gmap.dtype, fmap1.dtype, cap, depth),
+        _MONO_STATIC, cap, (depth, run), gmap, (fmap1, fmap2), coords, kk, jj,
+        levels, scales)
+
+
+def mono_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_pyramid's kernel that one SM of the current CUDA device
+    holds at a time at mono_plan's sizes (shared memory and registers)."""
+    cap, depth, _ = mono_plan(P, C, gmap_dtype, ring_dtype)
+    occ = _load().devo_corr_pyramid_blocks_per_sm(
+        P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8))
+    if occ < 0:
+        raise RuntimeError("corr_pyramid occupancy query failed: "
+                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
+    return occ
+
+
 def mono3_smem_bytes(P: int, C: int, ring_dtype, cap: int, depth: int) -> int:
     """Dynamic shared memory of a corr_mono3 block: two slots of the f32 patch
     feature, of the product scratch (cap positions x P*P a level) and of the
@@ -717,12 +799,46 @@ def _float_level_call(gmap, fmap, coords, kk, jj, scale):
     return E, P, C
 
 
-def fixed_smem_bytes(P: int, C: int) -> int:
-    """Dynamic shared memory of a corr_fixed block: the f32 patch feature,
-    the f32 product surface of the 384 window positions, and a pixel's 64
-    taps for every pixel, as f32."""
+def fixed_smem_bytes(P: int, C: int, dtype) -> int:
+    """Dynamic shared memory of a corr_fixed block. bf16 (the tensor-core
+    kernel): _FIXED_STAGES stages of the window's 384 positions x 32
+    channels, the patch feature as rows for the tensor cores (_mma_stride),
+    the f32 product surface of the 384 positions and a pixel's 64 taps for
+    every pixel. f32: the f32 patch feature, the surface and the taps."""
     PP = P * P
+    if dtype == torch.bfloat16:
+        return ((_FIXED_STAGES * _FIXED_POSITIONS * _MMA_CHUNK
+                 + PP * _mma_stride(C)) * 2
+                + (_FIXED_POSITIONS * _surface_row(P) + PP * _TAPS) * 4)
     return (PP * C + (_FIXED_POSITIONS + _TAPS) * PP) * 4
+
+
+def fixed_plan(P: int, C: int, dtype):
+    """(stages, blocks an SM) of corr_fixed: the stages of the bf16 kernel's
+    window ring (0 for f32 rings, whose kernel stages no window) and the
+    blocks that one SM's shared memory and threads hold. Raises ValueError on
+    what the kernel does not take."""
+    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
+    _check(C % 4 == 0, f"C must be a multiple of 4, got {C}")
+    smem = fixed_smem_bytes(P, C, dtype)
+    _check(smem <= SMEM_MAX - _FIXED_STATIC,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    bf16 = dtype == torch.bfloat16
+    threads = 256 if bf16 else _FIXED_POSITIONS // 2
+    blocks = min(_SMEM_SM // (smem + _FIXED_STATIC + _SMEM_RESERVED),
+                 2048 // threads)
+    return (_FIXED_STAGES if bf16 else 0), blocks
+
+
+def fixed_blocks_per_sm(P: int, C: int, dtype) -> int:
+    """Blocks of corr_fixed's kernel that one SM of the current CUDA device
+    holds at a time (shared memory and registers)."""
+    occ = _load().devo_corr_fixed_blocks_per_sm(P * P, C,
+                                                int(dtype == torch.bfloat16))
+    if occ < 0:
+        raise RuntimeError("corr_fixed occupancy query failed: "
+                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
+    return occ
 
 
 def corr_fixed_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
@@ -732,8 +848,7 @@ def corr_fixed_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
     level's resolution; kk, jj (E,) int32. Returns (E, 49*P*P) f32 in
     [dx, dy, pixel] order; the plain version is ops/corr.corr_level."""
     E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
-    _check(fixed_smem_bytes(P, C) <= SMEM_MAX,
-           f"P={P}, C={C} needs more shared memory than a block can have")
+    fixed_plan(P, C, gmap.dtype)
     out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
                       device=gmap.device)
     if E == 0:

@@ -101,6 +101,108 @@ def test_level_kernel_matches_plain(dev, dtype, E, level):
     torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
 
 
+# --- csrc/corr.cu: blocks that walk runs of edges ---------------------------
+
+
+@DTYPES
+@pytest.mark.parametrize("E", [1, 7, 131, 133, 265, 12289])
+def test_mono_kernel_runs_of_edges(dev, dtype, E):
+    """The blocks of csrc/corr.cu walk runs of mono_run's length: one edge,
+    fewer edges than blocks, just more edges than one a block, and E no
+    multiple of the run (the last block's run is short)."""
+    *args, scales = _case(dev, dtype, E=E, mem=8)
+    run = corr_cuda.mono_run(E, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert run * -(-E // run) >= E and -(-E // run) <= sms
+    got = corr_cuda.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
+
+
+@DTYPES
+@pytest.mark.parametrize("order", ["kk runs", "jj runs", "one patch",
+                                   "one frame"])
+def test_mono_kernel_repeated_patches_and_frames(dev, dtype, order):
+    """Consecutive edges of one patch (the engine's edge table holds runs of
+    one kk) or one ring slot, and a launch on a single patch or slot: the
+    ring's stages then hold the same data several times."""
+    gmap, pyr, coords, kk, jj, scales = _case(dev, dtype, E=1500)
+    n = torch.arange(1500, device=dev, dtype=torch.int32)
+    if order == "kk runs":
+        kk = (n // 9 % gmap.shape[0]).to(torch.int32)
+    elif order == "jj runs":
+        jj = (n // 50 % pyr[0].shape[0]).to(torch.int32)
+    elif order == "one patch":
+        kk = torch.full_like(kk, 3)
+    else:
+        jj = torch.full_like(jj, 1)
+    got = corr_cuda.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales),
+        **TOL)
+
+
+@DTYPES
+def test_mono_kernel_two_launches_are_bitwise_equal(dev, dtype):
+    """No atomics and sums in a fixed order: the same inputs give the same
+    bits, with staged windows and (jitter 1 px: some windows beyond the
+    cap) direct reads in one launch."""
+    *args, scales = _case(dev, dtype, E=5003, mem=8, jitter=1.0)
+    first = corr_cuda.corr_pyramid(*args, scales=scales)
+    second = corr_cuda.corr_pyramid(*args, scales=scales)
+    assert torch.equal(first, second)
+
+
+@DTYPES
+def test_mono_kernel_wide_windows(dev, dtype):
+    """Patches distorted beyond the staged window (jitter 3 px: level-1
+    windows up to ~20x20 vectors) take that level's taps from the ring."""
+    *args, scales = _case(dev, dtype, E=400, jitter=3.0)
+    got = corr_cuda.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
+
+
+@DTYPES
+@pytest.mark.parametrize("C", [4, 8, 12, 40])
+def test_mono_kernel_narrow_feature_vectors(dev, dtype, C):
+    """C below one chunk of 32 channels or not a multiple of it: the
+    tensor-core instances stage the vectors by 4-, 8- or 16-byte copies and
+    zeros to the chunk's end; the f32 instances stage vectors of 16 bytes
+    and read the others from the ring."""
+    *args, scales = _case(dev, dtype, E=300, C=C)
+    got = corr_cuda.corr_pyramid(*args, scales=scales)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_fixed_kernel_two_launches_are_bitwise_equal(dev, dtype):
+    args = _level(_case(dev, dtype, E=3001, jitter=1.0), 0)
+    assert torch.equal(corr_cuda.corr_fixed_cuda(*args),
+                       corr_cuda.corr_fixed_cuda(*args))
+
+
+def test_mono_and_fixed_plans_match_the_kernels(dev):
+    """The wrappers' shared-memory sums are the kernels' own, and one SM
+    holds as many blocks as the plans count on."""
+    lib = corr_cuda._load()
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    for gdt, rdt in ((bf, bf), (bf, i8), (f32, f32), (f32, i8)):
+        for C in (8, 32, 128):
+            cap, depth, blocks = corr_cuda.mono_plan(3, C, gdt, rdt)
+            assert lib.devo_corr_pyramid_smem(
+                9, C, cap, depth, int(gdt == bf), int(rdt == i8)) == (
+                corr_cuda.mono_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.mono_blocks_per_sm(3, C, gdt, rdt) >= blocks
+    for dt in (bf, f32):
+        for C in (8, 32, 128):
+            assert lib.devo_corr_fixed_smem(9, C, int(dt == bf)) == (
+                corr_cuda.fixed_smem_bytes(3, C, dt))
+            want = corr_cuda.fixed_plan(3, C, dt)[1] if dt == bf else 1
+            assert corr_cuda.fixed_blocks_per_sm(3, C, dt) >= want
+
+
 @pytest.mark.parametrize("dtype", ["bf16", "i8"])
 def test_level_kernel_wide_windows_read_the_ring_directly(dev, dtype):
     """Patches distorted beyond the staged window's capacity (jitter 3 px:
