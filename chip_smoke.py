@@ -24,23 +24,31 @@
    the same coordinates); the kernels with staged windows at a narrow width
    (C = 8) whose int8 feature vectors are too short for the 16-byte copies,
    so that every tap reads the ring directly, and on patches distorted
-   beyond the staged window. corr_group's products pass through a bf16
-   surface: it is held against its own plain version, which rounds at the
-   same place, within one bf16 ulp of the largest product, and against the
-   unrounded correlation within half an ulp. Max error against the stated
-   tolerance, the median time of each, and the kernel's bound: the least
-   time the card could take, the larger of the bytes it must move (the ring
-   positions its taps touch, the distinct patch features, coordinates,
-   indices, scales and the output, each once; for corr_group also its
-   surface, written and read) over 3.35 TB/s and its operations over 989
+   beyond the staged window. corr_group rounds every tap to bf16 before
+   its scale, as the TPU's bf16 surface did: it is held against its own
+   plain version (corr_level_group), which rounds at the same place, within
+   one bf16 ulp of the largest product, and against the unrounded
+   correlation within half an ulp; its surface instance, which writes the
+   TPU kernel's own output and runs on no path, against ops/corr.
+   group_surface within one ulp, timed beside a bound that counts the
+   surface written and read. Max error against the stated tolerance, the
+   median time of each, and the kernel's bound: the least time the card
+   could take, the larger of the bytes it must move (the ring positions its
+   taps touch, the distinct patch features, coordinates, indices, scales
+   and the output, each once) over 3.35 TB/s and its operations over 989
    TFLOP/s (67 TFLOP/s, the f32 rate outside the tensor cores, on f32
-   rings). The plans of the tensor-core kernels (corr_pyramid, corr_fixed):
-   windows, stages and blocks an SM, planned and by the occupancy query.
+   rings). The plans of the tensor-core kernels (corr_pyramid, corr_group,
+   corr_mono2, corr_fixed): windows, stages, pipelines and blocks an SM,
+   planned and by the occupancy query.
    With --parent DIR, a directory holding the parent commit's corr.cu,
-   corr_fixed.cu and corr_common.cuh, those are built into a library of
-   their own and the redesigned kernels are timed against them at E = 12288
-   in turns (parent, this tree, this tree, parent), after both are held to
-   each other within the tolerance.
+   corr_group.cu, corr_mono2.cu, corr_common.cuh and corr_mma.cuh (from
+   `git archive` of the parent), those are built into a library of their
+   own and the kernels redesigned since are timed against them at
+   E = 12288 on int8 and bf16 rings in turns (parent, this tree, this tree,
+   parent): corr_group at both levels as the engine ran it (the parent's
+   kernel and its tensor-code stage 2 against one launch), corr_mono2
+   gathered and in place, and corr_pyramid, whose output must be the
+   parent's bit for bit; each pair held to each other first.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound: the banded window ablation (corr_band_ablate, E = 15360 of
@@ -110,10 +118,15 @@
    default kernel. Each prints the bench's JSON line and must reach its
    operating point, end with a finite pose per frame, and show launches > 0
    of the kernel it names, of no other, and no plain-correlation call. The
-   profiled path of phase 5 runs after this one, and after it the
-   profile_step driver, last.
-8. Prints the kernels' JSON record (all fifteen kernels; the probe kernels'
-   launches are their drivers'), the card line, and as its last line
+   profiled path of phase 5 runs after this one, then the g8c launch count
+   (the int8 g8c configuration, 8 frames under torch.profiler after 24:
+   kernel launches a frame, corr_group once a level and update, no
+   tensor-code stage 2), and the profile_step driver, last.
+8. Prints the order of the kernel work twice, by launches x (ms - bound)
+   over every path and over the tracking paths alone (rule 2 of the port
+   reads the second), the kernels' JSON record (all fifteen kernels; the
+   probe kernels' launches are their drivers'), the card line, and as its
+   last line
    {"ok": true, "device": {...}}.
 
 With no CUDA device it exits non-zero before any result. Any failed build,
@@ -470,8 +483,7 @@ def kernel_phase(dev, gpu: str):
             plain_ms = median_ms(plain, launches=2, repeats=3)
             # the patch features are read in the rings' float type
             g = gmap.float() if rings[0].dtype == torch.float32 else gmap
-            b_ms, b_by = bound_ms(g, rings, strides, scales, coords, kk, jj,
-                                  surface=name == "corr_group")
+            b_ms, b_by = bound_ms(g, rings, strides, scales, coords, kk, jj)
             print(f"{name} [{label}] E={E}: max_abs_err {err:.3e} within atol "
                   f"{tol['atol']:.3g} + rtol {tol['rtol']}; median kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -521,7 +533,7 @@ def kernel_phase(dev, gpu: str):
                           f"diff {(got - mono).abs().max().item():.3e} [{gpu}]",
                           flush=True)
         if E == E_MAIN:
-            group_stages(case, gpu)
+            group_surface_phase(case, gpu, record)
             full_stages(case, gpu, record)
     for ring in (torch.bfloat16, torch.int8):
         blocks = cc.pair2_blocks_per_sm(3, 128, torch.bfloat16, ring)
@@ -540,6 +552,20 @@ def kernel_phase(dev, gpu: str):
               f"per SM planned ({cc.mono_blocks_per_sm(3, 128, torch.bfloat16, ring)}"
               f" by the occupancy query), runs of {cc.mono_run(E_MAIN, dev)} "
               f"edges at E={E_MAIN} [{gpu}]", flush=True)
+        cap, depth, blocks = cc.group_plan(3, 128, torch.bfloat16, ring)
+        print(f"corr_group [{ring} rings, C=128]: windows of {cap} vectors, "
+              f"a ring of {depth} stages (two pipelines), {blocks} block(s) of "
+              f"512 threads per SM planned "
+              f"({cc.group_blocks_per_sm(3, 128, torch.bfloat16, ring)} by the "
+              f"occupancy query), runs of {cc.group_run(E_MAIN, dev, blocks)} "
+              f"edges at E={E_MAIN} [{gpu}]", flush=True)
+        cap, depth, pipes = cc.mono2_plan(3, 128, torch.bfloat16, ring)
+        print(f"corr_mono2 [{ring} rings, C=128]: windows of {cap} vectors, "
+              f"{pipes} pipeline(s) of a pair of edges a step, {depth} stage(s)"
+              f" a block, 1 block of 512 threads per SM planned "
+              f"({cc.mono2_blocks_per_sm(3, 128, torch.bfloat16, ring)} by the "
+              f"occupancy query), runs of {cc.mono2_run(E_MAIN, dev)} edges at "
+              f"E={E_MAIN} [{gpu}]", flush=True)
     stages, blocks = cc.fixed_plan(3, 128, torch.bfloat16)
     print(f"corr_fixed [bf16 rings, C=128]: a ring of {stages} stages of 384 "
           f"positions x 32 channels, {blocks} block(s) of 256 threads per SM "
@@ -553,13 +579,14 @@ def kernel_phase(dev, gpu: str):
 
 # the kernels redesigned since the parent commit, and the sources a build of
 # the parent's versions takes from the directory given by --parent
-PARENT_SOURCES = ("corr.cu", "corr_fixed.cu", "corr_common.cuh")
+PARENT_SOURCES = ("corr.cu", "corr_group.cu", "corr_mono2.cu",
+                  "corr_common.cuh", "corr_mma.cuh")
 
 
 def parent_library(parent_dir: str):
-    """The parent commit's corr.cu and corr_fixed.cu built from parent_dir (a
-    copy of them and their header) into a library of their own, with the
-    parent's C interfaces."""
+    """The parent commit's corr.cu, corr_group.cu and corr_mono2.cu built
+    from parent_dir (a copy of them and their headers) into a library of
+    their own, with the parent's C interfaces."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -569,79 +596,134 @@ def parent_library(parent_dir: str):
         raise RuntimeError(f"--parent {parent_dir}: missing {missing}")
     lib = ctypes.CDLL(str(corr_cuda.build(src)))
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.devo_corr_pyramid.argtypes = [ptr] * 9 + [i] * 7 + [f] * 2 + [i, i, ptr]
-    lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
-    lib.devo_corr_pyramid.restype = lib.devo_corr_fixed.restype = ctypes.c_int
+    lib.devo_corr_pyramid.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i] * 4 + [ptr]
+    lib.devo_corr_group.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+    lib.devo_corr_mono2.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i] * 3 + [ptr]
+    for fn in (lib.devo_corr_pyramid, lib.devo_corr_group, lib.devo_corr_mono2):
+        fn.restype = ctypes.c_int
     return lib
 
 
+def _parent_call(name, code):
+    if code:
+        raise RuntimeError(f"{name} by its C interface: launch failed ({code})")
+
+
 def parent_pyramid(lib, gmap, pyr, coords, kk, jj, scales):
-    """The parent's corr_pyramid kernel (one block an edge, a warp a tap)."""
+    """The corr_pyramid kernel of `lib` at the wrapper's plan, by its C
+    interface, which the parent shares: the parent's kernel, or this tree's
+    called the same way, so that the two are timed alike."""
+    from devo_tpu_torch.ops import corr_cuda as cc
     E, C = coords.shape[0], gmap.shape[-1]
+    cap, depth, _ = cc.mono_plan(3, C, gmap.dtype, pyr[0].dtype)
     out = torch.empty((E, 2 * 49 * 9), dtype=torch.float32, device=gmap.device)
+    lib = lib or cc._load()
     ss = scales or (None, None)
-    code = lib.devo_corr_pyramid(
+    _parent_call("corr_pyramid", lib.devo_corr_pyramid(
         gmap.data_ptr(), pyr[0].data_ptr(), pyr[1].data_ptr(),
         *(None if t is None else t.data_ptr() for t in ss), coords.data_ptr(),
         kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, pyr[0].shape[1],
-        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], 1.0, 4.0,
-        int(gmap.dtype == torch.bfloat16), int(scales is not None),
-        torch.cuda.current_stream().cuda_stream)
-    if code:
-        raise RuntimeError(f"parent corr_pyramid launch failed: {code}")
+        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], cap, 1.0, 4.0,
+        int(gmap.dtype == torch.bfloat16), int(scales is not None), depth,
+        cc.mono_run(E, gmap.device), torch.cuda.current_stream().cuda_stream))
     return out
 
 
-def parent_fixed(lib, gmap, fmap, coords, kk, jj):
-    """The parent's corr_fixed kernel (products on the CUDA cores)."""
+def parent_group(lib, gmap, fmap, coords, kk, jj, scale):
+    """The parent's "g8c" as the engine ran it: its corr_group kernel (the
+    raw surface, plain f32 multiply-adds) at its own window capacity, then
+    the tensor-code stage 2, ops/corr.extract_blend_group."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
     E, C = coords.shape[0], gmap.shape[-1]
-    out = torch.empty((E, 49 * 9), dtype=torch.float32, device=gmap.device)
-    code = lib.devo_corr_fixed(
+    cap = cc._fit_cap(lambda cap: 4 * 9 * C * 4 + 4 * cap * cc._padded(C, fmap.dtype),
+                      C, fmap.dtype, cc.SMEM_MAX - 5120)
+    surface = torch.empty((-(-E // 8), plain.GROUP_ROWS, 128),
+                          dtype=torch.bfloat16, device=gmap.device)
+    _parent_call("corr_group", lib.devo_corr_group(
         gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
-        jj.data_ptr(), out.data_ptr(), E, 9, C, fmap.shape[1], fmap.shape[2],
-        int(gmap.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    if code:
-        raise RuntimeError(f"parent corr_fixed launch failed: {code}")
+        jj.data_ptr(), surface.data_ptr(), E, 9, C, fmap.shape[1],
+        fmap.shape[2], cap, plain.GROUP_ROWS, int(gmap.dtype == torch.bfloat16),
+        int(scale is not None), torch.cuda.current_stream().cuda_stream))
+    return plain.extract_blend_group(surface, coords, jj, fmap.shape[1:3],
+                                     scale, cap)
+
+
+def parent_mono2(lib, gmap, pyr, coords, kk, jj, scales, concat):
+    """The parent's corr_mono2 kernel (two edges a block, a tap a thread)
+    at its own window capacity."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    E, C = coords.shape[0], gmap.shape[-1]
+    ring = pyr[0].dtype
+    cap = cc._fit_cap(lambda cap: (2 * (9 * C + 2 * 9 * 64) * 4
+                                   + (6 if concat else 4) * cap * C * cc._item(ring)),
+                      C, ring, cc.SMEM_MAX - 4096)
+    out = torch.empty((E, 2 * 49 * 9), dtype=torch.float32, device=gmap.device)
+    ss = scales or (None, None)
+    _parent_call("corr_mono2", lib.devo_corr_mono2(
+        gmap.data_ptr(), pyr[0].data_ptr(), pyr[1].data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ss), coords.data_ptr(),
+        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, pyr[0].shape[1],
+        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], cap, 1.0, 4.0,
+        int(gmap.dtype == torch.bfloat16), int(scales is not None), int(concat),
+        torch.cuda.current_stream().cuda_stream))
     return out
 
 
 def parent_phase(dev, gpu: str, parent_dir: str, record):
-    """The redesigned kernels against the parent commit's versions of them,
-    on the kernel phase's inputs at E = 12288 (K1 on int8 and bf16 rings,
-    K12' on bf16 rings at both levels): both held to each other within TOL,
-    then timed in turns, parent, this tree, this tree, parent, in one
-    process on one card."""
+    """The kernels redesigned since the parent commit against the parent's
+    versions of them, on the kernel phase's inputs at E = 12288, int8 and
+    bf16 rings: K8' as the engine runs it (the parent's kernel and tensor-code
+    stage 2 against one launch) at levels 1 and 4, K3' gathered and in
+    place, and K1, whose output must equal the parent's bit for bit (both
+    called by the C interface they share, without the wrapper's checks).
+    Each pair is held to each other within its tolerance, then timed in turns,
+    parent, this tree, this tree, parent, in one process on one card."""
     from devo_tpu_torch.ops import corr_cuda as cc
     lib = parent_library(parent_dir)
     gmap, bf, i8, sc, coords, kk, jj = corr_case(E_MAIN, dev, 0)
-    c4 = coords / 4
-    cases = [
-        ("corr_pyramid", "both levels i8",
-         lambda: parent_pyramid(lib, gmap, i8, coords, kk, jj, sc),
-         lambda: cc.corr_pyramid_cuda(gmap, i8[0], i8[1], coords, kk, jj,
-                                      scales=sc)),
-        ("corr_pyramid", "both levels bf16",
-         lambda: parent_pyramid(lib, gmap, bf, coords, kk, jj, None),
-         lambda: cc.corr_pyramid_cuda(gmap, bf[0], bf[1], coords, kk, jj)),
-        ("corr_fixed", "level 1 bf16",
-         lambda: parent_fixed(lib, gmap, bf[0], coords, kk, jj),
-         lambda: cc.corr_fixed_cuda(gmap, bf[0], coords, kk, jj)),
-        ("corr_fixed", "level 4 bf16",
-         lambda: parent_fixed(lib, gmap, bf[1], c4, kk, jj),
-         lambda: cc.corr_fixed_cuda(gmap, bf[1], c4, kk, jj)),
-    ]
-    for name, label, old, new in cases:
+    cases = []
+    for ring, pyr, scales in (("i8", i8, sc), ("bf16", bf, None)):
+        ss = scales or (None, None)
+        for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
+            cases.append((
+                "corr_group", f"level {lvl} {ring}", "group",
+                lambda r=pyr[n], c=c, s=ss[n]: parent_group(lib, gmap, r, c, kk,
+                                                            jj, s),
+                lambda r=pyr[n], c=c, s=ss[n]: cc.corr_group_cuda(gmap, r, c, kk,
+                                                                  jj, s)))
+        for concat, what in ((True, "gathered"), (False, "in place")):
+            cases.append((
+                "corr_mono2", f"both levels {ring} {what}", "tol",
+                lambda pyr=pyr, s=scales, k=concat: parent_mono2(
+                    lib, gmap, pyr, coords, kk, jj, s, k),
+                lambda pyr=pyr, s=scales, k=concat: cc.corr_mono2_cuda(
+                    gmap, pyr[0], pyr[1], coords, kk, jj, scales=s, concat=k)))
+        cases.append((
+            "corr_pyramid", f"both levels {ring}", "bits",
+            lambda pyr=pyr, s=scales: parent_pyramid(lib, gmap, pyr, coords, kk,
+                                                     jj, s),
+            lambda pyr=pyr, s=scales: parent_pyramid(None, gmap, pyr, coords,
+                                                     kk, jj, s)))
+    for name, label, rule, old, new in cases:
         a, b = old(), new()
         torch.cuda.synchronize()
-        torch.testing.assert_close(b, a, **TOL)
+        if rule == "bits":
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{name} [{label}]: not the parent's bits")
+        else:
+            torch.testing.assert_close(b, a, **(group_tol(a) if rule == "group"
+                                                else TOL))
         times = [median_ms(fn) for fn in (old, new, new, old)]
         record[name].setdefault("parent_ab", []).append(
             dict(label=label, E=E_MAIN, parent_ms=[times[0], times[3]],
-                 ms=[times[1], times[2]]))
+                 ms=[times[1], times[2]], same_bits=bool(torch.equal(a, b))))
         print(f"A/B {name} [{label}] E={E_MAIN}: parent {times[0]:.4f}, "
               f"{times[3]:.4f} ms; this tree {times[1]:.4f}, {times[2]:.4f} "
               f"ms (in turns parent, tree, tree, parent); max abs diff "
-              f"{(b - a).abs().max().item():.3e} [{gpu}]", flush=True)
+              f"{(b - a).abs().max().item():.3e}"
+              f"{', bit for bit' if torch.equal(a, b) else ''} [{gpu}]",
+              flush=True)
 
 
 def group_vs_mono(cc, kernel, resident, label, mono, gmap, pyr, coords, kk, jj,
@@ -662,23 +744,56 @@ def group_vs_mono(cc, kernel, resident, label, mono, gmap, pyr, coords, kk, jj,
           f"{tol['atol']:.3g}) [{gpu}]", flush=True)
 
 
-def group_stages(case, gpu: str):
-    """corr_group's two stages timed apart at the step's edge count: the
-    kernel that writes the surface, and the tensor code that reads it."""
+def surface_mask(coords, cap):
+    """(ceil(E / 8), GROUP_ROWS, 128) bool: the rows and lanes that
+    corr_group's surface instance writes (an edge's window positions, or its
+    64 taps where the window exceeds cap)."""
+    from devo_tpu_torch.ops import corr as plain
+    _, y0, _, _, ww, wide = plain._group_index(coords, cap)
+    wh = y0.amax(1, keepdim=True) - y0.amin(1, keepdim=True) + 8
+    n_rows = torch.where(wide, torch.full_like(ww, 64), ww * wh)[:, 0]
+    E, G, R = coords.shape[0], -(-coords.shape[0] // 8), plain.GROUP_ROWS
+    mask = torch.zeros((G * 8, R), dtype=torch.bool, device=coords.device)
+    mask[:E] = torch.arange(R, device=coords.device)[None, :] < n_rows[:, None]
+    return (mask.reshape(G, 8, R, 1).expand(G, 8, R, 16).transpose(1, 2)
+            .reshape(G, R, 128))
+
+
+def group_surface_phase(case, gpu: str, record):
+    """corr_group's surface instance (the TPU kernel's own output, which no
+    path launches) at the step's edge count on both levels and ring types:
+    against ops/corr.group_surface at the same cap on the rows and lanes it
+    writes within one bf16 ulp of the largest product, zero elsewhere; timed
+    beside its bound with the surface's write and read counted."""
     from devo_tpu_torch.ops import corr as plain
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = case
-    for label, ring, scale in (("level 1 bf16", bf[0], None),
-                               ("level 1 i8", i8[0], sc[0])):
-        surface, cap = cc.group_surface_cuda(gmap, ring, coords, kk, jj, scale)
-        k_ms = median_ms(lambda: cc.group_surface_cuda(gmap, ring, coords, kk,
-                                                       jj, scale))
-        x_ms = median_ms(lambda: plain.extract_blend_group(
-            surface, coords, jj, ring.shape[1:3], scale, cap))
-        print(f"corr_group [{label}] E={coords.shape[0]}: the kernel (stage 1) "
-              f"{k_ms:.4f} ms, extraction and blend (stage 2, tensor code) "
-              f"{x_ms:.4f} ms; surface {surface.numel() * 2 / 2**20:.1f} MiB "
-              f"[{gpu}]", flush=True)
+    out = record["corr_group"].setdefault("surface_instance", [])
+    for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
+        for label, ring, scale in (("bf16", bf[n], None), ("i8", i8[n], sc[n])):
+            got, cap = cc.group_surface_cuda(gmap, ring, c, kk, jj, scale)
+            want = plain.group_surface(gmap, ring, c, kk, jj, cap=cap)
+            torch.cuda.synchronize()
+            mask = surface_mask(c, cap)
+            g, w = got.float(), want.float()
+            if g[~mask].abs().max().item() != 0:
+                raise RuntimeError("corr_group_surface wrote outside its rows")
+            top = w[mask].abs().max().item()
+            err = (g[mask] - w[mask]).abs().max().item()
+            torch.testing.assert_close(g[mask], w[mask], atol=2.0 ** -7 * top,
+                                       rtol=0)
+            ms = median_ms(lambda: cc.group_surface_cuda(gmap, ring, c, kk, jj,
+                                                         scale))
+            b_ms, b_by = bound_ms(gmap, (ring,), (lvl,), (scale,), coords, kk,
+                                  jj, surface=True)
+            out.append(dict(label=f"level {lvl} {label}", max_abs_err=err,
+                            ms=ms, bound_ms=b_ms, bound_by=b_by))
+            print(f"corr_group_surface [level {lvl} {label}] E={coords.shape[0]}:"
+                  f" max_abs_err {err:.3e} within one bf16 ulp of the largest "
+                  f"product ({2.0 ** -7 * top:.3g}), equal on "
+                  f"{(g[mask] == w[mask]).float().mean().item():.4f} of the "
+                  f"written values; median {ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}, the surface written and read) [{gpu}]", flush=True)
 
 
 def full_stages(case, gpu: str, record):
@@ -1003,6 +1118,7 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     torch.cuda.reset_peak_memory_stats()
     corr_cuda.reset_launches()
     corr_plain.calls = corr_plain.window_calls = corr_plain.gather_calls = 0
+    corr_plain.extract_calls = 0
     frame_s = []
     for i, vox in enumerate(stream[:n_frames]):
         if i == SKIP:
@@ -1021,7 +1137,8 @@ def slice_phase(dev, gpu: str, label: str, n_frames: int, n_profiled: int):
     poses, tss = slam.terminate()
     torch.cuda.synchronize()
     t_end = time.perf_counter() - t0
-    launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
+    launches = dict(corr_cuda.launches)
+    plain_calls = corr_plain.calls + corr_plain.extract_calls
     paths = {impl: getattr(corr_plain, name) for impl, name in TENSOR_PATH.items()}
 
     n_all = len(stream)
@@ -1110,11 +1227,13 @@ def bench_phase(dev, gpu: str, label: str):
 
     knobs, full, kernel = BENCH_PATHS[label]
     corr_cuda.reset_launches()
-    corr_plain.calls = 0
+    corr_plain.calls = corr_plain.extract_calls = 0
     t0 = time.perf_counter()
     res = bench.run(knobs, device=dev, **({} if full else BENCH_SHORT))
     wall = time.perf_counter() - t0
-    launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
+    launches = dict(corr_cuda.launches)
+    # a plain correlation, or the tensor-code stage 2 of "g8c", on the card
+    plain_calls = corr_plain.calls + corr_plain.extract_calls
     poses, slam = res.pop("poses"), res.pop("engine")
     print(f"bench [{label}] ({wall:.1f} s): {json.dumps(res)}", flush=True)
     n = res["frames_before_timing"] + (bench.N_BENCH if full
@@ -1602,6 +1721,51 @@ def driver_phase(dev, gpu: str, label: str):
     return launches
 
 
+G8C_LAUNCHES = "g8c-launches"
+G8C_WARM = 24                       # frames before the profiled ones
+
+
+def g8c_launch_phase(dev, gpu: str):
+    """The launches a frame of every kernel on the g8c configuration (int8
+    rings, the bench's CORR_KERNEL="g8c"), under torch.profiler after
+    G8C_WARM frames at full width: corr_group once a level and update, no
+    other correlation kernel, and no tensor-code stage 2. Runs after the
+    profiled slice (nothing is timed after a profile). Returns the launches
+    of each kernel over the profiled frames."""
+    from devo_tpu_torch.bench import frames
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+    from devo_tpu_torch.runtime.config import VOConfig
+    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.utils.params import random_state_dict
+
+    cfg = VOConfig(MOTION_PROBE_THRESH=-1.0, CORR_KERNEL="g8c")
+    weights = random_state_dict(
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=0)
+    slam = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
+    intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
+    stream = list(frames(G8C_WARM + N_PROFILED))
+    for i, vox in enumerate(stream[:G8C_WARM]):
+        slam(i / 30.0, vox, intr)
+    torch.cuda.synchronize()
+    corr_cuda.reset_launches()
+    corr_plain.calls = corr_plain.extract_calls = 0
+    print(f"g8c launches [int8 rings, {HT}x{WD}, live edges {slam.n_edges}]:",
+          flush=True)
+    profile_frames(slam, stream[G8C_WARM:], intr, gpu)
+    launches = dict(corr_cuda.launches)
+    others = [k for k, v in launches.items() if v and k != "corr_group"]
+    print(f"g8c launches: corr_group {launches['corr_group'] / N_PROFILED:.2f} "
+          f"a frame, tensor-code stage 2 calls {corr_plain.extract_calls}, "
+          f"plain correlations {corr_plain.calls} [{gpu}]", flush=True)
+    if (launches["corr_group"] < 1 or others or corr_plain.extract_calls
+            or corr_plain.calls):
+        raise RuntimeError(f"g8c launches: {launches}, stage 2 "
+                           f"{corr_plain.extract_calls}, plain {corr_plain.calls}")
+    return launches
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of devo_tpu_torch on "
@@ -1664,6 +1828,7 @@ def main(argv=None):
         by_path[label], err = bench_phase(dev, gpu, label)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     run_slice(PROFILED)              # last: nothing is timed after a profile
+    by_path[G8C_LAUNCHES] = g8c_launch_phase(dev, gpu)
     by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)
 
     kernels = []
@@ -1686,16 +1851,25 @@ def main(argv=None):
                                  if name in PROBE_REPORTED
                                  else f"{REPORTED[name]}, E={E_MAIN}"),
             "variants": rec["variants"],
-            **{key: rec[key] for key in ("stages", "parent_ab") if key in rec}})
+            **{key: rec[key] for key in ("stages", "parent_ab",
+                                         "surface_instance") if key in rec}})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
     # the order of the port's kernel work: a kernel slower than a PyTorch call
     # for the same function first (none has one), then by the time it loses
-    # to its bound over this run's launches
-    order = sorted(kernels, key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
-    print("kernels by launches x (ms - bound_ms), this run: " + ", ".join(
-        f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.1f}"
-        for k in order), flush=True)
+    # to its bound over this run's launches; first over every path, drivers
+    # included, then over the tracking paths alone (slice, eval, bench and
+    # the g8c launch count; no driver of devo_tpu_torch/scripts/), which is
+    # the order rule 2 reads
+    for what, labels in (("every path, drivers included", list(by_path)),
+                         ("the tracking paths alone (rule 2)",
+                          [k for k in by_path if k not in DRIVERS])):
+        loss = {k["name"]: sum(by_path[p][k["name"]] for p in labels)
+                * (k["ms"] - k["bound_ms"]) for k in kernels}
+        print(f"kernels by launches x (ms - bound_ms), {what}, this run: "
+              + ", ".join(f"{name} {v:.1f}" for name, v in
+                          sorted(loss.items(), key=lambda kv: -kv[1])),
+              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

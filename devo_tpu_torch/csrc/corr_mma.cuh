@@ -37,9 +37,10 @@
 // C = 128 is 7 m-tiles x 2 n-tiles x 8 k-steps = 112 mma.sync an edge and
 // level) but the bytes that reach shared memory and the reads of A from it.
 //
-// Users: csrc/corr.cu (both levels, covering windows, bf16 and int8 rings)
-// and csrc/corr_fixed.cu (the fixed 16x24 window, bf16 rings). The window
-// products of csrc/corr_mono3.cu, corr_group.cu, corr_band_ablate.cu and
+// Users: the edge pipeline of csrc/corr_pipe.cuh (csrc/corr.cu,
+// corr_group.cu, corr_mono2.cu: covering windows, bf16 and int8 rings) and
+// csrc/corr_fixed.cu (the fixed 16x24 window, bf16 rings). The window
+// products of csrc/corr_mono3.cu, corr_band_ablate.cu and
 // corr_frame_probe.cu are the same operation on the CUDA cores.
 #pragma once
 
@@ -196,19 +197,27 @@ __device__ __forceinline__ void tile_chunk(float (&d)[2][4], const F* win,
 
 // The accumulators of an m-tile, times `scale`, into the surface (row pos at
 // surf + pos * ss, a column per pixel, ss even): rows m0 + g, m0 + g + 8,
-// columns 8n + 2t and 8n + 2t + 1 where they are pixels of the patch.
+// columns 8n + 2t and 8n + 2t + 1 where they are pixels of the patch. With
+// kRound each sum is rounded once to bf16 (nearest even) before the scale.
+template <bool kRound = false>
 __device__ __forceinline__ void store_tile(float* surf, int ss, int m0,
                                            const float (&d)[2][4], int PP,
                                            float scale, int lane) {
   const int row = lane >> 2, t = lane & 3;
+  auto tap = [&](float sum) {
+    if constexpr (kRound)
+      return __bfloat162float(__float2bfloat16_rn(sum)) * scale;
+    else
+      return sum * scale;
+  };
 #pragma unroll
   for (int n = 0; n < 2; ++n) {
     const int col = 8 * n + 2 * t;
     if (col < PP) {
       *reinterpret_cast<float2*>(surf + (m0 + row) * ss + col) =
-          make_float2(d[n][0] * scale, d[n][1] * scale);
+          make_float2(tap(d[n][0]), tap(d[n][1]));
       *reinterpret_cast<float2*>(surf + (m0 + row + 8) * ss + col) =
-          make_float2(d[n][2] * scale, d[n][3] * scale);
+          make_float2(tap(d[n][2]), tap(d[n][3]));
     }
   }
 }

@@ -17,9 +17,11 @@ csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu, csrc/corr_mono2.cu and
 csrc/corr_mono3.cu (both levels: the kernels "mono", "pair", "pair2",
 "mono2", "mono4" and "mono3" compute one function), `corr_level` of
 csrc/corr_level.cu, csrc/corr_level_pipe.cu and csrc/corr_level_resident.cu
-(one level), and `group_surface` of csrc/corr_group.cu, which with
-`extract_blend_group` makes `corr_level_group`: one level whose products
-pass through a bf16 surface (the kernel "g8c"). `corr_level` is also the
+(one level), `corr_level_group` of csrc/corr_group.cu (one level whose
+products pass through a bf16 surface, the kernel "g8c": `group_surface`,
+the plain version of the kernel's surface instance, then
+`extract_blend_group`, the TPU's stage 2, which the kernel fuses and which
+runs on the CPU alone). `corr_level` is also the
 plain version of csrc/corr_fixed.cu (CORR_IMPL="pallas"), csrc/corr_group8.cu
 ("g8") and csrc/corr_level_full.cu ("full"), and `corr_level_stage` that of
 the latter's stage instances, which time its copy, product and extraction
@@ -37,9 +39,10 @@ from __future__ import annotations
 
 import torch
 
-# calls of corr_pyramid, corr_level and group_surface, and of the two tensor
-# paths, counted so a run can show which path it took
+# calls of corr_pyramid, corr_level and group_surface, of extract_blend_group
+# and of the two tensor paths, counted so a run can show which path it took
 calls = 0
+extract_calls = 0
 gather_calls = 0
 window_calls = 0
 
@@ -173,7 +176,7 @@ def group_surface(gmap: torch.Tensor, fmap: torch.Tensor, coords: torch.Tensor,
                   kk: torch.Tensor, jj: torch.Tensor,
                   cap: int = GROUP_ROWS) -> torch.Tensor:
     """Stage 1 of the grouped correlation, the plain version of
-    csrc/corr_group.cu: the raw product surface (ceil(E / 8), GROUP_ROWS, 128)
+    csrc/corr_group.cu's surface instance: the raw product surface (ceil(E / 8), GROUP_ROWS, 128)
     bf16 of one level, lane 16 * j + p = edge j of the group, pixel p.
 
     Row r * ww + c of an edge holds bf16(<gmap[kk][p], fmap[jj, wy0 + r, wx0
@@ -217,12 +220,16 @@ def group_surface(gmap: torch.Tensor, fmap: torch.Tensor, coords: torch.Tensor,
 def extract_blend_group(surface: torch.Tensor, coords: torch.Tensor,
                         jj: torch.Tensor, hw, scale: torch.Tensor = None,
                         cap: int = GROUP_ROWS) -> torch.Tensor:
-    """Stage 2 of the grouped correlation, on either device (counterpart of
-    devo_tpu's extract_blend_g8): every pixel's 8x8 taps from the surface of
-    `group_surface` or of csrc/corr_group.cu, 0 off the (H, W) = hw image,
-    times the ring slot's scale (int8 rings), blended to 7x7. Returns
+    """Stage 2 of the grouped correlation (counterpart of devo_tpu's
+    extract_blend_g8; csrc/corr_group.cu fuses it, so the engine calls it on
+    the CPU alone): every pixel's 8x8 taps from the surface of
+    `group_surface` or of the kernel's surface instance, 0 off the
+    (H, W) = hw image, times the ring slot's scale (int8 rings), blended to
+    7x7. Returns
     (E, 49*P*P) f32 in [dx, dy, pixel] order. `cap` is the one stage 1
     was given."""
+    global extract_calls
+    extract_calls += 1
     H, W = hw
     E, P = coords.shape[0], coords.shape[1]
     PP = P * P
@@ -257,7 +264,7 @@ def corr_level_group(gmap: torch.Tensor, fmap: torch.Tensor,
                      coords: torch.Tensor, kk: torch.Tensor, jj: torch.Tensor,
                      scale: torch.Tensor = None) -> torch.Tensor:
     """One pyramid level at radius 3 through the bf16 product surface: the
-    two stages composed, the plain version of the kernel "g8c". It is
+    two stages composed, the plain version of csrc/corr_group.cu ("g8c"). It is
     `corr_level` with every integer tap rounded to bf16 before the scale and
     the blend."""
     if (fmap.dtype == torch.int8) != (scale is not None):

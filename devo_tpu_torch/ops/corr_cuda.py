@@ -7,9 +7,9 @@ fallback from one to the other. Nine kernels, one launch counter each
 (`launches`), chosen by `kernel` (the engine's CORR_KERNEL) and `resident`:
 
 - "mono", `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one
-  launch, blocks walking runs of edges behind a ring of staged windows, the
-  window products on the tensor cores (csrc/corr_mma.cuh) for bf16 patch
-  features;
+  launch, blocks walking runs of edges behind a ring of staged windows (the
+  edge pipeline, csrc/corr_pipe.cuh), the window products on the tensor
+  cores (csrc/corr_mma.cuh) for bf16 patch features;
 - "split", `corr_level_cuda` (csrc/corr_level.cu): one level per launch;
 - `resident`, `corr_level_resident_cuda` (csrc/corr_level_resident.cu): the
   last level of a per-level kernel from an int8 ring slot held in a block's
@@ -22,12 +22,16 @@ fallback from one to the other. Nine kernels, one launch counter each
   current one;
 - "split2", `corr_level_pipe_cuda` (csrc/corr_level_pipe.cu): one level per
   launch by such persistent blocks;
-- "g8c", `corr_group_cuda` (csrc/corr_group.cu): one level per launch in two
-  stages: the kernel writes the raw bf16 product surface of groups of eight
-  edges, and ops/corr.extract_blend_group reads the taps from it;
+- "g8c", `corr_group_cuda` (csrc/corr_group.cu): one level per launch,
+  every tap rounded once to bf16 before the ring slot's scale (the TPU's bf16
+  product surface, kept in shared memory), on the edge pipeline of
+  csrc/corr_pipe.cuh with K1's tensor-core products; its surface instance
+  (`group_surface_cuda`, counter "corr_group_surface") writes the TPU
+  kernel's own output and runs on no engine path;
 - "mono2" / "mono4", `corr_mono2_cuda` (csrc/corr_mono2.cu): both levels in
-  one launch, two edges a block, their windows gathered into one buffer
-  ("mono2") or read where the copies landed ("mono4");
+  one launch on the same pipeline, a pair of edges a step, the pair's
+  windows of a level gathered into one run of rows ("mono2") or read where
+  the copies landed ("mono4");
 - "mono3", `corr_mono3_cuda` (csrc/corr_mono3.cu): both levels in one launch
   from a per-edge product surface in shared memory, a block walking a run of
   edges behind a ring of window copies;
@@ -74,6 +78,8 @@ from . import corr as plain
 launches = {"corr_pyramid": 0, "corr_level": 0, "corr_level_resident": 0,
             "corr_pair": 0, "corr_pair2": 0, "corr_level_pipe": 0,
             "corr_group": 0, "corr_mono2": 0, "corr_mono3": 0,
+            # corr_group's surface instance, which no engine path launches
+            "corr_group_surface": 0,
             "corr_fixed": 0, "corr_group8": 0, "corr_level_full": 0,
             # the probe kernels, launched by ops/probe_cuda.py
             "corr_band_ablate": 0, "copy_probe": 0, "corr_frame_probe": 0}
@@ -89,8 +95,9 @@ LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
 _PAIR_STATIC = 4096           # bound on the static shared memory of the pair
                               #   kernels (their per-edge index tables)
 _MONO3_STATIC = 6144          # the same of corr_mono3 (ten such tables)
-_MONO_STATIC = 4096           # and of corr_pyramid (six)
-_GROUP_STATIC = 5120          # and of corr_group and corr_group8 (eight)
+_MONO_STATIC = 4096           # and of corr_pyramid and corr_group (six)
+_GROUP_STATIC = 5120          # and of corr_group8 (eight)
+_MONO2_STATIC = 5120          # and of corr_mono2 (eight)
 _FULL_STATIC = 4096           # and of corr_level_full (six)
 _SMEM_SM = 233_472            # shared memory of an SM on sm_90
 _SMEM_RESERVED = 1024         # of which each resident block takes this much
@@ -191,9 +198,16 @@ def _load():
         lib.devo_corr_pair2_blocks_per_sm.argtypes = [i] * 5
         lib.devo_corr_level_pipe.argtypes = lib.devo_corr_level.argtypes
         lib.devo_corr_level_pipe_blocks_per_sm.argtypes = [i] * 5
-        lib.devo_corr_group.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+        lib.devo_corr_group.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
+        lib.devo_corr_group_surface.argtypes = [ptr] * 6 + [i] * 11 + [ptr]
+        lib.devo_corr_group_smem.argtypes = [i] * 6
+        lib.devo_corr_group_smem.restype = ctypes.c_longlong
+        lib.devo_corr_group_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_mono2.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
-                                        + [i] * 3 + [ptr])
+                                        + [i] * 6 + [ptr])
+        lib.devo_corr_mono2_smem.argtypes = [i] * 7
+        lib.devo_corr_mono2_smem.restype = ctypes.c_longlong
+        lib.devo_corr_mono2_blocks_per_sm.argtypes = [i] * 7
         lib.devo_corr_mono3.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
                                         + [i] * 4 + [ptr])
         lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
@@ -212,7 +226,9 @@ def _load():
                    lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm,
                    lib.devo_corr_level_pipe,
                    lib.devo_corr_level_pipe_blocks_per_sm,
-                   lib.devo_corr_group, lib.devo_corr_mono2,
+                   lib.devo_corr_group, lib.devo_corr_group_surface,
+                   lib.devo_corr_group_blocks_per_sm, lib.devo_corr_mono2,
+                   lib.devo_corr_mono2_blocks_per_sm,
                    lib.devo_corr_mono3, lib.devo_corr_band_ablate,
                    lib.devo_corr_frame_probe, lib.devo_copy_probe):
             fn.restype = ctypes.c_int
@@ -232,6 +248,15 @@ def _launched(name: str, code: int):
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{_lib.devo_cuda_error_string(code).decode()}")
     launches[name] += 1
+
+
+def _occupancy(name: str, occ: int) -> int:
+    """The result of a kernel's occupancy query: blocks an SM, or raise on
+    the error it returned (as minus the cudaError_t)."""
+    if occ < 0:
+        raise RuntimeError(f"{name} occupancy query failed: "
+                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
+    return occ
 
 
 def _check_call(gmap, rings, scales, coords, kk, jj):
@@ -436,13 +461,9 @@ def pair2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
     holds at a time at these sizes (the kernel's grid is that times the
     number of SMs)."""
     cap = pair_cap("corr_pair2", P, C, gmap_dtype, ring_dtype)
-    occ = _load().devo_corr_pair2_blocks_per_sm(
+    return _occupancy("corr_pair2", _load().devo_corr_pair2_blocks_per_sm(
         P * P, C, cap, int(gmap_dtype == torch.bfloat16),
-        int(ring_dtype == torch.int8))
-    if occ < 0:
-        raise RuntimeError("corr_pair2 occupancy query failed: "
-                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
-    return occ
+        int(ring_dtype == torch.int8)))
 
 
 def _padded(C: int, ring_dtype) -> int:
@@ -485,45 +506,10 @@ def level_pipe_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
     device holds at a time at these sizes (its grid is that times the number
     of SMs)."""
     cap = level_pipe_cap(P, C, gmap_dtype, ring_dtype)
-    occ = _load().devo_corr_level_pipe_blocks_per_sm(
-        P * P, C, cap, int(gmap_dtype == torch.bfloat16),
-        int(ring_dtype == torch.int8))
-    if occ < 0:
-        raise RuntimeError("corr_level_pipe occupancy query failed: "
-                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
-    return occ
-
-
-def mono2_smem_bytes(P: int, C: int, ring_dtype, cap: int, concat: bool) -> int:
-    """Dynamic shared memory of a corr_mono2 block: two edges' patch features
-    and taps of both levels as f32, their four windows of `cap` feature
-    vectors, and with `concat` the buffer that holds one level's pair of
-    windows side by side."""
-    PP = P * P
-    return (2 * (PP * C + 2 * PP * _TAPS) * 4
-            + (6 if concat else 4) * cap * C * _item(ring_dtype))
-
-
-def mono2_cap(P: int, C: int, ring_dtype, concat: bool) -> int:
-    """Feature vectors of each of corr_mono2's staged windows, see
-    `_fit_cap`."""
-    return _fit_cap(lambda cap: mono2_smem_bytes(P, C, ring_dtype, cap, concat),
-                    C, ring_dtype, SMEM_MAX - _PAIR_STATIC)
-
-
-def corr_mono2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
-                    scales=None, concat: bool = True) -> torch.Tensor:
-    """Launch csrc/corr_mono2.cu: both levels, two edges a block. `concat`:
-    gather each pair of windows into one buffer before its dots
-    (CORR_KERNEL="mono2"), or read them where the copies landed ("mono4").
-    Arguments and result otherwise as `corr_pyramid_cuda`; the plain version
-    is ops/corr.corr_pyramid."""
-    P, C = _patch_shape(gmap)
-    cap = mono2_cap(P, C, fmap1.dtype, concat)
-    return _staged_call(
-        "corr_mono2", mono2_smem_bytes(P, C, fmap1.dtype, cap, concat),
-        _PAIR_STATIC, cap, (int(concat),), gmap, (fmap1, fmap2), coords, kk,
-        jj, levels, scales)
+    return _occupancy(
+        "corr_level_pipe", _load().devo_corr_level_pipe_blocks_per_sm(
+            P * P, C, cap, int(gmap_dtype == torch.bfloat16),
+            int(ring_dtype == torch.int8)))
 
 
 def _mma_stride(C: int) -> int:
@@ -540,22 +526,54 @@ def _surface_row(P: int) -> int:
     return P * P + P * P % 2
 
 
-def mono_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
-                    depth: int) -> int:
-    """Dynamic shared memory of a corr_pyramid block (csrc/corr.cu,
-    MonoLayout): `depth` stages, each the patch feature (rounded up to 16
-    bytes) and both levels' windows of `cap` vectors, then four f32 surface
-    slots (two halves of the block x two levels) of cap rows, or a level's
-    taps where that is more. bf16 patch features stage rows for the tensor cores
-    (_mma_stride); f32 ones the plain patch feature and padded vectors."""
+def _stage_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                 levels: int) -> int:
+    """Bytes of one edge in a stage of the edge pipeline (csrc/corr_pipe.cuh,
+    PipeLayout): the patch feature, rounded up to 16 bytes, and `levels`
+    windows of `cap` vectors. bf16 patch features stage rows for the tensor
+    cores (_mma_stride); f32 ones the plain patch feature and padded
+    vectors."""
     PP = P * P
     if gmap_dtype == torch.bfloat16:
         graw = PP * _mma_stride(C) * 2
         vector = _mma_stride(C) * _item(ring_dtype)
     else:
         graw, vector = PP * C * 4, _padded(C, ring_dtype)
-    stage = -(-graw // 16) * 16 + 2 * cap * vector
-    return depth * stage + 4 * max(cap * _surface_row(P), PP * _TAPS) * 4
+    return -(-graw // 16) * 16 + levels * cap * vector
+
+
+def _slot_bytes(P: int, cap: int) -> int:
+    """Bytes of a surface slot of the edge pipeline: f32 rows of `cap`
+    window positions, or a level's taps where that is more."""
+    return 4 * max(cap * _surface_row(P), P * P * _TAPS)
+
+
+def _window_cap(fits, mma: bool) -> int:
+    """The largest window, at most LEVEL_WINDOW_CAP vectors (in whole
+    m-tiles of 16 positions for the tensor cores), for which fits(cap)
+    holds; 0 where none does."""
+    return next((cap for cap in range(LEVEL_WINDOW_CAP, 0, -16 if mma else -1)
+                 if fits(cap)), 0)
+
+
+def _pipe_checks(P: int, C: int, gmap_dtype, ring_dtype) -> bool:
+    """What the edge pipeline's kernels ask of the shapes (raises
+    ValueError otherwise). Returns whether a window is staged at all: bf16
+    patch features always; f32 ones only where a ring's vector is a whole
+    number of 16-byte copies."""
+    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
+    _check(C % 4 == 0, f"C must be a multiple of 4, got {C}")
+    return gmap_dtype == torch.bfloat16 or C * _item(ring_dtype) % 16 == 0
+
+
+def mono_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                    depth: int) -> int:
+    """Dynamic shared memory of a corr_pyramid block (csrc/corr.cu on the
+    edge pipeline): `depth` stages, each the patch feature and both levels'
+    windows of `cap` vectors (_stage_bytes), then four surface slots (two
+    halves of the block x two levels)."""
+    return (depth * _stage_bytes(P, C, gmap_dtype, ring_dtype, cap, 2)
+            + 4 * _slot_bytes(P, cap))
 
 
 def mono_plan(P: int, C: int, gmap_dtype, ring_dtype):
@@ -567,18 +585,14 @@ def mono_plan(P: int, C: int, gmap_dtype, ring_dtype):
     a ring whose vector is no multiple of 16 bytes stage nothing (cap = 0:
     every tap reads the ring). Raises ValueError on what the kernel does
     not take."""
-    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
-    _check(C % 4 == 0, f"C must be a multiple of 4, got {C}")
+    stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
     mma = gmap_dtype == torch.bfloat16
     room = SMEM_MAX - _MONO_STATIC
 
     def smem(cap, depth):
         return mono_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, depth)
 
-    cap = 0
-    if mma or C * _item(ring_dtype) % 16 == 0:
-        cap = next((cap for cap in range(LEVEL_WINDOW_CAP, 0, -16 if mma else -1)
-                    if smem(cap, 2) <= room), 0)
+    cap = _window_cap(lambda cap: smem(cap, 2) <= room, mma) if stageable else 0
     _check(smem(cap, 2) <= room,
            f"P={P}, C={C} needs more shared memory than a block can have")
     depth = MONO_MAX_DEPTH if smem(cap, MONO_MAX_DEPTH) <= room else 2
@@ -614,13 +628,83 @@ def mono_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
     """Blocks of corr_pyramid's kernel that one SM of the current CUDA device
     holds at a time at mono_plan's sizes (shared memory and registers)."""
     cap, depth, _ = mono_plan(P, C, gmap_dtype, ring_dtype)
-    occ = _load().devo_corr_pyramid_blocks_per_sm(
+    return _occupancy("corr_pyramid", _load().devo_corr_pyramid_blocks_per_sm(
         P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
-        int(ring_dtype == torch.int8))
-    if occ < 0:
-        raise RuntimeError("corr_pyramid occupancy query failed: "
-                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
-    return occ
+        int(ring_dtype == torch.int8)))
+
+
+MONO2_PIPES_CAP = 128         # windows below which corr_mono2 keeps one
+                              #   pipeline a block
+
+
+def mono2_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                     depth: int, pipes: int) -> int:
+    """Dynamic shared memory of a corr_mono2 block (csrc/corr_mono2.cu on the
+    edge pipeline, a pair of edges a step): `depth` stages, each two edges'
+    patch features and both levels' windows of `cap` vectors (_stage_bytes),
+    then four surface slots (two edges x two levels) for each of the block's
+    `pipes` pipelines. "mono2"'s gather moves rows inside a stage: both
+    variants take the same."""
+    return (depth * 2 * _stage_bytes(P, C, gmap_dtype, ring_dtype, cap, 2)
+            + pipes * 4 * _slot_bytes(P, cap))
+
+
+def mono2_plan(P: int, C: int, gmap_dtype, ring_dtype):
+    """(cap, depth, pipelines a block) of corr_mono2, one block of 512
+    threads an SM: bf16 patch features on int8 rings take two pipelines of
+    one stage each where windows of MONO2_PIPES_CAP vectors fit them; every
+    other pair one pipeline with windows as large as one stage allows (at
+    most LEVEL_WINDOW_CAP, whole m-tiles for bf16 patch features), then two
+    stages where they fit. Raises ValueError on what the kernel does not
+    take."""
+    stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
+    mma = gmap_dtype == torch.bfloat16
+    room = SMEM_MAX - _MONO2_STATIC
+
+    def smem(cap, depth, pipes):
+        return mono2_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, depth, pipes)
+
+    if mma and ring_dtype == torch.int8:
+        cap = _window_cap(lambda cap: smem(cap, 2, 2) <= room, True)
+        if cap >= MONO2_PIPES_CAP:
+            return cap, 2, 2
+    cap = _window_cap(lambda cap: smem(cap, 1, 1) <= room, mma) if stageable else 0
+    _check(smem(cap, 1, 1) <= room,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    return cap, 2 if smem(cap, 2, 1) <= room else 1, 1
+
+
+def mono2_run(E: int, device) -> int:
+    """Consecutive edges a corr_mono2 block walks: the E edges spread over
+    one round of blocks, one on every SM of `device`, in whole pairs."""
+    run = mono_run(E, device)
+    return run + run % 2
+
+
+def corr_mono2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                    scales=None, concat: bool = True) -> torch.Tensor:
+    """Launch csrc/corr_mono2.cu: both levels, a pair of edges a pipeline
+    step. `concat`: gather each pair's windows of a level into one run of
+    rows before its products (CORR_KERNEL="mono2"), or read them where the
+    copies landed ("mono4"). Arguments and result otherwise as
+    `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
+    P, C = _patch_shape(gmap)
+    cap, depth, pipes = mono2_plan(P, C, gmap.dtype, fmap1.dtype)
+    run = mono2_run(coords.shape[0], gmap.device) if gmap.is_cuda else 2
+    return _staged_call(
+        "corr_mono2",
+        mono2_smem_bytes(P, C, gmap.dtype, fmap1.dtype, cap, depth, pipes),
+        _MONO2_STATIC, cap, (int(concat), depth, pipes, run), gmap,
+        (fmap1, fmap2), coords, kk, jj, levels, scales)
+
+
+def mono2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_mono2's kernel that one SM of the current CUDA device
+    holds at a time at mono2_plan's sizes (shared memory and registers)."""
+    cap, depth, pipes = mono2_plan(P, C, gmap_dtype, ring_dtype)
+    return _occupancy("corr_mono2", _load().devo_corr_mono2_blocks_per_sm(
+        P * P, C, cap, depth, pipes, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8)))
 
 
 def mono3_smem_bytes(P: int, C: int, ring_dtype, cap: int, depth: int) -> int:
@@ -670,73 +754,98 @@ def corr_mono3_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
         levels, scales)
 
 
-def group_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
-    """Dynamic shared memory of a corr_group block: two parities of two
-    edges' f32 patch features and of their windows with padded vectors."""
-    return 4 * P * P * C * 4 + 4 * cap * _padded(C, ring_dtype)
+def group_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                     depth: int) -> int:
+    """Dynamic shared memory of a corr_group block (csrc/corr_group.cu on the
+    edge pipeline, two pipelines a block): `depth` stages, each the patch
+    feature and one level's window of `cap` vectors (_stage_bytes), then
+    two surface slots (one a pipeline)."""
+    return (depth * _stage_bytes(P, C, gmap_dtype, ring_dtype, cap, 1)
+            + 2 * _slot_bytes(P, cap))
 
 
-def group_cap(P: int, C: int, ring_dtype) -> int:
-    """Positions of corr_group's staged window, see `_fit_cap`; an edge whose
-    window has more keeps its taps in the surface instead."""
-    return _fit_cap(lambda cap: group_smem_bytes(P, C, ring_dtype, cap), C,
-                    ring_dtype, SMEM_MAX - _GROUP_STATIC)
+def group_plan(P: int, C: int, gmap_dtype, ring_dtype):
+    """(cap, depth, blocks an SM) of corr_group, whose block of 512 threads
+    holds two pipelines of edges: two blocks an SM where half its shared
+    memory holds a ring of two stages of full windows (LEVEL_WINDOW_CAP
+    vectors) or the ring stages nothing, else one block with windows as
+    large as two stages allow; then four stages where they fit that share.
+    Raises ValueError on what the kernel does not take."""
+    stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
+    mma = gmap_dtype == torch.bfloat16
 
+    def smem(cap, depth):
+        return group_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, depth)
 
-_SURFACE_STEP = 256           # groups by which the cached surface grows
-_surfaces = {}                # device -> the surface buffer of corr_group
-
-
-def _surface(groups: int, device) -> torch.Tensor:
-    """The first `groups` groups of the device's surface buffer, which is
-    allocated once per size (rounded up to _SURFACE_STEP groups) and reused
-    by every later call on the same stream order."""
-    buf = _surfaces.get(device)
-    if buf is None or buf.shape[0] < groups:
-        n = -(-groups // _SURFACE_STEP) * _SURFACE_STEP
-        _surfaces[device] = None               # release before allocating
-        buf = torch.empty((n, plain.GROUP_ROWS, plain.GROUP_EDGES
-                           * plain.GROUP_LANES), dtype=torch.bfloat16,
-                          device=device)
-        _surfaces[device] = buf
-    return buf[:groups]
-
-
-def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
-    """Launch csrc/corr_group.cu, stage 1 of the grouped correlation of one
-    level. Arguments as `corr_level_cuda` (the scale is checked and left to
-    stage 2). Returns (surface, cap): the raw product surface
-    (ceil(E / 8), GROUP_ROWS, 128) bf16, a view of a buffer that the next
-    call overwrites, and the window capacity it was written with; the plain
-    version is ops/corr.group_surface."""
-    E, P, C, i8 = _check_call(gmap, (fmap,), (scale,), coords, kk, jj)
-    _check(P * P <= 16, f"P={P}: the kernel's index table holds 16 pixels")
-    _check(gmap.data_ptr() % 16 == 0, "gmap is not 16-byte aligned")
-    cap = group_cap(P, C, fmap.dtype)
-    _check(group_smem_bytes(P, C, fmap.dtype, cap) <= SMEM_MAX - _GROUP_STATIC,
+    for blocks in (2, 1):
+        room = (_SMEM_SM // 2 - _SMEM_RESERVED if blocks == 2
+                else SMEM_MAX) - _MONO_STATIC
+        cap = (_window_cap(lambda cap: smem(cap, 2) <= room, mma)
+               if stageable else 0)
+        if cap == (LEVEL_WINDOW_CAP if stageable else 0):
+            break
+    _check(smem(cap, 2) <= room,
            f"P={P}, C={C} needs more shared memory than a block can have")
-    surface = _surface(-(-E // plain.GROUP_EDGES), gmap.device)
-    if E == 0:
-        return surface, cap
-    lib = _load()
-    code = lib.devo_corr_group(
-        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
-        jj.data_ptr(), surface.data_ptr(), E, P * P, C, fmap.shape[1],
-        fmap.shape[2], cap, plain.GROUP_ROWS,
-        int(gmap.dtype == torch.bfloat16), int(i8),
-        torch.cuda.current_stream(gmap.device).cuda_stream)
-    _launched("corr_group", code)
-    return surface, cap
+    depth = 4 if smem(cap, 4) <= room else 2
+    return cap, depth, blocks
+
+
+def group_run(E: int, device, blocks: int) -> int:
+    """Consecutive edges a corr_group block walks: the E edges spread over
+    one round of blocks, `blocks` on every SM of `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, -(-E // (sms * blocks)))
 
 
 def corr_group_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
-    """One pyramid level through the bf16 product surface: csrc/corr_group.cu
-    (stage 1) and ops/corr.extract_blend_group (stage 2, plain tensor code on
-    the device). Arguments and result as `corr_level_cuda`; the plain version
-    is ops/corr.corr_level_group."""
-    surface, cap = group_surface_cuda(gmap, fmap, coords, kk, jj, scale)
-    return plain.extract_blend_group(surface, coords, jj, fmap.shape[1:3],
-                                     scale, cap)
+    """Launch csrc/corr_group.cu, one pyramid level through the bf16 product
+    surface in one launch (CORR_KERNEL="g8c"): every tap rounded once to
+    bf16 before the ring slot's scale and the blend. Arguments and result as
+    `corr_level_cuda`; the plain version is ops/corr.corr_level_group."""
+    P, C = _patch_shape(gmap)
+    cap, depth, blocks = group_plan(P, C, gmap.dtype, fmap.dtype)
+    run = group_run(coords.shape[0], gmap.device, blocks) if gmap.is_cuda else 1
+    return _staged_call(
+        "corr_group", group_smem_bytes(P, C, gmap.dtype, fmap.dtype, cap, depth),
+        _MONO_STATIC, cap, (depth, run), gmap, (fmap,), coords, kk, jj, (1,),
+        (scale,))
+
+
+def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
+    """Launch the surface instance of csrc/corr_group.cu, which writes the
+    TPU kernel's own output and which no engine path launches. Arguments as
+    `corr_group_cuda` (the scale is checked and not applied). Returns
+    (surface, cap): the raw product surface (ceil(E / 8), GROUP_ROWS, 128)
+    bf16, zero where the kernel writes nothing, and the window capacity it
+    was written with; the plain version is ops/corr.group_surface(..., cap)
+    on the rows the kernel writes (an edge's window positions, or its 64
+    taps where the window exceeds cap)."""
+    E, P, C, i8 = _check_call(gmap, (fmap,), (scale,), coords, kk, jj)
+    _check(gmap.data_ptr() % 16 == 0, "gmap is not 16-byte aligned")
+    cap, depth, blocks = group_plan(P, C, gmap.dtype, fmap.dtype)
+    surface = torch.zeros((-(-E // plain.GROUP_EDGES), plain.GROUP_ROWS,
+                           plain.GROUP_EDGES * plain.GROUP_LANES),
+                          dtype=torch.bfloat16, device=gmap.device)
+    if E == 0:
+        return surface, cap
+    lib = _load()
+    code = lib.devo_corr_group_surface(
+        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
+        jj.data_ptr(), surface.data_ptr(), E, P * P, C, fmap.shape[1],
+        fmap.shape[2], cap, plain.GROUP_ROWS, int(gmap.dtype == torch.bfloat16),
+        int(i8), depth, group_run(E, gmap.device, blocks),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched("corr_group_surface", code)
+    return surface, cap
+
+
+def group_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_group's kernel that one SM of the current CUDA device
+    holds at a time at group_plan's sizes (shared memory and registers)."""
+    cap, depth, _ = group_plan(P, C, gmap_dtype, ring_dtype)
+    return _occupancy("corr_group", _load().devo_corr_group_blocks_per_sm(
+        P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8)))
 
 
 def resident_smem_bytes(h: int, w: int, C: int, P: int) -> int:
@@ -833,12 +942,8 @@ def fixed_plan(P: int, C: int, dtype):
 def fixed_blocks_per_sm(P: int, C: int, dtype) -> int:
     """Blocks of corr_fixed's kernel that one SM of the current CUDA device
     holds at a time (shared memory and registers)."""
-    occ = _load().devo_corr_fixed_blocks_per_sm(P * P, C,
-                                                int(dtype == torch.bfloat16))
-    if occ < 0:
-        raise RuntimeError("corr_fixed occupancy query failed: "
-                           f"{_lib.devo_cuda_error_string(-occ).decode()}")
-    return occ
+    return _occupancy("corr_fixed", _load().devo_corr_fixed_blocks_per_sm(
+        P * P, C, int(dtype == torch.bfloat16)))
 
 
 def corr_fixed_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:

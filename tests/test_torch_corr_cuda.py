@@ -453,8 +453,8 @@ def _group_tolerances(args):
 @pytest.mark.parametrize("E", [0, 1, 96, 99, 5003])
 @pytest.mark.parametrize("level", [0, 1])
 def test_group_kernel_matches_its_plain_version(dev, dtype, E, level):
-    """corr_group (the surface kernel and the shared stage 2) against
-    corr_level_group, which rounds its products to bf16 at the same place,
+    """corr_group (one launch: the products, their rounding to bf16 and the
+    blend) against corr_level_group, which rounds at the same place,
     and against corr_level within the bf16 budget; E = 99 leaves the last
     group with three edges."""
     args = _level(_case(dev, dtype, E=E), level)
@@ -550,20 +550,105 @@ def test_new_per_level_kernels_with_the_resident_level(dev, kernel):
         torch.testing.assert_close(got, want, **TOL)
 
 
-def test_group_surface_buffer_is_reused(dev):
-    """The surface is allocated once per size and overwritten by the next
-    call: two calls of one size share its memory, and the result of the
-    first does not change under the second."""
-    a = _level(_case(dev, "i8", E=300, seed=1), 0)
-    b = _level(_case(dev, "i8", E=290, seed=2), 0)
-    first = corr_cuda.corr_group_cuda(*a)
-    kept = first.clone()
-    s1, _ = corr_cuda.group_surface_cuda(*a)
-    s2, _ = corr_cuda.group_surface_cuda(*b)
-    assert s1.data_ptr() == s2.data_ptr()
-    corr_cuda.corr_group_cuda(*b)
+def _surface_rows(coords, cap):
+    """(ceil(E / 8), GROUP_ROWS, 128) bool: the rows and lanes that
+    corr_group's surface instance writes (an edge's window positions, or its
+    64 taps where the window exceeds cap; lanes 16 j .. 16 j + 15)."""
+    _, y0, _, _, ww, wide = corr_plain._group_index(coords, cap)
+    wh = y0.amax(1, keepdim=True) - y0.amin(1, keepdim=True) + 8
+    n_rows = torch.where(wide, torch.full_like(ww, 64), ww * wh)[:, 0]
+    E = coords.shape[0]
+    G = -(-E // 8)
+    rows = torch.arange(corr_plain.GROUP_ROWS, device=coords.device)
+    mask = torch.zeros((G * 8, corr_plain.GROUP_ROWS), dtype=torch.bool,
+                       device=coords.device)
+    mask[:E] = rows[None, :] < n_rows[:, None]
+    return (mask.reshape(G, 8, -1, 1).expand(G, 8, corr_plain.GROUP_ROWS, 16)
+            .transpose(1, 2).reshape(G, corr_plain.GROUP_ROWS, 128))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "i8", "f32"])
+@pytest.mark.parametrize("E", [0, 99, 5003])
+@pytest.mark.parametrize("jitter", [0.0, 3.0])
+def test_group_surface_instance_matches_group_surface(dev, dtype, E, jitter):
+    """The surface instance writes the TPU kernel's own output: on the rows
+    and lanes it writes, ops/corr.group_surface at the same cap within one
+    bf16 ulp (a sum in another order may round the other way), zero
+    elsewhere; one launch of its own counter and none of corr_group's."""
+    args = _level(_case(dev, dtype, E=E, jitter=jitter), 0)
+    before = dict(corr_cuda.launches)
+    surface, cap = corr_cuda.group_surface_cuda(*args)
     torch.cuda.synchronize()
-    assert torch.equal(first, kept)
+    assert corr_cuda.launches == {
+        **before, "corr_group_surface": before["corr_group_surface"] + (E > 0)}
+    want = corr_plain.group_surface(*args[:5], cap=cap)
+    assert surface.shape == want.shape and surface.dtype == torch.bfloat16
+    if E == 0:
+        return
+    mask = _surface_rows(args[2], cap)
+    got, ref = surface.float(), want.float()
+    assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
+    top = ref[mask].abs().max().item()
+    torch.testing.assert_close(got[mask], ref[mask], atol=2.0 ** -7 * top,
+                               rtol=0)
+    assert (got[mask] == ref[mask]).float().mean().item() > 0.98
+
+
+def test_group_kernel_is_one_launch_without_stage_2(dev):
+    """CORR_KERNEL="g8c" on the card: one launch a level, and the tensor-code
+    stage 2 (ops/corr.extract_blend_group) is never called."""
+    *args, scales = _case(dev, "i8", E=300)
+    corr_cuda.reset_launches()
+    calls = corr_plain.extract_calls
+    corr_cuda.corr_pyramid(*args, scales=scales, kernel="g8c")
+    assert {k: v for k, v in corr_cuda.launches.items() if v} == {
+        "corr_group": 2}
+    assert corr_plain.extract_calls == calls
+
+
+@pytest.mark.parametrize("kernel", ["g8c", "mono2", "mono4"])
+@pytest.mark.parametrize("dtype", ["bf16", "i8", "f32"])
+def test_pipeline_kernels_two_launches_are_bitwise_equal(dev, kernel, dtype):
+    """corr_group and corr_mono2 sum in a fixed order: the same inputs give
+    the same bits, staged windows and ring reads (jitter 1 px) in one
+    launch."""
+    *args, scales = _case(dev, dtype, E=5003, mem=8, jitter=1.0)
+    first = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    second = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    assert torch.equal(first, second)
+
+
+@DTYPES
+@pytest.mark.parametrize("E", [2, 131, 265, 12289])
+def test_mono2_kernel_runs_of_pairs(dev, dtype, E):
+    """corr_mono2's blocks walk runs of mono2_run's length (whole pairs)
+    over its pipelines: fewer pairs than blocks, just more, and a run cut
+    short by E; gathered and in place."""
+    *args, scales = _case(dev, dtype, E=E, mem=8)
+    run = corr_cuda.mono2_run(E, dev)
+    assert run % 2 == 0 and run * -(-E // run) >= E
+    want = corr_plain.corr_pyramid(*args, scales=scales)
+    for kernel in ("mono2", "mono4"):
+        got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def test_pipeline_plans_match_the_kernels(dev):
+    """corr_group's and corr_mono2's shared-memory sums are the kernels'
+    own, and one SM holds as many blocks as the plans count on."""
+    lib = corr_cuda._load()
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    for gdt, rdt in ((bf, bf), (bf, i8), (f32, f32), (f32, i8)):
+        flags = (int(gdt == bf), int(rdt == i8))
+        for C in (8, 32, 128):
+            cap, depth, blocks = corr_cuda.group_plan(3, C, gdt, rdt)
+            assert lib.devo_corr_group_smem(9, C, cap, depth, *flags) == (
+                corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.group_blocks_per_sm(3, C, gdt, rdt) >= blocks
+            cap, depth, pipes = corr_cuda.mono2_plan(3, C, gdt, rdt)
+            assert lib.devo_corr_mono2_smem(9, C, cap, depth, pipes, *flags) == (
+                corr_cuda.mono2_smem_bytes(3, C, gdt, rdt, cap, depth, pipes))
+            assert corr_cuda.mono2_blocks_per_sm(3, C, gdt, rdt) >= 1
 
 
 def test_new_kernels_occupancy_and_plans(dev):

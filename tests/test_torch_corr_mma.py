@@ -1,18 +1,22 @@
 """The shared-memory plans of the tensor-core correlation kernels
-(csrc/corr.cu, csrc/corr_fixed.cu, csrc/corr_mma.cuh) and the arithmetic of
-their fragments, on the CPU.
+(csrc/corr.cu, csrc/corr_group.cu, csrc/corr_mono2.cu on the edge pipeline
+of csrc/corr_pipe.cuh, csrc/corr_fixed.cu, csrc/corr_mma.cuh) and the
+arithmetic of their fragments, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_corr_cuda.py).
-Here: ops/corr_cuda.mono_plan and fixed_plan / fixed_smem_bytes fit a
-block's shared memory with the stages and blocks the designs need, and
-refuse what the kernels do not take; the channel order that corr_mma.cuh
-gives the mma fragments computes the plain product; its int8 -> bf16
-conversion is exact for every int8 value.
+Here: ops/corr_cuda.mono_plan, group_plan, mono2_plan and fixed_plan /
+fixed_smem_bytes fit a block's shared memory with the stages, pipelines and
+blocks the designs need, and refuse what the kernels do not take; the
+channel order that corr_mma.cuh gives the mma fragments computes the plain
+product; its int8 -> bf16 conversion is exact for every int8 value; the
+order of corr_group's taps (round to bf16, then scale, then blend) is
+corr_level_group's.
 """
 import numpy as np
 import pytest
 import torch
 
+from devo_tpu_torch.ops import corr as corr_plain
 from devo_tpu_torch.ops import corr_cuda
 
 BF, I8, F32 = torch.bfloat16, torch.int8, torch.float32
@@ -20,6 +24,8 @@ BF, I8, F32 = torch.bfloat16, torch.int8, torch.float32
 # MIXED_PRECISION with bf16 or int8 rings, and f32 with f32 or int8 rings
 PAIRS = [(BF, BF), (BF, I8), (F32, F32), (F32, I8)]
 SMEM_MAX = 232_448
+SMEM_SM = 233_472             # an SM's shared memory, 1,024 bytes a block
+                              #   reserved
 
 
 @pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)
@@ -76,16 +82,79 @@ def test_fixed_plan_fits_a_block(dtype, C):
         assert smem == (9 * C + (384 + 64) * 9) * 4
 
 
-@pytest.mark.parametrize("plan", ["mono", "fixed"])
+@pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)
+@pytest.mark.parametrize("C", [8, 32, 128])
+def test_group_plan_fits_a_block(gmap_dtype, ring_dtype, C):
+    """corr_group at P = 3 (one level, two pipelines a block): every pair
+    fits its share of an SM with its static tables, two blocks an SM where a
+    ring of two stages of full windows fits half an SM, four stages where
+    they fit; bf16 patch features take full windows, two blocks an SM."""
+    cap, depth, blocks = corr_cuda.group_plan(3, C, gmap_dtype, ring_dtype)
+    share = SMEM_MAX if blocks == 1 else SMEM_SM // 2 - 1024
+
+    def smem(depth):
+        return (corr_cuda.group_smem_bytes(3, C, gmap_dtype, ring_dtype, cap,
+                                           depth) + corr_cuda._MONO_STATIC)
+
+    assert smem(depth) <= share and depth in (2, 4) and blocks in (1, 2)
+    assert depth == 4 or smem(4) > share
+    if gmap_dtype == BF:
+        assert (cap, blocks) == (corr_cuda.LEVEL_WINDOW_CAP, 2)
+    if blocks == 1:
+        assert cap > 0
+
+
+@pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)
+@pytest.mark.parametrize("C", [8, 32, 128])
+def test_mono2_plan_fits_a_block(gmap_dtype, ring_dtype, C):
+    """corr_mono2 at P = 3 (a pair of edges a step, one block an SM): every
+    pair fits a block with its static tables; two pipelines of one stage
+    each for bf16 patch features on int8 rings alone, with windows of at
+    least MONO2_PIPES_CAP vectors; otherwise one pipeline of one or two
+    stages, two where they fit; bf16 patch features stage whole m-tiles."""
+    cap, depth, pipes = corr_cuda.mono2_plan(3, C, gmap_dtype, ring_dtype)
+
+    def smem(depth):
+        return (corr_cuda.mono2_smem_bytes(3, C, gmap_dtype, ring_dtype, cap,
+                                           depth, pipes)
+                + corr_cuda._MONO2_STATIC)
+
+    assert smem(depth) <= SMEM_MAX and depth % pipes == 0 and 1 <= depth <= 2
+    assert (pipes == 2) == (gmap_dtype == BF and ring_dtype == I8)
+    assert pipes == 2 or depth == 2 or smem(2) > SMEM_MAX
+    if gmap_dtype == BF:
+        assert cap % 16 == 0 and cap >= corr_cuda.MONO2_PIPES_CAP
+
+
+def test_pipeline_plans_at_the_model_width():
+    """C = 128: corr_group two blocks of two stages of full windows an SM on
+    int8 and bf16 rings; corr_mono2 two pipelines of windows of 128 vectors
+    on int8 rings, one pipeline of one stage of full windows on bf16; f32
+    patch features on an int8 ring of 8-byte vectors stage nothing."""
+    assert corr_cuda.group_plan(3, 128, BF, I8) == (144, 2, 2)
+    assert corr_cuda.group_plan(3, 128, BF, BF) == (144, 2, 2)
+    assert corr_cuda.mono2_plan(3, 128, BF, I8) == (128, 2, 2)
+    assert corr_cuda.mono2_plan(3, 128, BF, BF) == (144, 1, 1)
+    assert corr_cuda.group_plan(3, 8, F32, I8)[0] == 0
+    assert corr_cuda.mono2_plan(3, 8, F32, I8)[0] == 0
+    # the stage of a pair: two patch rows of 160 channels, four windows
+    assert corr_cuda.mono2_smem_bytes(3, 128, BF, I8, 128, 1, 1) == (
+        2 * (9 * 160 * 2 + 2 * 128 * 160) + 4 * 128 * 10 * 4)
+
+
+PLANS = {"mono": lambda P, C: corr_cuda.mono_plan(P, C, BF, I8),
+         "group": lambda P, C: corr_cuda.group_plan(P, C, BF, I8),
+         "mono2": lambda P, C: corr_cuda.mono2_plan(P, C, BF, I8),
+         "fixed": lambda P, C: corr_cuda.fixed_plan(P, C, BF)}
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
 @pytest.mark.parametrize("P,C", [(5, 128), (3, 126), (3, 10)])
 def test_plans_refuse_what_the_kernels_do_not_take(plan, P, C):
     """P*P above 16 pixels (the kernels' index tables and two n-tiles), and
     a C that is no multiple of 4 (the kernels' 4-element loads)."""
     with pytest.raises(ValueError, match="corr kernel"):
-        if plan == "mono":
-            corr_cuda.mono_plan(P, C, BF, I8)
-        else:
-            corr_cuda.fixed_plan(P, C, BF)
+        PLANS[plan](P, C)
 
 
 def test_mma_stride_keeps_rows_an_odd_number_of_chunks_apart():
@@ -163,3 +232,73 @@ def test_int8_to_bf16_conversion_is_exact():
             assert lo == v and hi == values[(n * 37) % 256]
             assert packed & 0xFFFF == want[n]
             assert packed >> 16 == want[(n * 37) % 256]
+
+
+def _bf16_rne(x):
+    """f32 -> bf16 -> f32, round to nearest even (as __float2bfloat16_rn)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _blend(taps, fx, fy):
+    """extract_blend_group's blend of (E, PP, 8, 8) taps, in its order and in
+    f32, as (E, 49*PP) in [dx, dy, pixel] order."""
+    fx, fy = fx[:, :, None, None], fy[:, :, None, None]
+    one = np.float32(1)
+    out = ((one - fx) * (one - fy) * taps[:, :, :7, :7]
+           + fx * (one - fy) * taps[:, :, :7, 1:]
+           + (one - fx) * fy * taps[:, :, 1:, :7]
+           + fx * fy * taps[:, :, 1:, 1:])
+    return out.transpose(0, 3, 2, 1).reshape(len(taps), -1)
+
+
+def test_group_tap_order_is_corr_level_group():
+    """corr_group's order, restated in numpy: each integer tap's f32 sum
+    rounded once to bf16, then off-image taps zeroed, then the ring slot's
+    scale, then the blend. On an int8 ring with integer patch features every
+    sum is exact in f32 in any order, so this reproduces corr_level_group
+    bit for bit; scaling before the rounding gives other numbers, on random
+    inputs and on a crafted tap (257 rounds to 256 before a scale of 1/3,
+    and 257/3 to 85.5 after it), so the order is pinned."""
+    rng = np.random.default_rng(3)
+    E, C, mem, H, W = 24, 32, 3, 12, 14
+    g = rng.integers(-8, 9, (6, 3, 3, C)).astype(np.float32)
+    ring = rng.integers(-127, 128, (mem, H, W, C)).astype(np.int8)
+    scale = rng.uniform(0.01, 0.1, mem).astype(np.float32)
+    cx = rng.uniform(-2, W + 1, (E, 1, 1))
+    cy = rng.uniform(-2, H + 1, (E, 1, 1))
+    off = np.arange(3) - 1.0
+    coords = np.stack([np.broadcast_to(cx + off[None, None, :], (E, 3, 3)),
+                       np.broadcast_to(cy + off[None, :, None], (E, 3, 3))],
+                      -1) + 0.2 * rng.standard_normal((E, 3, 3, 2))
+    coords = coords.astype(np.float32)
+    kk = rng.integers(0, 6, E).astype(np.int32)
+    jj = rng.integers(0, mem, E).astype(np.int32)
+    want = corr_plain.corr_level_group(
+        torch.from_numpy(g).to(torch.bfloat16), torch.from_numpy(ring),
+        torch.from_numpy(coords), torch.from_numpy(kk), torch.from_numpy(jj),
+        torch.from_numpy(scale)).numpy()
+
+    x = coords[..., 0].reshape(E, 9)
+    y = coords[..., 1].reshape(E, 9)
+    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    d = np.arange(8) - 3
+    iy = y0[:, :, None, None] + d[:, None]                  # (E, 9, 8, 1)
+    ix = x0[:, :, None, None] + d[None, :]                  # (E, 9, 1, 8)
+    iy, ix = np.broadcast_arrays(iy, ix)
+    inb = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+    vec = ring[jj[:, None, None, None], iy.clip(0, H - 1), ix.clip(0, W - 1)]
+    patch = g[kk].reshape(E, 9, 1, 1, C)
+    sums = (patch.astype(np.int64) * vec.astype(np.int64)).sum(-1)
+    sums = sums.astype(np.float32)                          # exact: |sum| < 2^24
+    q = scale[jj][:, None, None, None]
+    fx = (x - np.floor(x)).astype(np.float32)
+    fy = (y - np.floor(y)).astype(np.float32)
+    zero = np.float32(0)
+    got = _blend(np.where(inb, _bf16_rne(sums), zero) * q, fx, fy)
+    np.testing.assert_array_equal(got, want)
+    other = _blend(np.where(inb, _bf16_rne(sums * q), zero), fx, fy)
+    assert not np.array_equal(other, want)
+    third = np.float32(1) / np.float32(3)
+    assert _bf16_rne(np.float32(257)) * third != _bf16_rne(np.float32(257) * third)

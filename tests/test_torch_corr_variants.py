@@ -258,17 +258,21 @@ def test_new_kernels_shared_memory_plans():
     assert cc.level_pipe_cap(3, 128, bf, i8) == cc.level_pipe_cap(3, 128, bf, bf) == 144
     assert cc.level_pipe_cap(3, 128, f32, f32) == 144
     assert cc.level_pipe_cap(3, 8, bf, i8) == 0
-    # corr_mono2: two edges' patch features and taps, four windows, six
-    # with the gathered pair
-    assert cc.mono2_smem_bytes(3, 128, i8, 144, False) == 18_432 + 4 * 18_432
-    assert cc.mono2_smem_bytes(3, 128, i8, 144, True) == 18_432 + 6 * 18_432
-    assert cc.mono2_cap(3, 128, i8, True) == cc.mono2_cap(3, 128, bf, False) == 144
-    assert 128 <= cc.mono2_cap(3, 128, bf, True) < 144
-    assert 64 <= cc.mono2_cap(3, 128, f32, True) < cc.mono2_cap(3, 128, f32, False) < 144
-    for ring, concat in ((bf, True), (f32, True), (f32, False)):
-        assert cc.mono2_smem_bytes(3, 128, ring, cc.mono2_cap(3, 128, ring, concat),
-                                   concat) <= room - 4096
-    assert cc.mono2_cap(3, 12, bf, True) == 0
+    # corr_mono2 (the edge pipeline, a pair a step): int8 rings two
+    # pipelines of one stage, each stage two edges' bf16 patch rows (9 x 160
+    # channels) and four windows of 128 rows of 160 bytes, and four f32
+    # surface slots (128 rows of 10) a pipeline; bf16 rings one pipeline of
+    # one stage of full windows; gathered and in place take the same
+    assert cc.mono2_smem_bytes(3, 128, bf, i8, 128, 2, 2) == (
+        2 * 2 * (2880 + 2 * 128 * 160) + 2 * 4 * 128 * 10 * 4)
+    assert cc.mono2_plan(3, 128, bf, i8) == (128, 2, 2)
+    assert cc.mono2_plan(3, 128, bf, bf) == (144, 1, 1)
+    cap, depth, pipes = cc.mono2_plan(3, 128, f32, f32)
+    assert pipes == 1 and 64 <= cap < 144
+    for ring in (i8, bf):
+        cap, depth, pipes = cc.mono2_plan(3, 128, bf, ring)
+        assert cc.mono2_smem_bytes(3, 128, bf, ring, cap, depth, pipes) <= room - 5120
+    assert cc.mono2_plan(3, 8, f32, i8)[0] == 0
     # corr_mono3: two slots of patch feature, scratch and tap buffer, and a
     # ring of padded windows as deep as fits
     assert cc.mono3_smem_bytes(3, 128, i8, 144, 4) == (
@@ -282,9 +286,12 @@ def test_new_kernels_shared_memory_plans():
         assert cc.mono3_smem_bytes(3, 128, ring, cap, depth) <= room - 6144
         assert cc.mono3_smem_bytes(3, 128, ring, cap, depth + 1) > room - 6144
     assert cc.mono3_plan(3, 8, i8) == (0, cc.MONO3_MAX_DEPTH)
-    # corr_group: two parities of two edges' patch features and windows
-    assert cc.group_smem_bytes(3, 128, i8, 144) == 18_432 + 4 * 144 * 144
-    assert cc.group_smem_bytes(3, 128, bf, 144) == 18_432 + 4 * 144 * 272
-    assert cc.group_cap(3, 128, i8) == cc.group_cap(3, 128, bf) == 144
-    assert 64 <= cc.group_cap(3, 128, f32) < 144
-    assert cc.group_cap(3, 8, i8) == 0
+    # corr_group (the edge pipeline, one level): two blocks an SM with
+    # rings of two stages of full windows on int8 and bf16 rings, each stage
+    # the bf16 patch rows and one window, two f32 surface slots a block
+    assert cc.group_smem_bytes(3, 128, bf, i8, 144, 2) == (
+        2 * (2880 + 144 * 160) + 2 * 144 * 10 * 4)
+    assert cc.group_plan(3, 128, bf, i8) == (144, 2, 2)
+    assert cc.group_plan(3, 128, bf, bf) == (144, 2, 2)
+    assert cc.group_plan(3, 128, f32, f32) == (144, 2, 1)
+    assert cc.group_plan(3, 8, f32, i8)[0] == 0
