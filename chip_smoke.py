@@ -7,19 +7,20 @@
 2. Builds the correlation kernels (csrc/*.cu for sm_90a, one nvcc process a
    file, all at once, then one link) into devo_tpu_torch/_build/ and prints
    ptxas's register report.
-3. Kernel phase: every kernel against its plain PyTorch version on the card,
-   at the tracking step's shapes (E = 12288 edges, E = 96 for the motion
-   probe, a ragged odd E = 5003, E = 0; C = 128, mem = 32, rings of 120x160
-   and 30x40, coordinates partly off the image): the six two-level kernels
-   (corr_pyramid, corr_pair, corr_pair2, corr_mono2 with and without its
-   gathering copy, corr_mono3) on bf16 and on int8 rings, the per-level
-   kernels (corr_level, corr_level_pipe, corr_group) on both levels and
-   both ring types, the resident level-4 kernel on int8 rings, and the
-   per-level kernels that take float rings only (corr_fixed for
-   CORR_IMPL="pallas", corr_group8 for "g8", corr_level_full for "full") on
-   both levels, on bf16 and f32 rings; corr_level_full's stage instances
-   (no extraction, no product, no copy) against their plain versions and
-   timed beside it at E = 12288; every kernel
+3. Kernel phase: every kernel against its plain PyTorch version on the
+   card, at the tracking step's shapes (E = 12288 edges, E = 96 for the
+   motion probe, a ragged odd E = 5003, E = 0; C = 128, mem = 32, rings of
+   120x160 and 30x40, coordinates partly off the image): the six two-level
+   kernels (corr_pyramid, corr_pair, corr_pair2, corr_mono2 with and
+   without its gathering copy, corr_mono3) on bf16 and on int8 rings
+   (corr_pyramid, corr_pair2 and corr_mono3 also on f32 patch features and
+   rings), the per-level kernels (corr_level, corr_level_pipe, corr_group)
+   on both levels and both ring types, the resident level-4 kernel on int8
+   rings, and the per-level kernels that take float rings only (corr_fixed
+   for CORR_IMPL="pallas", corr_group8 for "g8", corr_level_full for
+   "full") on both levels, on bf16 and f32 rings; corr_level_full's stage
+   instances (no extraction, no product, no copy) against their plain
+   versions and timed beside it at E = 12288; every kernel
    choice of the entry point against corr_pyramid's kernel (both must floor
    the same coordinates); the kernels with staged windows at a narrow width
    (C = 8) whose int8 feature vectors are too short for the 16-byte copies,
@@ -38,17 +39,26 @@
    and the output, each once) over 3.35 TB/s and its operations over 989
    TFLOP/s (67 TFLOP/s, the f32 rate outside the tensor cores, on f32
    rings). The plans of the tensor-core kernels (corr_pyramid, corr_group,
-   corr_mono2, corr_fixed): windows, stages, pipelines and blocks an SM,
-   planned and by the occupancy query.
-   With --parent DIR, a directory holding the parent commit's corr.cu,
-   corr_group.cu, corr_mono2.cu, corr_common.cuh and corr_mma.cuh (from
-   `git archive` of the parent), those are built into a library of their
-   own and the kernels redesigned since are timed against them at
-   E = 12288 on int8 and bf16 rings in turns (parent, this tree, this tree,
-   parent): corr_group at both levels as the engine ran it (the parent's
-   kernel and its tensor-code stage 2 against one launch), corr_mono2
-   gathered and in place, and corr_pyramid, whose output must be the
-   parent's bit for bit; each pair held to each other first.
+   corr_mono2, corr_mono3, corr_pair2, corr_fixed): windows, stages,
+   pipelines and blocks an SM, planned and by the occupancy query. The
+   three structures of the edge pipeline that compute corr_pyramid's
+   function (K1: two pipelines, two barriers a step; K4'' corr_mono3: one
+   pipeline of 512 threads, one barrier a step; K2'' corr_pair2: persistent
+   blocks of 256 threads, one barrier a step) by their C interfaces in
+   turns at E = 12288 on int8 and bf16 rings, corr_pair2 also at two
+   blocks an SM with smaller windows, and again on patches put back on an
+   exact grid, whose windows all fit those.
+   With --parent DIR, a directory holding the parent commit's files of
+   PARENT_SOURCES (corr.cu, corr_group.cu, corr_mono2.cu, corr_mono3.cu,
+   corr_pair2.cu and the headers corr_pipe.cuh, corr_common.cuh,
+   corr_mma.cuh, from `git archive` of the parent), those are built into a
+   library of their own and timed against this tree's at E = 12288 on int8
+   and bf16 rings in turns (parent, this tree, this tree, parent), each by
+   its C interface: corr_mono3 and corr_pair2, redesigned since, each at its
+   own plan and held to each other within TOL; corr_pyramid, corr_group at
+   both levels and corr_mono2 gathered and in place, which share the edge
+   pipeline with them, at this tree's plans, whose output must be the
+   parent's bit for bit.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound: the banded window ablation (corr_band_ablate, E = 15360 of
@@ -407,6 +417,14 @@ def variants(case):
                         lambda r=pyr[n], c=c, s=ss[n]: plain.corr_level_group(
                             gmap, r, c, kk, jj, s),
                         ((pyr[n],), (lvl,), (ss[n],))))
+    # the two one-barrier instances of the edge pipeline also on f32 patch
+    # features and rings
+    for name, fn in (("corr_pair2", cc.corr_pair2_cuda),
+                     ("corr_mono3", cc.corr_mono3_cuda)):
+        out.append((name, "both levels f32",
+                    lambda fn=fn: fn(gmap.float(), f32[0], f32[1], coords, kk, jj),
+                    lambda: plain.corr_pyramid(gmap.float(), f32, coords, kk, jj),
+                    (f32, (1, 4), (None, None))))
     out.append(("corr_level_resident", "level 4 i8",
                 lambda: cc.corr_level_resident_cuda(gmap, i8[1], c4, kk, jj, sc[1]),
                 lambda: plain.corr_level(gmap, i8[1], c4, kk, jj, sc[1]),
@@ -535,17 +553,25 @@ def kernel_phase(dev, gpu: str):
         if E == E_MAIN:
             group_surface_phase(case, gpu, record)
             full_stages(case, gpu, record)
+            structures_phase(case, gpu, record)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for ring in (torch.bfloat16, torch.int8):
-        blocks = cc.pair2_blocks_per_sm(3, 128, torch.bfloat16, ring)
-        print(f"corr_pair2 [{ring} rings, C=128]: {blocks} block(s) of 384 "
-              f"threads per SM [{gpu}]", flush=True)
+        cap, depth, blocks = cc.pair2_plan(3, 128, torch.bfloat16, ring)
+        queried = cc.pair2_blocks_per_sm(3, 128, torch.bfloat16, ring)
+        print(f"corr_pair2 [{ring} rings, C=128]: windows of {cap} vectors, "
+              f"{depth} stages, {blocks} block(s) of 256 threads per SM planned "
+              f"({queried} by the occupancy query), a persistent grid of "
+              f"{cc.pair2_grid(E_MAIN, sms, queried)} blocks at E={E_MAIN} "
+              f"[{gpu}]", flush=True)
         blocks = cc.level_pipe_blocks_per_sm(3, 128, torch.bfloat16, ring)
         print(f"corr_level_pipe [{ring} rings, C=128]: {blocks} block(s) of "
               f"192 threads per SM [{gpu}]", flush=True)
-        cap, depth = cc.mono3_plan(3, 128, ring)
+        cap, depth = cc.mono3_plan(3, 128, torch.bfloat16, ring)
         print(f"corr_mono3 [{ring} rings, C=128]: windows of {cap} vectors, a "
-              f"ring of {depth} stages, runs of {cc.mono3_run(E_MAIN, dev)} "
-              f"edges at E={E_MAIN} [{gpu}]", flush=True)
+              f"ring of {depth} stages, 1 block of 512 threads per SM planned "
+              f"({cc.mono3_blocks_per_sm(3, 128, torch.bfloat16, ring)} by the "
+              f"occupancy query), runs of {cc.mono3_run(E_MAIN, sms)} edges at "
+              f"E={E_MAIN} [{gpu}]", flush=True)
         cap, depth, blocks = cc.mono_plan(3, 128, torch.bfloat16, ring)
         print(f"corr_pyramid [{ring} rings, C=128]: windows of {cap} vectors, "
               f"a ring of {depth} stages, {blocks} block(s) of 512 threads "
@@ -577,16 +603,119 @@ def kernel_phase(dev, gpu: str):
     return record
 
 
-# the kernels redesigned since the parent commit, and the sources a build of
-# the parent's versions takes from the directory given by --parent
-PARENT_SOURCES = ("corr.cu", "corr_group.cu", "corr_mono2.cu",
-                  "corr_common.cuh", "corr_mma.cuh")
+def c_two_level(lib, name, gmap, pyr, coords, kk, jj, scales, plan):
+    """One launch of the two-level kernel devo_<name> of `lib` (this tree's
+    library where None) by its C interface, without the wrapper's checks and
+    host work, so that two versions are timed alike: `plan` is (cap, the
+    integers after the type flags)."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    lib = lib or cc._load()
+    cap, extra = plan
+    E, C = coords.shape[0], gmap.shape[-1]
+    out = torch.empty((E, 2 * 49 * 9), dtype=torch.float32, device=gmap.device)
+    ss = scales or (None, None)
+    code = getattr(lib, "devo_" + name)(
+        gmap.data_ptr(), pyr[0].data_ptr(), pyr[1].data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ss), coords.data_ptr(),
+        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, pyr[0].shape[1],
+        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], cap, 1.0, 4.0,
+        int(gmap.dtype == torch.bfloat16), int(scales is not None), *extra,
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"{name} by its C interface: launch failed ({code})")
+    return out
+
+
+def tree_plan(name, gmap, ring, E, concat=True):
+    """(cap, integers after the type flags) of this tree's two-level kernel
+    devo_<name> as its wrapper launches it on E edges."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    C, dev, g = gmap.shape[-1], gmap.device, gmap.dtype
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if name == "corr_pyramid":
+        cap, depth, _ = cc.mono_plan(3, C, g, ring)
+        return cap, (depth, cc.mono_run(E, dev))
+    if name == "corr_mono2":
+        cap, depth, pipes = cc.mono2_plan(3, C, g, ring)
+        return cap, (int(concat), depth, pipes, cc.mono2_run(E, dev))
+    if name == "corr_mono3":
+        cap, depth = cc.mono3_plan(3, C, g, ring)
+        return cap, (depth, cc.mono3_run(E, sms))
+    cap, depth, _ = cc.pair2_plan(3, C, g, ring)
+    return cap, (depth, cc.pair2_grid(E, sms, cc.pair2_blocks_per_sm(3, C, g,
+                                                                     ring)))
+
+
+def structures_phase(case, gpu: str, record):
+    """The three structures of the edge pipeline that compute corr_pyramid's
+    function, by their C interfaces at E = 12288, each held to corr_pyramid
+    within TOL and then timed in turns (forward, then backward): K1 (two
+    pipelines of 256 threads a block, two barriers a step), K4'' (one
+    pipeline of 512 threads, rotating slots, one barrier a step) and K2''
+    (persistent blocks of 256 threads, one barrier a step) at their wrappers'
+    plans, and on int8 rings K2'' also at two blocks an SM, which its
+    windows of 128 vectors allow. On the kernel phase's inputs (int8 and
+    bf16 rings), where windows beyond 128 vectors read the ring, and on
+    their patches put back on an exact unit grid (int8 rings), where every
+    level-1 window is 10x10 vectors and none reads the ring."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = case
+    E = coords.shape[0]
+    sms = torch.cuda.get_device_properties(gmap.device).multi_processor_count
+    center = coords[:, 1, 1, :]
+    off = torch.arange(-1.0, 2.0, device=coords.device)
+    tight = torch.stack([(center[:, None, None, 0] + off[None, None, :]).expand(E, 3, 3),
+                         (center[:, None, None, 1] + off[None, :, None]).expand(E, 3, 3)],
+                        -1).contiguous()
+    blocks = cc._occupancy("corr_pair2", cc._load().devo_corr_pair2_blocks_per_sm(
+        9, gmap.shape[-1], 128, cc.PAIR2_DEPTH, 1, 1))
+    shared = (128, (cc.PAIR2_DEPTH, cc.pair2_grid(E, sms, blocks)))
+    for what, c, pyr, scales in (("i8 rings", coords, i8, sc),
+                                 ("bf16 rings", coords, bf, None),
+                                 ("i8 rings, tight patches", tight, i8, sc)):
+        versions = [(label, name, tree_plan(name, gmap, pyr[0].dtype, E))
+                    for label, name in (("K1", "corr_pyramid"),
+                                        ("K4''", "corr_mono3"),
+                                        ("K2''", "corr_pair2"))]
+        if scales is not None:
+            versions.append((f"K2'' windows of 128, {blocks} blocks an SM",
+                             "corr_pair2", shared))
+        want = plain.corr_pyramid(gmap, pyr, c, kk, jj, scales=scales)
+        fns = []
+        for _, name, plan in versions:
+            fns.append(lambda name=name, plan=plan, c=c, pyr=pyr, scales=scales:
+                       c_two_level(None, name, gmap, pyr, c, kk, jj, scales,
+                                   plan))
+            torch.testing.assert_close(fns[-1](), want, **TOL)
+        order = list(range(len(fns))) + list(reversed(range(len(fns))))
+        times = [median_ms(fns[k]) for k in order]
+        ms = [[t for t, i in zip(times, order) if i == k]
+              for k in range(len(fns))]
+        for (label, name, plan), t in zip(versions, ms):
+            record[name].setdefault("structures", []).append(dict(
+                label=f"{label} [{what}]", E=E, cap=plan[0], ms=t))
+        print(f"structures [{what}] E={E}, in turns forward and back: "
+              + "; ".join(f"{label} (windows of {plan[0]}) {t[0]:.4f}, "
+                          f"{t[1]:.4f}" for (label, _, plan), t in
+                          zip(versions, ms))
+              + f" ms [{gpu}]", flush=True)
+
+
+# the kernels redesigned since the parent commit (K4', K2'), the kernels on
+# the edge pipeline that they now share (K1, K8'', K3''), and the sources a
+# build of the parent's versions takes from the directory given by --parent
+PARENT_SOURCES = ("corr.cu", "corr_group.cu", "corr_mono2.cu", "corr_mono3.cu",
+                  "corr_pair2.cu", "corr_pipe.cuh", "corr_common.cuh",
+                  "corr_mma.cuh")
 
 
 def parent_library(parent_dir: str):
-    """The parent commit's corr.cu, corr_group.cu and corr_mono2.cu built
-    from parent_dir (a copy of them and their headers) into a library of
-    their own, with the parent's C interfaces."""
+    """The parent commit's kernels of PARENT_SOURCES built from parent_dir (a
+    copy of them and their headers) into a library of their own, with the
+    parent's C interfaces: corr_pyramid, corr_group and corr_mono2 those of
+    this tree, corr_mono3 with (depth, run) and corr_pair2 without plan
+    arguments after the type flags."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -596,115 +725,100 @@ def parent_library(parent_dir: str):
         raise RuntimeError(f"--parent {parent_dir}: missing {missing}")
     lib = ctypes.CDLL(str(corr_cuda.build(src)))
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.devo_corr_pyramid.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i] * 4 + [ptr]
-    lib.devo_corr_group.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
-    lib.devo_corr_mono2.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i] * 3 + [ptr]
-    for fn in (lib.devo_corr_pyramid, lib.devo_corr_group, lib.devo_corr_mono2):
+    two = [ptr] * 9 + [i] * 8 + [f] * 2
+    lib.devo_corr_pyramid.argtypes = two + [i] * 4 + [ptr]
+    lib.devo_corr_group.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
+    lib.devo_corr_mono2.argtypes = two + [i] * 6 + [ptr]
+    lib.devo_corr_mono3.argtypes = two + [i] * 4 + [ptr]
+    lib.devo_corr_pair2.argtypes = two + [i] * 2 + [ptr]
+    for fn in (lib.devo_corr_pyramid, lib.devo_corr_group, lib.devo_corr_mono2,
+               lib.devo_corr_mono3, lib.devo_corr_pair2):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _parent_call(name, code):
-    if code:
-        raise RuntimeError(f"{name} by its C interface: launch failed ({code})")
-
-
-def parent_pyramid(lib, gmap, pyr, coords, kk, jj, scales):
-    """The corr_pyramid kernel of `lib` at the wrapper's plan, by its C
-    interface, which the parent shares: the parent's kernel, or this tree's
-    called the same way, so that the two are timed alike."""
+def parent_plan(name, gmap, ring, E):
+    """(cap, integers after the type flags) of the parent's corr_mono3 or
+    corr_pair2 as the parent's wrapper launched it: corr_mono3 windows that
+    fit two stages of its own layout (f32 patch feature, scratch and tap
+    buffer slots, padded windows) and then up to eight stages, runs as this
+    tree's; corr_pair2 its own windows and no plan arguments (its grid came
+    from its own occupancy query)."""
     from devo_tpu_torch.ops import corr_cuda as cc
-    E, C = coords.shape[0], gmap.shape[-1]
-    cap, depth, _ = cc.mono_plan(3, C, gmap.dtype, pyr[0].dtype)
-    out = torch.empty((E, 2 * 49 * 9), dtype=torch.float32, device=gmap.device)
+    C = gmap.shape[-1]
+    room = cc.SMEM_MAX - (6144 if name == "corr_mono3" else 4096)
+    if name == "corr_mono3":
+        def smem(cap, depth):
+            return ((2 * 9 * C + 4 * cap * 9 + 4 * 9 * 64) * 4
+                    + depth * 2 * cap * cc._padded(C, ring))
+        cap = cc._fit_cap(lambda cap: smem(cap, 2), C, ring, room)
+        depth = max(d for d in range(2, 9) if smem(cap, d) <= room)
+        sms = torch.cuda.get_device_properties(gmap.device).multi_processor_count
+        return cap, (depth, cc.mono3_run(E, sms))
+    graw = -(-9 * C * cc._item(gmap.dtype) // 16) * 16
+    cap = cc._fit_cap(lambda cap: ((9 * C + 2 * 9 * 64) * 4 + 2 * (
+        graw + 2 * cap * C * cc._item(ring))), C, ring, room)
+    return cap, ()
+
+
+def c_group(lib, gmap, fmap, coords, kk, jj, scale):
+    """One launch of corr_group (one level, the engine's "g8c") of `lib` (this
+    tree's library where None) at this tree's plan, by its C interface."""
+    from devo_tpu_torch.ops import corr_cuda as cc
     lib = lib or cc._load()
-    ss = scales or (None, None)
-    _parent_call("corr_pyramid", lib.devo_corr_pyramid(
-        gmap.data_ptr(), pyr[0].data_ptr(), pyr[1].data_ptr(),
-        *(None if t is None else t.data_ptr() for t in ss), coords.data_ptr(),
-        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, pyr[0].shape[1],
-        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], cap, 1.0, 4.0,
-        int(gmap.dtype == torch.bfloat16), int(scales is not None), depth,
-        cc.mono_run(E, gmap.device), torch.cuda.current_stream().cuda_stream))
-    return out
-
-
-def parent_group(lib, gmap, fmap, coords, kk, jj, scale):
-    """The parent's "g8c" as the engine ran it: its corr_group kernel (the
-    raw surface, plain f32 multiply-adds) at its own window capacity, then
-    the tensor-code stage 2, ops/corr.extract_blend_group."""
-    from devo_tpu_torch.ops import corr as plain
-    from devo_tpu_torch.ops import corr_cuda as cc
     E, C = coords.shape[0], gmap.shape[-1]
-    cap = cc._fit_cap(lambda cap: 4 * 9 * C * 4 + 4 * cap * cc._padded(C, fmap.dtype),
-                      C, fmap.dtype, cc.SMEM_MAX - 5120)
-    surface = torch.empty((-(-E // 8), plain.GROUP_ROWS, 128),
-                          dtype=torch.bfloat16, device=gmap.device)
-    _parent_call("corr_group", lib.devo_corr_group(
-        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
-        jj.data_ptr(), surface.data_ptr(), E, 9, C, fmap.shape[1],
-        fmap.shape[2], cap, plain.GROUP_ROWS, int(gmap.dtype == torch.bfloat16),
-        int(scale is not None), torch.cuda.current_stream().cuda_stream))
-    return plain.extract_blend_group(surface, coords, jj, fmap.shape[1:3],
-                                     scale, cap)
-
-
-def parent_mono2(lib, gmap, pyr, coords, kk, jj, scales, concat):
-    """The parent's corr_mono2 kernel (two edges a block, a tap a thread)
-    at its own window capacity."""
-    from devo_tpu_torch.ops import corr_cuda as cc
-    E, C = coords.shape[0], gmap.shape[-1]
-    ring = pyr[0].dtype
-    cap = cc._fit_cap(lambda cap: (2 * (9 * C + 2 * 9 * 64) * 4
-                                   + (6 if concat else 4) * cap * C * cc._item(ring)),
-                      C, ring, cc.SMEM_MAX - 4096)
-    out = torch.empty((E, 2 * 49 * 9), dtype=torch.float32, device=gmap.device)
-    ss = scales or (None, None)
-    _parent_call("corr_mono2", lib.devo_corr_mono2(
-        gmap.data_ptr(), pyr[0].data_ptr(), pyr[1].data_ptr(),
-        *(None if t is None else t.data_ptr() for t in ss), coords.data_ptr(),
-        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, pyr[0].shape[1],
-        pyr[0].shape[2], pyr[1].shape[1], pyr[1].shape[2], cap, 1.0, 4.0,
-        int(gmap.dtype == torch.bfloat16), int(scales is not None), int(concat),
-        torch.cuda.current_stream().cuda_stream))
+    cap, depth, blocks = cc.group_plan(3, C, gmap.dtype, fmap.dtype)
+    out = torch.empty((E, 49 * 9), dtype=torch.float32, device=gmap.device)
+    code = lib.devo_corr_group(
+        gmap.data_ptr(), fmap.data_ptr(),
+        None if scale is None else scale.data_ptr(), coords.data_ptr(),
+        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, fmap.shape[1],
+        fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16),
+        int(scale is not None), depth, cc.group_run(E, gmap.device, blocks),
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"corr_group by its C interface: launch failed ({code})")
     return out
 
 
 def parent_phase(dev, gpu: str, parent_dir: str, record):
     """The kernels redesigned since the parent commit against the parent's
     versions of them, on the kernel phase's inputs at E = 12288, int8 and
-    bf16 rings: K8' as the engine runs it (the parent's kernel and tensor-code
-    stage 2 against one launch) at levels 1 and 4, K3' gathered and in
-    place, and K1, whose output must equal the parent's bit for bit (both
-    called by the C interface they share, without the wrapper's checks).
-    Each pair is held to each other within its tolerance, then timed in turns,
-    parent, this tree, this tree, parent, in one process on one card."""
-    from devo_tpu_torch.ops import corr_cuda as cc
+    bf16 rings, each version by its C interface at its own plan: K4' and K2'
+    (held to each other within TOL); and the kernels that share the edge
+    pipeline of csrc/corr_pipe.cuh with them, whose output must equal the
+    parent's bit for bit at the same plan: K1, K8'' at levels 1 and 4, K3''
+    gathered and in place. Each pair is timed in turns, parent, this tree,
+    this tree, parent, in one process on one card."""
     lib = parent_library(parent_dir)
     gmap, bf, i8, sc, coords, kk, jj = corr_case(E_MAIN, dev, 0)
+    E = coords.shape[0]
+
+    def two(lib, name, pyr, scales, plan):
+        return lambda: c_two_level(lib, name, gmap, pyr, coords, kk, jj,
+                                   scales, plan)
+
     cases = []
     for ring, pyr, scales in (("i8", i8, sc), ("bf16", bf, None)):
         ss = scales or (None, None)
+        r = pyr[0].dtype
+        for name in ("corr_mono3", "corr_pair2"):
+            cases.append((name, f"both levels {ring}", "tol",
+                          two(lib, name, pyr, scales, parent_plan(name, gmap, r, E)),
+                          two(None, name, pyr, scales, tree_plan(name, gmap, r, E))))
+        cases.append(("corr_pyramid", f"both levels {ring}", "bits",
+                      *(two(x, "corr_pyramid", pyr, scales,
+                            tree_plan("corr_pyramid", gmap, r, E))
+                        for x in (lib, None))))
         for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
-            cases.append((
-                "corr_group", f"level {lvl} {ring}", "group",
-                lambda r=pyr[n], c=c, s=ss[n]: parent_group(lib, gmap, r, c, kk,
-                                                            jj, s),
-                lambda r=pyr[n], c=c, s=ss[n]: cc.corr_group_cuda(gmap, r, c, kk,
-                                                                  jj, s)))
+            cases.append(("corr_group", f"level {lvl} {ring}", "bits",
+                          *(lambda x=x, f=pyr[n], c=c, s=ss[n]: c_group(
+                              x, gmap, f, c, kk, jj, s) for x in (lib, None))))
         for concat, what in ((True, "gathered"), (False, "in place")):
-            cases.append((
-                "corr_mono2", f"both levels {ring} {what}", "tol",
-                lambda pyr=pyr, s=scales, k=concat: parent_mono2(
-                    lib, gmap, pyr, coords, kk, jj, s, k),
-                lambda pyr=pyr, s=scales, k=concat: cc.corr_mono2_cuda(
-                    gmap, pyr[0], pyr[1], coords, kk, jj, scales=s, concat=k)))
-        cases.append((
-            "corr_pyramid", f"both levels {ring}", "bits",
-            lambda pyr=pyr, s=scales: parent_pyramid(lib, gmap, pyr, coords, kk,
-                                                     jj, s),
-            lambda pyr=pyr, s=scales: parent_pyramid(None, gmap, pyr, coords,
-                                                     kk, jj, s)))
+            cases.append(("corr_mono2", f"both levels {ring} {what}", "bits",
+                          *(two(x, "corr_mono2", pyr, scales,
+                                tree_plan("corr_mono2", gmap, r, E, concat))
+                            for x in (lib, None))))
     for name, label, rule, old, new in cases:
         a, b = old(), new()
         torch.cuda.synchronize()
@@ -712,13 +826,12 @@ def parent_phase(dev, gpu: str, parent_dir: str, record):
             if not torch.equal(a, b):
                 raise RuntimeError(f"{name} [{label}]: not the parent's bits")
         else:
-            torch.testing.assert_close(b, a, **(group_tol(a) if rule == "group"
-                                                else TOL))
+            torch.testing.assert_close(b, a, **TOL)
         times = [median_ms(fn) for fn in (old, new, new, old)]
         record[name].setdefault("parent_ab", []).append(
-            dict(label=label, E=E_MAIN, parent_ms=[times[0], times[3]],
+            dict(label=label, E=E, parent_ms=[times[0], times[3]],
                  ms=[times[1], times[2]], same_bits=bool(torch.equal(a, b))))
-        print(f"A/B {name} [{label}] E={E_MAIN}: parent {times[0]:.4f}, "
+        print(f"A/B {name} [{label}] E={E}: parent {times[0]:.4f}, "
               f"{times[3]:.4f} ms; this tree {times[1]:.4f}, {times[2]:.4f} "
               f"ms (in turns parent, tree, tree, parent); max abs diff "
               f"{(b - a).abs().max().item():.3e}"
@@ -826,15 +939,19 @@ def full_stages(case, gpu: str, record):
 
 def empty_case(dev, gpu: str):
     """E = 0: an empty result of the right shape and no launch, on every
-    kernel choice and family (int8 rings where the choice takes them)."""
+    kernel choice and family (int8 rings where the choice takes them), and
+    on f32 patch features and rings for the kernels of F32_TWO_LEVEL."""
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = corr_case(8, dev, 4)
+    f32 = tuple(r.float() for r in bf)
     before = dict(cc.launches)
-    for impl, kernel in ([("banded", k) for k in cc.KERNELS]
-                         + [(impl, "mono") for impl in cc.IMPLS[1:]]):
-        floats = impl != "banded" or kernel in cc.FLOAT_ONLY
-        pyr, scales = (bf, None) if floats else (i8, sc)
-        got = cc.corr_pyramid(gmap, pyr, coords[:0], kk[:0], jj[:0],
+    for impl, kernel, g, pyr, scales in (
+            [("banded", k, gmap, *((bf, None) if k in cc.FLOAT_ONLY else (i8, sc)))
+             for k in cc.KERNELS]
+            + [(impl, "mono", gmap, bf, None) for impl in cc.IMPLS[1:]]
+            + [("banded", k, gmap.float(), f32, None)
+               for k in F32_TWO_LEVEL.values()]):
+        got = cc.corr_pyramid(g, pyr, coords[:0], kk[:0], jj[:0],
                               scales=scales, kernel=kernel, impl=impl)
         if got.shape != (0, 882) or cc.launches != before:
             raise RuntimeError(f"{impl} {kernel} at E=0: {tuple(got.shape)}, "
@@ -843,6 +960,10 @@ def empty_case(dev, gpu: str):
           f"nothing [{gpu}]", flush=True)
 
 
+# the two-level kernels that the float-ring checks also hold on f32 patch
+# features and rings: counter -> kernel choice
+F32_TWO_LEVEL = {"corr_pyramid": "mono", "corr_mono3": "mono3",
+                 "corr_pair2": "pair2"}
 # kernel choice -> the launch counters it runs on
 COUNTERS = {"mono": ("corr_pyramid",), "pair": ("corr_pair",),
             "pair2": ("corr_pair2",),
@@ -868,14 +989,15 @@ def narrow_case(dev, gpu: str, record):
 def held_float_to_plain(cc, label, gmap, bf, coords, kk, jj, record, gpu):
     """The float-ring kernels (FLOAT_LEVEL) through the entry point on one
     case, on its bf16 rings and on f32 rings of the same values, against
-    corr_pyramid; and corr_pyramid's kernel on the f32 rings."""
+    corr_pyramid; and the kernels of F32_TWO_LEVEL on the f32 rings."""
     from devo_tpu_torch.ops import corr as plain
     for ring, g, pyr in (("bf16", gmap, bf),
                          ("f32", gmap.float(), tuple(r.float() for r in bf))):
         ref = plain.corr_pyramid(g, pyr, coords, kk, jj)
         kernels = dict(FLOAT_LEVEL)
         if ring == "f32":
-            kernels["corr_pyramid"] = ("banded", "mono")
+            kernels.update({name: ("banded", kernel)
+                            for name, kernel in F32_TWO_LEVEL.items()})
         for name, (impl, kernel) in kernels.items():
             got = cc.corr_pyramid(g, pyr, coords, kk, jj, kernel=kernel,
                                   impl=impl)
@@ -1851,7 +1973,7 @@ def main(argv=None):
                                  if name in PROBE_REPORTED
                                  else f"{REPORTED[name]}, E={E_MAIN}"),
             "variants": rec["variants"],
-            **{key: rec[key] for key in ("stages", "parent_ab",
+            **{key: rec[key] for key in ("stages", "parent_ab", "structures",
                                          "surface_instance") if key in rec}})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")

@@ -109,7 +109,7 @@ extern "C" int devo_corr_pyramid(const void* gmap, const void* fmap1,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (E + run - 1) / run;
 #define DEVO_LAUNCH(G, F)                                                     \
-  launch_pipe(corr_pyramid_kernel<G, F>,                                      \
+  launch_pipe<Mono>(corr_pyramid_kernel<G, F>,                                \
               PipeArgs<G, F>{pair_args<G, F>(gmap, fmap1, fmap2, dq1, dq2,    \
                                              coords, kk, jj, out, E, PP, C,   \
                                              h1, w1, h2, w2, cap, lvl1, lvl2), \
@@ -133,7 +133,7 @@ extern "C" int devo_corr_pyramid_blocks_per_sm(int PP, int C, int cap,
                                                int depth, int g_bf16,
                                                int ring_i8) {
 #define DEVO_OCC(G, F)                                                   \
-  pipe_blocks_per_sm(corr_pyramid_kernel<G, F>,                          \
+  pipe_blocks_per_sm<Mono>(corr_pyramid_kernel<G, F>,                    \
                      smem_bytes<G, F>(PP, C, cap, depth))
   return DEVO_PIPE_TYPES(DEVO_OCC);
 #undef DEVO_OCC

@@ -4,10 +4,10 @@
 // product over the channels, the bilinear blend, and the launch helper that
 // opts a kernel in to more than 48 KB of dynamic shared memory; and, for the
 // kernels that stage an edge's windows by asynchronous copies (corr_pair.cu,
-// corr_pair2.cu, corr_level_pipe.cu, corr_mono3.cu, and the edge pipeline of
-// corr_pipe.cuh), the copies, the per-edge index table, the staging of a
-// level's window, one tap's dot, the blended row, and the products of one
-// window position with every pixel of the patch.
+// corr_level_pipe.cu, corr_group8.cu, corr_level_full.cu, and the edge
+// pipeline of corr_pipe.cuh), the copies, the per-edge index table, the
+// staging of a level's window, one tap's dot, the blended row, and the
+// products of one window position with every pixel of the patch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -330,7 +330,7 @@ __device__ __forceinline__ void blend_level_row(float* dst, const float* taps,
 }
 
 // ---------------------------------------------------------------------------
-// The product surface of a staged window (corr_mono3.cu, corr_group8.cu,
+// The product surface of a staged window (corr_group8.cu,
 // corr_level_full.cu, and corr_pipe.cuh for f32 patch features): one
 // thread takes one window position and dots its feature vector with every
 // pixel of the patch, so the vector leaves shared memory once for PP dots and

@@ -101,7 +101,7 @@ extern "C" int devo_corr_group(const void* gmap, const void* fmap,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (E + run - 1) / run;
 #define DEVO_LAUNCH(G, F)                                                   \
-  launch_pipe(corr_group_kernel<G, F>,                                      \
+  launch_pipe<Fused>(corr_group_kernel<G, F>,                               \
               PipeArgs<G, F>{level_args<G, F>(gmap, fmap, dq, coords, kk,   \
                                               jj, out, E, PP, C, H, W, cap), \
                              depth, run, nullptr, 0},                       \
@@ -126,7 +126,7 @@ extern "C" int devo_corr_group_surface(const void* gmap, const void* fmap,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (E + run - 1) / run;
 #define DEVO_LAUNCH(G, F)                                                   \
-  launch_pipe(corr_group_surface_kernel<G, F>,                              \
+  launch_pipe<Surface>(corr_group_surface_kernel<G, F>,                     \
               PipeArgs<G, F>{level_args<G, F>(gmap, fmap, nullptr, coords,  \
                                               kk, jj, nullptr, E, PP, C, H, \
                                               W, cap),                      \
@@ -150,7 +150,7 @@ extern "C" long long devo_corr_group_smem(int PP, int C, int cap, int depth,
 extern "C" int devo_corr_group_blocks_per_sm(int PP, int C, int cap, int depth,
                                              int g_bf16, int ring_i8) {
 #define DEVO_OCC(G, F)                                                   \
-  pipe_blocks_per_sm(corr_group_kernel<G, F>,                            \
+  pipe_blocks_per_sm<Fused>(corr_group_kernel<G, F>,                     \
                      smem_bytes<G, F>(PP, C, cap, depth))
   return DEVO_PIPE_TYPES(DEVO_OCC);
 #undef DEVO_OCC

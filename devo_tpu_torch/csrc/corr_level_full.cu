@@ -32,13 +32,12 @@
 //           never copied: a staged edge is 0; an edge not staged reads the
 //           ring as in kFull.
 //
-// What bounds it on an H100: as csrc/corr_mono3.cu, whose single-level
-// counterpart it is: the bytes are those of csrc/corr_level.cu, but a thread
-// that dots one window position with all nine pixels (position_products)
-// still fills its registers with the whole patch feature from shared memory,
-// about 1150 clocks a warp at C = 128, and that is the time. The stage
-// instances exist to measure that split: copy, product and extraction. What
-// the design does:
+// What bounds it on an H100: the bytes are those of csrc/corr_level.cu, but a
+// thread that dots one window position with all nine pixels
+// (position_products) still fills its registers with the whole patch feature
+// from shared memory, about 1150 clocks a warp at C = 128, and that is the
+// time. The stage instances exist to measure that split: copy, product and
+// extraction. What the design does:
 //   - a block of 160 threads (a window holds at most 144 positions) walks a
 //     run of consecutive edges (the wrapper sizes the runs to whole rounds
 //     over the SMs); the copies of edge e+depth-1 start before the products

@@ -44,14 +44,15 @@
 // plus per stage 2.3 KB of raw bf16 feature and a window of 18 KB (int8) or
 // 36 KB (bf16): 48 KB a block on int8 rings, 85 KB on bf16 rings.
 //
-// Hazards: those of csrc/corr_pair2.cu, with one window a stage. Stage n&1 is
-// read by step n's convert and dots (before S3 of step n) and written by the
-// group started at the top of step n+1. `g` and `taps` are written after S1 /
-// S2 of a step and last read before S3 / S1 of the next. EdgePrep slot n%4 is
-// written in step n-2 and last read by step n's blend; its next writer is
-// step n+2, two barriers later. The coordinates of edge n+2 lie in slot n%2
-// of `meta`: written by step n-1's group, read by warp 0 between S1 and S2 of
-// step n, written again by the group started in step n+1.
+// Hazards, for the reader of the loop: buffers are reused across steps only
+// across the barriers S1-S3 of every step. Stage n&1 is read by step n's
+// convert and dots (before S3 of step n) and written by the group started at
+// the top of step n+1. `g` and `taps` are written after S1 / S2 of a step and
+// last read before S3 / S1 of the next. EdgePrep slot n%4 is written in step
+// n-2 and last read by step n's blend; its next writer is step n+2, two
+// barriers later. The coordinates of edge n+2 lie in slot n%2 of `meta`:
+// written by step n-1's group, read by warp 0 between S1 and S2 of step n,
+// written again by the group started in step n+1.
 
 #include "corr_common.cuh"
 

@@ -75,9 +75,11 @@ int launch(const PipeArgs<G, F>& args, int pipes, cudaStream_t st) {
   const size_t smem = smem_bytes<G, F>(a.PP, a.C, a.cap, args.depth, pipes);
   if constexpr (kTwoPipes<G, F>) {
     if (pipes == 2)
-      return launch_pipe(corr_mono2_kernel<G, F, 2, Gather>, args, grid, smem, st);
+      return launch_pipe<Pair<2, Gather>>(corr_mono2_kernel<G, F, 2, Gather>,
+                                          args, grid, smem, st);
   }
-  return launch_pipe(corr_mono2_kernel<G, F, 1, Gather>, args, grid, smem, st);
+  return launch_pipe<Pair<1, Gather>>(corr_mono2_kernel<G, F, 1, Gather>, args,
+                                      grid, smem, st);
 }
 
 template <typename G, typename F>
@@ -85,9 +87,11 @@ int blocks_per_sm(int PP, int C, int cap, int depth, int pipes) {
   const size_t smem = smem_bytes<G, F>(PP, C, cap, depth, pipes);
   if constexpr (kTwoPipes<G, F>) {
     if (pipes == 2)
-      return pipe_blocks_per_sm(corr_mono2_kernel<G, F, 2, false>, smem);
+      return pipe_blocks_per_sm<Pair<2, false>>(
+          corr_mono2_kernel<G, F, 2, false>, smem);
   }
-  return pipe_blocks_per_sm(corr_mono2_kernel<G, F, 1, false>, smem);
+  return pipe_blocks_per_sm<Pair<1, false>>(corr_mono2_kernel<G, F, 1, false>,
+                                            smem);
 }
 
 }  // namespace

@@ -1,14 +1,14 @@
 // The edge pipeline that the tensor-core correlation kernels share
-// (csrc/corr.cu, csrc/corr_group.cu, csrc/corr_mono2.cu): a block walks a
-// run of consecutive edges as one or two independent pipelines, each behind
-// a ring of stages in shared memory that hold an edge's patch feature and
-// the covering window of each of its levels (the union of the pixels' 8x8
-// tap grids), copied by cp.async with zeros off the image; the window
-// product on the tensor cores (corr_mma.cuh) for bf16 patch features, on
-// the CUDA cores (position_products) for f32 ones; a level whose window
-// exceeds `cap` takes its taps from the ring, one dot a tap; the product
-// surface, f32 in shared memory; then each output's four taps from it,
-// blended.
+// (csrc/corr.cu, corr_group.cu, corr_mono2.cu, corr_mono3.cu,
+// corr_pair2.cu): a block walks its edges as one or two independent
+// pipelines, each behind a ring of stages in shared memory that hold an
+// edge's patch feature and the covering window of each of its levels (the
+// union of the pixels' 8x8 tap grids), copied by cp.async with zeros off the
+// image; the window product on the tensor cores (corr_mma.cuh) for bf16
+// patch features, on the CUDA cores (position_products) for f32 ones; a
+// level whose window exceeds `cap` takes its taps from the ring, one dot a
+// tap; the product surface, f32 in shared memory; then each output's four
+// taps from it, blended.
 //
 // What a kernel chooses (PipeShape):
 //   - levels an edge (2: both pyramid levels, coordinates divided in the
@@ -16,8 +16,19 @@
 //   - edges a step (1, or 2: a pair of edges shares its barriers and its
 //     stage, the m-tiles of both edges and levels are spread over the
 //     pipeline's warps, each multiplied by its own edge's patch only);
-//   - pipelines a block (1 of 512 threads or 2 of 256, each with its own
-//     named barrier, so that one's waits overlap the other's work);
+//   - pipelines a block (1, or 2 of half the block's threads, each with its
+//     own named barrier, so that one's waits overlap the other's work);
+//   - threads a block (kPipeBlock = 512, or fewer for small blocks of which
+//     one SM holds several);
+//   - the edges a block walks (Order): a run of consecutive edges, blocks
+//     b * run, ..., or every grid-th edge of a persistent grid, b, b + grid,
+//     ...;
+//   - the schedule (Sched): two barriers a step around the products and
+//     one surface slot an edge and level (kTwoBarriers), or one pipeline of
+//     one edge a step with two rotating slots a level and one barrier a
+//     step, behind which the extraction of step s runs right after that
+//     barrier and before the products of s + 1 (kSameStep), or after them,
+//     one step behind (kLagged);
 //   - whether each tap is rounded once to bf16 (round to nearest even)
 //     before the ring slot's scale (the bf16 product surface of
 //     CORR_KERNEL="g8c");
@@ -28,12 +39,12 @@
 //     rows are copied through the registers to follow edge 0's, behind
 //     their own two barriers, and its m-tiles read them there.
 //
-// Hazards, for the reader of a pipeline's loop: two pipeline barriers a
-// step s, A(s) before the products and B(s) after them. The stage of step
-// s is written by copies started after B(s - pdepth), whose products read it
-// before that barrier, and read by the products of s behind A(s) (which
-// follows each thread's wait for its own copies); a gather rewrites it
-// between A(s) and the products, behind its own barriers. The pipeline's
+// Hazards of kTwoBarriers, for the reader of a pipeline's loop: two pipeline
+// barriers a step s, A(s) before the products and B(s) after them. The stage
+// of step s is written by copies started after B(s - pdepth), whose products
+// read it before that barrier, and read by the products of s behind A(s)
+// (which follows each thread's wait for its own copies); a gather rewrites
+// it between A(s) and the products, behind its own barriers. The pipeline's
 // surface slots are written by the products of s, behind A(s), which every
 // thread passes only after its extraction of s-1, and read by the
 // extraction of s, behind B(s). The index tables of step s + pdepth are
@@ -41,6 +52,28 @@
 // step s + pdepth - kTables, whose extraction ended before A(s); they are
 // read by the copies started after B(s), and by everything of that step
 // later.
+//
+// Hazards of kSameStep and kLagged: one barrier Y(s) a step, after the
+// products of step s and each thread's wait for its own copies of step
+// s + 1. The phase between Y(s - 1) and Y(s) starts the copies of step
+// s + pdepth - 1, runs the extraction of s - 1 and the products of s (in
+// the schedule's order), and writes the index table of step s + pdepth.
+//   - Stage reuse: the copies of step s + pdepth - 1 go into the stage of
+//     step s - 1, whose last readers, its products, ran before Y(s - 1). The
+//     products of s + pdepth - 1 read them behind Y(s + pdepth - 2), which
+//     follows every thread's wait for them. So pdepth - 1 steps' copies fly
+//     during a phase, and a pipeline needs two stages at least.
+//   - Slot reuse two steps apart: the products of s write slot s % 2 before
+//     Y(s), and the extraction of s reads it after Y(s). The next writer, the
+//     products of s + 2, runs after Y(s + 1), which every thread passes only
+//     after that extraction. The extraction of s and the products of s + 1
+//     share a phase on the two different slots.
+//   - Index-table slots: the table of step t is written before Y(t - pdepth)
+//     and read by the copies of t after it, by the products of t and by the
+//     extraction of t, which ends before Y(t + 1). So pdepth + 2 tables are
+//     live in a phase (kTables holds that many), and the table written
+//     before Y(s) takes the slot of step s + pdepth - kTables <= s - 2,
+//     whose extraction ended before Y(s - 1).
 // No atomics, and every sum in a fixed order: two launches give the same
 // bits, and the order of an output's sums does not depend on the shape.
 #pragma once
@@ -51,13 +84,17 @@
 
 namespace devo {
 
-constexpr int kPipeBlock = 512;   // threads of a block
+constexpr int kPipeBlock = 512;   // threads of a block, unless the shape says
 
 template <typename G>
 constexpr bool kMma = std::is_same<G, __nv_bfloat16>::value;
 
+enum class Order { kRuns, kStrided };
+enum class Sched { kTwoBarriers, kSameStep, kLagged };
+
 template <int Levels, int Step, int Pipes, int MaxDepth, bool Round,
-          bool Surface, bool Gather>
+          bool Surface, bool Gather, int Block = kPipeBlock,
+          Order EdgeOrder = Order::kRuns, Sched Schedule = Sched::kTwoBarriers>
 struct PipeShape {
   static constexpr int kLevels = Levels;      // pyramid levels an edge
   static constexpr int kStep = Step;          // edges a step
@@ -66,16 +103,26 @@ struct PipeShape {
   static constexpr bool kRound = Round;       // bf16 taps before the scale
   static constexpr bool kSurface = Surface;   // write the raw surface
   static constexpr bool kGather = Gather;     // gather a pair's windows
-  static constexpr int kThreads = kPipeBlock / Pipes;   // a pipeline's
+  static constexpr int kBlock = Block;        // threads of a block
+  static constexpr bool kStrided = EdgeOrder == Order::kStrided;
+  static constexpr Sched kSched = Schedule;
+  static constexpr bool kOneBarrier = Schedule != Sched::kTwoBarriers;
+  static constexpr int kSlots = kOneBarrier ? 2 : 1;   // a level's, an edge's
+  static constexpr int kThreads = Block / Pipes;       // a pipeline's
   static constexpr int kWarps = kThreads / 32;
-  // steps a pipeline holds index tables for: its stages and one ahead
-  static constexpr int kTables = MaxDepth / Pipes + 1;
+  // steps a pipeline holds index tables for: its stages and one ahead, and
+  // with rotating slots one behind
+  static constexpr int kTables = MaxDepth / Pipes + (kOneBarrier ? 2 : 1);
   // outputs of an edge a thread writes, at most
   static constexpr int kOuts =
       (Levels * kOut * kOut * kMaxPP + kThreads - 1) / kThreads;
   static_assert(Step == 1 || Step == 2, "one or two edges a step");
   static_assert(!Gather || Step == 2, "a gather takes a pair");
   static_assert(!Surface || (Levels == 1 && Step == 1), "one level's surface");
+  static_assert(!kOneBarrier || (Pipes == 1 && Step == 1 && !Surface &&
+                                 MaxDepth >= 2),
+                "rotating slots: one pipeline of one edge, two stages");
+  static_assert(kThreads % 32 == 0 && kWarps >= Step, "whole warps");
 };
 
 // The barrier of one pipeline of the block (named barrier 1 + pipe).
@@ -87,9 +134,10 @@ __device__ __forceinline__ void pipe_sync(int pipe) {
 // How a block lays out its shared memory: `depth` stages (depth / kPipes a
 // pipeline), each kStep patch features (PP rows of gstride elements of G)
 // and then the windows (cap rows of wstride elements of F) of level 0 of
-// each edge, of level 1 of each edge; then kPipes x kStep x kLevels surface
-// slots of `slot` floats. The wrapper's ops/corr_cuda sums (mono_smem_bytes,
-// group_smem_bytes, mono2_smem_bytes) are the same.
+// each edge, of level 1 of each edge; then kPipes x kSlots x kStep x kLevels
+// surface slots of `slot` floats. The wrapper's ops/corr_cuda sums
+// (mono_smem_bytes, group_smem_bytes, mono2_smem_bytes, mono3_smem_bytes,
+// pair2_smem_bytes) are the same.
 template <typename G, typename F, class S>
 struct PipeLayout {
   int chans;      // channels of a staged row (C, or C rounded up to chunks)
@@ -107,8 +155,8 @@ struct PipeLayout {
     slot = cap * ss > PP * kTaps * kTaps ? cap * ss : PP * kTaps * kTaps;
   }
   __host__ __device__ size_t bytes(int depth) const {
-    return depth * stage + static_cast<size_t>(S::kPipes) * S::kStep *
-                               S::kLevels * slot * sizeof(float);
+    return depth * stage + static_cast<size_t>(S::kPipes) * S::kSlots *
+                               S::kStep * S::kLevels * slot * sizeof(float);
   }
 };
 
@@ -116,7 +164,7 @@ template <typename G, typename F>
 struct PipeArgs {
   PairArgs<G, F> p;         // level 1 unused with one level
   int depth;                // stages of a block, all pipelines'
-  int run;                  // consecutive edges a block walks
+  int run;                  // consecutive edges a block walks (Order::kRuns)
   __nv_bfloat16* surface;   // the raw surface (ceil(E / 8), rows, 128)
   int rows;                 //   and its rows, where the shape writes it
 };
@@ -196,13 +244,19 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
   const int ptid = tid % kN;
   const int pwarp = ptid >> 5;
   const int n_out = L * kOut * kOut * PP;
-  const int block_first = static_cast<int>(blockIdx.x) * args.run;
-  const int n = min(args.run, a.E - block_first);   // edges of the run
-  // the pipeline's steps: every kPipes-th group of kStep edges of the run
+  // the block's edges: first, first + 1, ... (a run) or first, first + grid,
+  // ... (a persistent grid); n of them
+  const int grid = gridDim.x;
+  const int first = S::kStrided ? static_cast<int>(blockIdx.x)
+                                : static_cast<int>(blockIdx.x) * args.run;
+  const int n = S::kStrided ? (a.E - first + grid - 1) / grid
+                            : min(args.run, a.E - first);
+  // the pipeline's steps: every kPipes-th group of kStep edges of the block
   const int count = ((n + kStep - 1) / kStep - pipe + kPipes - 1) / kPipes;
-  // the pipeline's surface slots, one an edge of a step and level
+  // the pipeline's surface slots, one an edge of a step and level (and of a
+  // step's parity, with rotating slots)
   float* slots = reinterpret_cast<float*>(smem_raw + args.depth * lay.stage) +
-                 pipe * kParts * lay.slot;
+                 pipe * S::kSlots * kParts * lay.slot;
   // this thread's outputs o = ptid + k * kN of every edge's row, decoded
   // once: o = ((ox * 7 + oy) * PP + p) * L + lvl, packed as
   // lvl | p << 1 | oy << 5 | ox << 8 (-1 past the row)
@@ -216,13 +270,14 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
                   : -1;
   }
 
-  // edge j of step s: the run's edge (s * kPipes + pipe) * kStep + j, in
+  // edge j of step s: the block's edge (s * kPipes + pipe) * kStep + j, in
   // stage pipe + kPipes * (s % pdepth), index table prep[pipe][s % kTables][j]
   auto local = [&](int s, int j) { return (s * kPipes + pipe) * kStep + j; };
   // (with one edge a step, s < count is the whole test)
   auto valid = [&](int s, int j) { return kStep == 1 || local(s, j) < n; };
   auto edge = [&](int s, int j) {
-    return static_cast<size_t>(block_first) + local(s, j);
+    const size_t l = local(s, j);
+    return S::kStrided ? first + l * grid : first + l;
   };
   auto table = [&](int s, int j) -> EdgePrep& {
     return prep[pipe][s % S::kTables][j];
@@ -237,7 +292,9 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
     return reinterpret_cast<F*>(stage_of(s) + kStep * lay.gbytes) +
            static_cast<size_t>(lvl * kStep + j) * cap * lay.wstride;
   };
-  auto slot_of = [&](int j, int lvl) { return slots + (j * L + lvl) * lay.slot; };
+  auto slot_of = [&](int s, int j, int lvl) {
+    return slots + ((s % S::kSlots) * kParts + j * L + lvl) * lay.slot;
+  };
   // the levels' ring sizes, held apart so that no array of the arguments is
   // indexed at run time (that would copy the arguments to local memory)
   const int H0 = a.H[0], W0 = a.W[0], H1 = a.H[1], W1 = a.W[1];
@@ -301,80 +358,47 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
     }
   };
 
-  // the index tables of the pipeline's first pdepth steps, a warp an edge,
-  // and their copies, a group a step
-  for (int it = pwarp; it < pdepth * kStep; it += kW) {
-    const int s = it / kStep, j = it % kStep;
-    if (s < count && valid(s, j)) {
-      const size_t e = edge(s, j);
-      prep_edge<L>(table(s, j), a, a.coords + e * PP * 2, a.kk[e], a.jj[e],
-                   lane);
-    }
-  }
-  pipe_sync<kN>(pipe);
-  for (int s = 0; s < pdepth; ++s) {
-    if (s < count) start_copies(s);
-    cp_async_commit();
-  }
-
-  for (int s = 0; s < count; ++s) {
-    EdgePrep* const tabs = prep[pipe][s % S::kTables];   // step s's tables
-    // (warp kW - kStep + j) edge j of step s + pdepth: its coordinates,
-    // indices and scales, loaded now and written as its index table after
-    // the products
-    const int ja = pwarp - (kW - kStep);
-    const bool prep_ahead = ja >= 0 && s + pdepth < count && valid(s + pdepth, ja);
-    float2 c_next = make_float2(0.0f, 0.0f);
-    int kk_next = 0, jj_next = 0;
-    float q_next = 1.0f;          // lane l < L: level l's scale
-    if (prep_ahead) {
-      const size_t en = edge(s + pdepth, ja);
+  // (warp kW - kStep + j) edge j of step t: its coordinates, indices and
+  // scales, loaded before the products that hide their latency and written
+  // as its index table after them
+  struct Ahead {
+    bool on;
+    float2 c;
+    int kk, jj;
+    float q;          // lane l < L: level l's scale
+  };
+  const int ja = pwarp - (kW - kStep);
+  auto load_ahead = [&](int t) {
+    Ahead ah{ja >= 0 && t < count && valid(t, ja), make_float2(0.0f, 0.0f), 0,
+             0, 1.0f};
+    if (ah.on) {
+      const size_t en = edge(t, ja);
       if (lane < PP)
-        c_next = *reinterpret_cast<const float2*>(a.coords + (en * PP + lane) * 2);
-      kk_next = a.kk[en];
-      jj_next = a.jj[en];
+        ah.c = *reinterpret_cast<const float2*>(a.coords + (en * PP + lane) * 2);
+      ah.kk = a.kk[en];
+      ah.jj = a.jj[en];
       const float* dq = lane ? a.dq[1] : a.dq[0];
-      if (lane < L && dq) q_next = dq[jj_next];
+      if (lane < L && dq) ah.q = dq[ah.jj];
     }
-    cp_async_wait_pending(pdepth - 1);  // this thread's copies of step s
-    pipe_sync<kN>(pipe);                // A(s): everyone's; slots free
-
-    if constexpr (S::kGather) {
-      // edge 1's rows of each level moved to follow edge 0's: all loads of
-      // a round, a barrier, all stores, a barrier (the rows move down, so a
-      // later round reads nothing an earlier one wrote)
-      if (valid(s, 1)) {
-        constexpr int kHeld = 8;
-        const int per_row = lay.chans * static_cast<int>(sizeof(F)) / 16;
-        const int n0 = rows_in(s, 1, 0) * per_row;
-        const int total = n0 + (L > 1 ? rows_in(s, 1, L - 1) * per_row : 0);
-        auto piece = [&](int i, bool dst) {
-          const int lvl = i >= n0;
-          const int k = i - lvl * n0, r = k / per_row, c = k - r * per_row;
-          const F* base = dst ? part_window(s, 1, lvl) : window(s, 1, lvl);
-          return reinterpret_cast<uint4*>(const_cast<F*>(base) +
-                                          static_cast<size_t>(r) * lay.wstride) +
-                 c;
-        };
-        for (int base = 0; base < total; base += kHeld * kN) {
-          uint4 held[kHeld];
-#pragma unroll
-          for (int h = 0; h < kHeld; ++h) {
-            const int i = base + h * kN + ptid;
-            if (i < total) held[h] = *piece(i, false);
-          }
-          pipe_sync<kN>(pipe);
-#pragma unroll
-          for (int h = 0; h < kHeld; ++h) {
-            const int i = base + h * kN + ptid;
-            if (i < total) *piece(i, true) = held[h];
-          }
-          pipe_sync<kN>(pipe);
-        }
-      }
+    return ah;
+  };
+  auto store_ahead = [&](const Ahead& ah, int t) {
+    if (!ah.on) return;
+    float* ce = ce_next[pipe][ja];
+    if (lane < PP) {
+      ce[2 * lane] = ah.c.x;
+      ce[2 * lane + 1] = ah.c.y;
     }
+    __syncwarp();
+    EdgePrep& next = table(t, ja);
+    prep_edge<L>(next, unscaled, ce, ah.kk, ah.jj, lane);
+    if (lane < L) next.q[lane] = ah.q;
+    __syncwarp();
+  };
 
-    // the surface of each edge and level into its slot
+  // the surface of each edge and level of step s into its slot
+  auto products = [&](int s) {
+    EdgePrep* const tabs = prep[pipe][s % S::kTables];   // step s's tables
     if constexpr (kMma<G>) {
       // the m-tiles of every edge and level, one warp each in turn
       int tiles[kParts];
@@ -402,7 +426,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
           b.load(g, lay.gstride, PP, c0, lane);
           tile_chunk(d, win, lay.wstride, m0, c0, b, lane);
         }
-        store_tile<S::kRound>(slot_of(j, lvl), lay.ss, m0, d, PP,
+        store_tile<S::kRound>(slot_of(s, j, lvl), lay.ss, m0, d, PP,
                               tabs[j].q[lvl], lane);
       }
     } else {
@@ -426,7 +450,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
         const float q = tabs[j].q[lvl];
         const G* g = gstage(s, j);
         const F* vec = part_window(s, j, lvl) + static_cast<size_t>(pos) * lay.wstride;
-        float* dst = slot_of(j, lvl) + pos * lay.ss;
+        float* dst = slot_of(s, j, lvl) + pos * lay.ss;
         if (PP == 9) {
           float acc[9];
           position_products<9>(g, vec, C, acc);
@@ -446,7 +470,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       const int H = lvl ? H1 : H0, W = lvl ? W1 : W0;
       const F* fbase = ring_slot(ep, lvl);
       const G* g = gstage(s, j);
-      float* slot = slot_of(j, lvl);
+      float* slot = slot_of(s, j, lvl);
       for (int it = ptid; it < PP * kTaps * kTaps; it += kN) {
         const int p = it / (kTaps * kTaps);
         const int tap = it - p * kTaps * kTaps;
@@ -461,25 +485,12 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
                              ep.q[lvl]);
       }
     }
+  };
 
-    if (prep_ahead) {
-      float* ce = ce_next[pipe][ja];
-      if (lane < PP) {
-        ce[2 * lane] = c_next.x;
-        ce[2 * lane + 1] = c_next.y;
-      }
-      __syncwarp();
-      EdgePrep& next = table(s + pdepth, ja);
-      prep_edge<L>(next, unscaled, ce, kk_next, jj_next, lane);
-      if (lane < L) next.q[lane] = q_next;
-      __syncwarp();
-    }
-    pipe_sync<kN>(pipe);                // B(s): the surfaces are complete
-
-    // the stage of step s is read no more: the copies of step s + pdepth
-    if (s + pdepth < count) start_copies(s + pdepth);
-    cp_async_commit();              // a group every step, empty at the end
-
+  // the outputs of step s from its slots: the blended rows, or the raw
+  // surface
+  auto extract = [&](int s) {
+    EdgePrep* const tabs = prep[pipe][s % S::kTables];
     for (int j = 0; j < kStep; ++j) {
       if (!valid(s, j)) continue;
       const EdgePrep& ep = tabs[j];
@@ -489,7 +500,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
         const size_t e = edge(s, j);
         const int ww = ep.ww[0];
         const int n_rows = ww > 0 ? ww * ep.wh[0] : kTaps * kTaps;
-        const float* slot = slot_of(j, 0);
+        const float* slot = slot_of(s, j, 0);
         __nv_bfloat16* dst = args.surface +
                              (e / 8) * static_cast<size_t>(args.rows) * 128 +
                              (e % 8) * 16;
@@ -510,7 +521,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
           const int lvl = outs[k] & 1, p = outs[k] >> 1 & 15;
           const int oy = outs[k] >> 5 & 7, ox = outs[k] >> 8;
           const float fx = ep.fx[lvl][p], fy = ep.fy[lvl][p];
-          const float* slot = slot_of(j, lvl);
+          const float* slot = slot_of(s, j, lvl);
           const int ww = ep.ww[lvl];
           if (ww > 0) {
             const int r = ep.y0[lvl][p] + oy - kRadius - ep.wy0[lvl];
@@ -523,29 +534,125 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
         }
       }
     }
+  };
+
+  // the index tables of the pipeline's first pdepth steps, a warp an edge
+  for (int it = pwarp; it < pdepth * kStep; it += kW) {
+    const int s = it / kStep, j = it % kStep;
+    if (s < count && valid(s, j)) {
+      const size_t e = edge(s, j);
+      prep_edge<L>(table(s, j), a, a.coords + e * PP * 2, a.kk[e], a.jj[e],
+                   lane);
+    }
+  }
+  pipe_sync<kN>(pipe);
+
+  if constexpr (S::kOneBarrier) {
+    // the copies of the first pdepth - 1 steps, a group a step; then
+    // Y(-1): everyone's copies of step 0 landed
+    for (int s = 0; s + 1 < pdepth; ++s) {
+      if (s < count) start_copies(s);
+      cp_async_commit();
+    }
+    cp_async_wait_pending(pdepth - 2);
+    pipe_sync<kN>(pipe);
+    for (int s = 0; s <= count; ++s) {
+      // the stage of step s - 1 is read no more: the copies of s + pdepth - 1
+      if (s + pdepth - 1 < count) start_copies(s + pdepth - 1);
+      cp_async_commit();              // a group every step, empty at the end
+      const Ahead ah = load_ahead(s + pdepth);
+      if constexpr (S::kSched == Sched::kLagged) {
+        if (s < count) products(s);
+        if (s > 0) extract(s - 1);
+      } else {
+        if (s > 0) extract(s - 1);
+        if (s < count) products(s);
+      }
+      store_ahead(ah, s + pdepth);
+      if (s < count) {
+        cp_async_wait_pending(pdepth - 2);  // this thread's copies of s + 1
+        pipe_sync<kN>(pipe);                // Y(s): everyone's; surfaces done
+      }
+    }
+  } else {
+    // the copies of the first pdepth steps, a group a step
+    for (int s = 0; s < pdepth; ++s) {
+      if (s < count) start_copies(s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < count; ++s) {
+      const Ahead ah = load_ahead(s + pdepth);
+      cp_async_wait_pending(pdepth - 1);  // this thread's copies of step s
+      pipe_sync<kN>(pipe);                // A(s): everyone's; slots free
+
+      if constexpr (S::kGather) {
+        // edge 1's rows of each level moved to follow edge 0's: all loads of
+        // a round, a barrier, all stores, a barrier (the rows move down, so a
+        // later round reads nothing an earlier one wrote)
+        if (valid(s, 1)) {
+          constexpr int kHeld = 8;
+          const int per_row = lay.chans * static_cast<int>(sizeof(F)) / 16;
+          const int n0 = rows_in(s, 1, 0) * per_row;
+          const int total = n0 + (L > 1 ? rows_in(s, 1, L - 1) * per_row : 0);
+          auto piece = [&](int i, bool dst) {
+            const int lvl = i >= n0;
+            const int k = i - lvl * n0, r = k / per_row, c = k - r * per_row;
+            const F* base = dst ? part_window(s, 1, lvl) : window(s, 1, lvl);
+            return reinterpret_cast<uint4*>(const_cast<F*>(base) +
+                                            static_cast<size_t>(r) * lay.wstride) +
+                   c;
+          };
+          for (int base = 0; base < total; base += kHeld * kN) {
+            uint4 held[kHeld];
+#pragma unroll
+            for (int h = 0; h < kHeld; ++h) {
+              const int i = base + h * kN + ptid;
+              if (i < total) held[h] = *piece(i, false);
+            }
+            pipe_sync<kN>(pipe);
+#pragma unroll
+            for (int h = 0; h < kHeld; ++h) {
+              const int i = base + h * kN + ptid;
+              if (i < total) *piece(i, true) = held[h];
+            }
+            pipe_sync<kN>(pipe);
+          }
+        }
+      }
+
+      products(s);
+      store_ahead(ah, s + pdepth);
+      pipe_sync<kN>(pipe);                // B(s): the surfaces are complete
+
+      // the stage of step s is read no more: the copies of step s + pdepth
+      if (s + pdepth < count) start_copies(s + pdepth);
+      cp_async_commit();              // a group every step, empty at the end
+      extract(s);
+    }
   }
 }
 
-// Launch a pipeline kernel on `grid` blocks with `smem` bytes of dynamic
-// shared memory; returns the cudaError_t.
-template <typename Kernel, typename Args>
+// Launch a pipeline kernel of shape S on `grid` blocks with `smem` bytes of
+// dynamic shared memory; returns the cudaError_t.
+template <class S, typename Kernel, typename Args>
 int launch_pipe(Kernel kernel, const Args& args, int grid, size_t smem,
                 cudaStream_t st) {
   const cudaError_t err = allow_shared_memory(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kPipeBlock, smem, st>>>(args);
+  kernel<<<grid, S::kBlock, smem, st>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of a pipeline kernel that one SM of the current device holds with
-// `smem` bytes of dynamic shared memory, or minus the cudaError_t.
-template <typename Kernel>
+// Blocks of a pipeline kernel of shape S that one SM of the current device
+// holds with `smem` bytes of dynamic shared memory, or minus the
+// cudaError_t.
+template <class S, typename Kernel>
 int pipe_blocks_per_sm(Kernel kernel, size_t smem) {
   cudaError_t err = allow_shared_memory(kernel, smem);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        kPipeBlock, smem);
+                                                        S::kBlock, smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

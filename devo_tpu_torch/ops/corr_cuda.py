@@ -17,9 +17,10 @@ fallback from one to the other. Nine kernels, one launch counter each
 - "pair", `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch, a
   block per edge, the patch feature shared by the levels and each level's
   window staged by its own group of asynchronous copies;
-- "pair2", `corr_pair2_cuda` (csrc/corr_pair2.cu): the same by persistent
-  blocks that keep the next edge's windows in flight while they compute the
-  current one;
+- "pair2", `corr_pair2_cuda` (csrc/corr_pair2.cu): the same on the edge
+  pipeline, by persistent blocks of 256 threads strided over the edges,
+  several an SM, one barrier a step and the extraction one step behind the
+  products;
 - "split2", `corr_level_pipe_cuda` (csrc/corr_level_pipe.cu): one level per
   launch by such persistent blocks;
 - "g8c", `corr_group_cuda` (csrc/corr_group.cu): one level per launch,
@@ -33,8 +34,9 @@ fallback from one to the other. Nine kernels, one launch counter each
   windows of a level gathered into one run of rows ("mono2") or read where
   the copies landed ("mono4");
 - "mono3", `corr_mono3_cuda` (csrc/corr_mono3.cu): both levels in one launch
-  from a per-edge product surface in shared memory, a block walking a run of
-  edges behind a ring of window copies;
+  on the edge pipeline, one pipeline of 512 threads a block walking a run of
+  edges behind the deepest ring of stages that fits, two rotating product
+  surfaces a level and one barrier a step;
 - "g8", `corr_group8_cuda` (csrc/corr_group8.cu): one level per launch, eight
   consecutive edges a block, their f32 product surfaces kept in the block
   and extracted there;
@@ -103,6 +105,7 @@ _SMEM_SM = 233_472            # shared memory of an SM on sm_90
 _SMEM_RESERVED = 1024         # of which each resident block takes this much
 MONO3_RUN = 64                # edges a corr_mono3 block walks
 MONO3_MAX_DEPTH = 8           # stages of its window ring
+PAIR2_DEPTH = 2               # stages of a corr_pair2 block
 FULL_RUN = 64                 # edges a corr_level_full block walks
 FULL_MAX_DEPTH = 4            # stages of its window ring
 _FIXED_POSITIONS = 16 * 24    # corr_fixed's window
@@ -194,8 +197,11 @@ def _load():
         lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
         lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
         lib.devo_corr_pair.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i, i, ptr]
-        lib.devo_corr_pair2.argtypes = lib.devo_corr_pair.argtypes
-        lib.devo_corr_pair2_blocks_per_sm.argtypes = [i] * 5
+        lib.devo_corr_pair2.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
+                                        + [i] * 4 + [ptr])
+        lib.devo_corr_pair2_smem.argtypes = [i] * 6
+        lib.devo_corr_pair2_smem.restype = ctypes.c_longlong
+        lib.devo_corr_pair2_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_level_pipe.argtypes = lib.devo_corr_level.argtypes
         lib.devo_corr_level_pipe_blocks_per_sm.argtypes = [i] * 5
         lib.devo_corr_group.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
@@ -208,8 +214,10 @@ def _load():
         lib.devo_corr_mono2_smem.argtypes = [i] * 7
         lib.devo_corr_mono2_smem.restype = ctypes.c_longlong
         lib.devo_corr_mono2_blocks_per_sm.argtypes = [i] * 7
-        lib.devo_corr_mono3.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
-                                        + [i] * 4 + [ptr])
+        lib.devo_corr_mono3.argtypes = lib.devo_corr_pair2.argtypes
+        lib.devo_corr_mono3_smem.argtypes = [i] * 6
+        lib.devo_corr_mono3_smem.restype = ctypes.c_longlong
+        lib.devo_corr_mono3_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
         lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 7 + [ptr]
         lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
@@ -229,7 +237,8 @@ def _load():
                    lib.devo_corr_group, lib.devo_corr_group_surface,
                    lib.devo_corr_group_blocks_per_sm, lib.devo_corr_mono2,
                    lib.devo_corr_mono2_blocks_per_sm,
-                   lib.devo_corr_mono3, lib.devo_corr_band_ablate,
+                   lib.devo_corr_mono3, lib.devo_corr_mono3_blocks_per_sm,
+                   lib.devo_corr_band_ablate,
                    lib.devo_corr_frame_probe, lib.devo_copy_probe):
             fn.restype = ctypes.c_int
         lib.devo_cuda_error_string.argtypes = [ctypes.c_int]
@@ -339,7 +348,7 @@ def corr_level_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
 
 
 def _item(dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
+    return dtype.itemsize
 
 
 def pair_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
@@ -348,24 +357,6 @@ def pair_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
     ring's type."""
     PP = P * P
     return (PP * C + 2 * PP * _TAPS) * 4 + 2 * cap * C * _item(ring_dtype)
-
-
-def pair2_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int) -> int:
-    """Dynamic shared memory of a corr_pair2 block: the patch feature and
-    both levels' taps as f32, and two stages, each the raw patch feature
-    (rounded up to 16 bytes) and per level `cap` feature vectors."""
-    PP = P * P
-    graw = -(-PP * C * _item(gmap_dtype) // 16) * 16
-    return ((PP * C + 2 * PP * _TAPS) * 4
-            + 2 * (graw + 2 * cap * C * _item(ring_dtype)))
-
-
-def _pair_smem(name: str, P: int, C: int, gmap_dtype, ring_dtype, cap: int):
-    """Dynamic shared memory of the pair kernel `name` at window size
-    `cap`."""
-    if name == "corr_pair":
-        return pair_smem_bytes(P, C, ring_dtype, cap)
-    return pair2_smem_bytes(P, C, gmap_dtype, ring_dtype, cap)
 
 
 def _fit_cap(smem_of_cap, C: int, ring_dtype, room: int) -> int:
@@ -379,12 +370,10 @@ def _fit_cap(smem_of_cap, C: int, ring_dtype, room: int) -> int:
                  if smem_of_cap(cap) <= room), 0)
 
 
-def pair_cap(name: str, P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Feature vectors of each staged window of the pair kernel `name`
-    ("corr_pair" or "corr_pair2"), see `_fit_cap`."""
-    return _fit_cap(
-        lambda cap: _pair_smem(name, P, C, gmap_dtype, ring_dtype, cap), C,
-        ring_dtype, SMEM_MAX - _PAIR_STATIC)
+def pair_cap(P: int, C: int, ring_dtype) -> int:
+    """Feature vectors of each staged window of corr_pair, see `_fit_cap`."""
+    return _fit_cap(lambda cap: pair_smem_bytes(P, C, ring_dtype, cap), C,
+                    ring_dtype, SMEM_MAX - _PAIR_STATIC)
 
 
 def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
@@ -393,8 +382,10 @@ def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
     staged by asynchronous copies share. `name`: the launch counter, and
     devo_<name> the C function; `smem`: the block's dynamic shared memory at
     window size `cap`; `extra`: the integers the C function takes after the
-    type flags; `rings`: one ring (a per-level kernel, which takes no level
-    strides) or two, as many as the output has levels."""
+    type flags, or a function of E that gives them once the arguments have
+    passed the checks (an occupancy query); `rings`: one ring (a per-level
+    kernel, which takes no level strides) or two, as many as the output has
+    levels."""
     two = len(rings) == 2
     scales = (None,) * len(rings) if scales is None else tuple(scales)
     _check(len(levels) == len(rings) == len(scales),
@@ -411,6 +402,8 @@ def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
     if E == 0:
         return out
     lib = _load()
+    if callable(extra):
+        extra = extra(E)
     sizes = [x for r in rings for x in r.shape[1:3]]
     code = getattr(lib, "devo_" + name)(
         gmap.data_ptr(), *(r.data_ptr() for r in rings),
@@ -430,40 +423,15 @@ def _patch_shape(gmap):
     return gmap.shape[1], gmap.shape[3]
 
 
-def _pair_call(name, gmap, fmap1, fmap2, coords, kk, jj, levels, scales):
-    """corr_pair and corr_pair2; `name` is the kernel's launch counter."""
-    P, C = _patch_shape(gmap)
-    cap = pair_cap(name, P, C, gmap.dtype, fmap1.dtype)
-    return _staged_call(
-        name, _pair_smem(name, P, C, gmap.dtype, fmap1.dtype, cap),
-        _PAIR_STATIC, cap, (), gmap, (fmap1, fmap2), coords, kk, jj, levels,
-        scales)
-
-
 def corr_pair_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
                    scales=None) -> torch.Tensor:
     """Launch csrc/corr_pair.cu. Arguments and result as
     `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
-    return _pair_call("corr_pair", gmap, fmap1, fmap2, coords, kk, jj,
-                      levels, scales)
-
-
-def corr_pair2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
-                    scales=None) -> torch.Tensor:
-    """Launch csrc/corr_pair2.cu. Arguments and result as
-    `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
-    return _pair_call("corr_pair2", gmap, fmap1, fmap2, coords, kk, jj,
-                      levels, scales)
-
-
-def pair2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Blocks of corr_pair2's kernel that one SM of the current CUDA device
-    holds at a time at these sizes (the kernel's grid is that times the
-    number of SMs)."""
-    cap = pair_cap("corr_pair2", P, C, gmap_dtype, ring_dtype)
-    return _occupancy("corr_pair2", _load().devo_corr_pair2_blocks_per_sm(
-        P * P, C, cap, int(gmap_dtype == torch.bfloat16),
-        int(ring_dtype == torch.int8)))
+    P, C = _patch_shape(gmap)
+    cap = pair_cap(P, C, fmap1.dtype)
+    return _staged_call(
+        "corr_pair", pair_smem_bytes(P, C, fmap1.dtype, cap), _PAIR_STATIC,
+        cap, (), gmap, (fmap1, fmap2), coords, kk, jj, levels, scales)
 
 
 def _padded(C: int, ring_dtype) -> int:
@@ -707,51 +675,160 @@ def mono2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
         int(ring_dtype == torch.int8)))
 
 
-def mono3_smem_bytes(P: int, C: int, ring_dtype, cap: int, depth: int) -> int:
-    """Dynamic shared memory of a corr_mono3 block: two slots of the f32 patch
-    feature, of the product scratch (cap positions x P*P a level) and of the
-    tap buffer, and `depth` stages of two windows with padded vectors."""
-    PP = P * P
-    return ((2 * PP * C + 4 * cap * PP + 4 * PP * _TAPS) * 4
-            + depth * 2 * cap * _padded(C, ring_dtype))
+def _sms(device) -> int:
+    """Streaming multiprocessors of the CUDA device `device`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def mono3_plan(P: int, C: int, ring_dtype):
-    """(cap, depth) of corr_mono3: the window size that fits a ring of two
-    stages (see `_fit_cap`), then as many stages, at most MONO3_MAX_DEPTH, as
-    a block's shared memory holds at that size."""
-    cap = _fit_cap(lambda cap: mono3_smem_bytes(P, C, ring_dtype, cap, 2), C,
-                   ring_dtype, SMEM_MAX - _MONO3_STATIC)
-    depth = 2
-    while (depth < MONO3_MAX_DEPTH
-           and mono3_smem_bytes(P, C, ring_dtype, cap, depth + 1)
-           <= SMEM_MAX - _MONO3_STATIC):
-        depth += 1
+def mono3_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                     depth: int) -> int:
+    """Dynamic shared memory of a corr_mono3 block (csrc/corr_mono3.cu on the
+    edge pipeline, one pipeline): `depth` stages, each the patch feature and
+    both levels' windows of `cap` vectors (_stage_bytes), then four surface
+    slots (two rotating slots x two levels)."""
+    return (depth * _stage_bytes(P, C, gmap_dtype, ring_dtype, cap, 2)
+            + 4 * _slot_bytes(P, cap))
+
+
+@functools.lru_cache(maxsize=None)
+def mono3_plan(P: int, C: int, gmap_dtype, ring_dtype):
+    """(cap, depth) of corr_mono3, one block of 512 threads an SM: windows as
+    large as a ring of two stages allows (at most LEVEL_WINDOW_CAP vectors,
+    whole m-tiles of 16 positions for bf16 patch features; 0 where nothing
+    is staged, as mono_plan), then the deepest ring, at most MONO3_MAX_DEPTH
+    stages, that fits. Raises ValueError on what the kernel does not take.
+    Worked out once a shape: the search over window sizes for f32 patch
+    features cost the wrapper more host time than its kernel takes at small
+    E."""
+    stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
+    mma = gmap_dtype == torch.bfloat16
+    room = SMEM_MAX - _MONO3_STATIC
+
+    def smem(cap, depth):
+        return mono3_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, depth)
+
+    cap = _window_cap(lambda cap: smem(cap, 2) <= room, mma) if stageable else 0
+    _check(smem(cap, 2) <= room,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    depth = max(d for d in range(2, MONO3_MAX_DEPTH + 1)
+                if smem(cap, d) <= room)
     return cap, depth
 
 
-def mono3_run(E: int, device) -> int:
-    """Consecutive edges a corr_mono3 block walks: at most MONO3_RUN, and
-    such that the runs come to a whole number of rounds over the SMs of
-    `device` (a block takes an SM to itself): E edges in k rounds of one run
-    an SM, with the least k that keeps a run within MONO3_RUN."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def mono3_run(E: int, sms: int) -> int:
+    """Consecutive edges a corr_mono3 block walks on a device of `sms` SMs:
+    at most MONO3_RUN, and such that the runs come to a whole number of
+    rounds over the SMs (a block takes an SM to itself): E edges in k
+    rounds of one run an SM, with the least k that keeps a run within
+    MONO3_RUN. Block b takes edges b * run .. b * run + run - 1."""
     rounds = max(1, -(-E // (sms * MONO3_RUN)))
     return max(1, -(-E // (sms * rounds)))
 
 
 def corr_mono3_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
                     scales=None) -> torch.Tensor:
-    """Launch csrc/corr_mono3.cu: both levels from a per-edge product surface
-    in shared memory. Arguments and result as `corr_pyramid_cuda`; the plain
-    version is ops/corr.corr_pyramid."""
+    """Launch csrc/corr_mono3.cu: both levels, one pipeline a block with two
+    rotating product surfaces a level. Arguments and result as
+    `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
     P, C = _patch_shape(gmap)
-    cap, depth = mono3_plan(P, C, fmap1.dtype)
-    run = mono3_run(coords.shape[0], gmap.device) if gmap.is_cuda else 1
+    cap, depth = mono3_plan(P, C, gmap.dtype, fmap1.dtype)
+    run = mono3_run(coords.shape[0], _sms(gmap.device)) if gmap.is_cuda else 1
     return _staged_call(
-        "corr_mono3", mono3_smem_bytes(P, C, fmap1.dtype, cap, depth),
+        "corr_mono3",
+        mono3_smem_bytes(P, C, gmap.dtype, fmap1.dtype, cap, depth),
         _MONO3_STATIC, cap, (depth, run), gmap, (fmap1, fmap2), coords, kk, jj,
         levels, scales)
+
+
+def mono3_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_mono3's kernel that one SM of the current CUDA device
+    holds at a time at mono3_plan's sizes (shared memory and registers)."""
+    cap, depth = mono3_plan(P, C, gmap_dtype, ring_dtype)
+    return _occupancy("corr_mono3", _load().devo_corr_mono3_blocks_per_sm(
+        P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8)))
+
+
+def pair2_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
+                     depth: int) -> int:
+    """Dynamic shared memory of a corr_pair2 block (csrc/corr_pair2.cu on the
+    edge pipeline, one pipeline): the layout of corr_mono3's block."""
+    return mono3_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, depth)
+
+
+@functools.lru_cache(maxsize=None)
+def pair2_plan(P: int, C: int, gmap_dtype, ring_dtype):
+    """(cap, depth, blocks an SM) of corr_pair2, whose blocks of 256 threads
+    hold one pipeline of PAIR2_DEPTH stages: two blocks an SM where half an
+    SM holds full windows (LEVEL_WINDOW_CAP vectors) or the ring stages
+    nothing, else one block with windows as large as a block allows (whole
+    m-tiles for bf16 patch features). Smaller windows for a second block
+    lost: at C = 128 on int8 rings, two blocks of windows of 128 vectors
+    took 0.58-0.60 ms at E = 12288 against one block of 144's 0.38-0.40
+    (chip_smoke.py's "structures" lines, PERF.md), the windows beyond 128
+    reading the ring. Raises ValueError on what the kernel does not take.
+    Worked out once a shape, as mono3_plan."""
+    stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
+    mma = gmap_dtype == torch.bfloat16
+
+    def smem(cap):
+        return pair2_smem_bytes(P, C, gmap_dtype, ring_dtype, cap, PAIR2_DEPTH)
+
+    for blocks in (2, 1):
+        room = (_SMEM_SM // 2 - _SMEM_RESERVED if blocks == 2
+                else SMEM_MAX) - _PAIR_STATIC
+        cap = (_window_cap(lambda cap: smem(cap) <= room, mma)
+               if stageable else 0)
+        if cap == (LEVEL_WINDOW_CAP if stageable else 0):
+            break
+    _check(smem(cap) <= room,
+           f"P={P}, C={C} needs more shared memory than a block can have")
+    return cap, PAIR2_DEPTH, blocks
+
+
+def pair2_grid(E: int, sms: int, blocks: int) -> int:
+    """Blocks of corr_pair2's persistent grid on a device of `sms` SMs that
+    hold `blocks` each: as many as the SMs hold at once, at most E. Block b
+    takes edges b, b + grid, b + 2 grid, ..."""
+    return min(E, sms * blocks)
+
+
+def corr_pair2_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                    scales=None) -> torch.Tensor:
+    """Launch csrc/corr_pair2.cu: both levels, persistent blocks of one
+    pipeline strided over the edges, as many an SM as the occupancy query
+    gives. Arguments and result as `corr_pyramid_cuda`; the plain version is
+    ops/corr.corr_pyramid."""
+    P, C = _patch_shape(gmap)
+    cap, depth, _ = pair2_plan(P, C, gmap.dtype, fmap1.dtype)
+
+    def extra(E):
+        blocks = pair2_blocks_per_sm(P, C, gmap.dtype, fmap1.dtype)
+        return depth, pair2_grid(E, _sms(gmap.device), blocks)
+
+    return _staged_call(
+        "corr_pair2",
+        pair2_smem_bytes(P, C, gmap.dtype, fmap1.dtype, cap, depth),
+        _PAIR_STATIC, cap, extra, gmap, (fmap1, fmap2), coords, kk, jj, levels,
+        scales)
+
+
+def pair2_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    """Blocks of corr_pair2's kernel that one SM of the current CUDA device
+    holds at a time at pair2_plan's sizes (the kernel's grid is that times
+    the number of SMs, at most E). Asked once a device and shape: asked on
+    every launch, the query of the f32 instance made those launches
+    host-bound at small E (PERF.md)."""
+    return _pair2_blocks(torch.cuda.current_device(), P, C, gmap_dtype,
+                         ring_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair2_blocks(device: int, P: int, C: int, gmap_dtype, ring_dtype) -> int:
+    cap, depth, _ = pair2_plan(P, C, gmap_dtype, ring_dtype)
+    return _occupancy("corr_pair2", _load().devo_corr_pair2_blocks_per_sm(
+        P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
+        int(ring_dtype == torch.int8)))
 
 
 def group_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,

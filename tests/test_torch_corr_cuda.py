@@ -119,13 +119,13 @@ def test_mono_kernel_runs_of_edges(dev, dtype, E):
         got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
 
 
-@DTYPES
-@pytest.mark.parametrize("order", ["kk runs", "jj runs", "one patch",
-                                   "one frame"])
-def test_mono_kernel_repeated_patches_and_frames(dev, dtype, order):
+REPEATED = pytest.mark.parametrize("order", ["kk runs", "jj runs",
+                                             "one patch", "one frame"])
+
+
+def _repeated_case(dev, dtype, order):
     """Consecutive edges of one patch (the engine's edge table holds runs of
-    one kk) or one ring slot, and a launch on a single patch or slot: the
-    ring's stages then hold the same data several times."""
+    one kk) or one ring slot, or a launch on a single patch or slot."""
     gmap, pyr, coords, kk, jj, scales = _case(dev, dtype, E=1500)
     n = torch.arange(1500, device=dev, dtype=torch.int32)
     if order == "kk runs":
@@ -136,10 +136,18 @@ def test_mono_kernel_repeated_patches_and_frames(dev, dtype, order):
         kk = torch.full_like(kk, 3)
     else:
         jj = torch.full_like(jj, 1)
-    got = corr_cuda.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales)
+    return gmap, pyr, coords, kk, jj, scales
+
+
+@DTYPES
+@REPEATED
+def test_mono_kernel_repeated_patches_and_frames(dev, dtype, order):
+    """Edges that repeat their patch or ring slot (_repeated_case): the
+    ring's stages then hold the same data several times."""
+    *args, scales = _repeated_case(dev, dtype, order)
+    got = corr_cuda.corr_pyramid(*args, scales=scales)
     torch.testing.assert_close(
-        got, corr_plain.corr_pyramid(gmap, pyr, coords, kk, jj, scales=scales),
-        **TOL)
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
 
 
 @DTYPES
@@ -330,9 +338,18 @@ def test_pair_kernels_full_size_rings(dev, kernel):
 
 
 def test_pair2_occupancy_query(dev):
-    assert corr_cuda.pair2_blocks_per_sm(3, 128, torch.bfloat16, torch.int8) >= 1
-    assert corr_cuda.pair2_blocks_per_sm(3, 128, torch.bfloat16,
-                                         torch.bfloat16) >= 1
+    """The SMs hold as many corr_pair2 blocks at once as pair2_plan sized the
+    windows for: one at C = 128 (full windows), two at C = 32; the
+    persistent grid is the SMs times the query's count, at most E."""
+    bf, i8 = torch.bfloat16, torch.int8
+    assert corr_cuda.pair2_plan(3, 32, bf, i8)[2] == 2
+    assert corr_cuda.pair2_blocks_per_sm(3, 32, bf, i8) >= 2
+    for ring in (i8, bf):
+        blocks = corr_cuda.pair2_blocks_per_sm(3, 128, bf, ring)
+        assert blocks >= corr_cuda.pair2_plan(3, 128, bf, ring)[2]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert corr_cuda.pair2_grid(12288, sms, blocks) == sms * blocks
+        assert corr_cuda.pair2_grid(7, sms, blocks) == 7
 
 
 @DTYPES
@@ -606,12 +623,12 @@ def test_group_kernel_is_one_launch_without_stage_2(dev):
     assert corr_plain.extract_calls == calls
 
 
-@pytest.mark.parametrize("kernel", ["g8c", "mono2", "mono4"])
+@pytest.mark.parametrize("kernel", ["g8c", "mono2", "mono4", "mono3", "pair2"])
 @pytest.mark.parametrize("dtype", ["bf16", "i8", "f32"])
 def test_pipeline_kernels_two_launches_are_bitwise_equal(dev, kernel, dtype):
-    """corr_group and corr_mono2 sum in a fixed order: the same inputs give
-    the same bits, staged windows and ring reads (jitter 1 px) in one
-    launch."""
+    """corr_group, corr_mono2, corr_mono3 and corr_pair2 sum in a fixed
+    order: the same inputs give the same bits, staged windows and ring reads
+    (jitter 1 px) in one launch."""
     *args, scales = _case(dev, dtype, E=5003, mem=8, jitter=1.0)
     first = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
     second = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
@@ -634,8 +651,9 @@ def test_mono2_kernel_runs_of_pairs(dev, dtype, E):
 
 
 def test_pipeline_plans_match_the_kernels(dev):
-    """corr_group's and corr_mono2's shared-memory sums are the kernels'
-    own, and one SM holds as many blocks as the plans count on."""
+    """corr_group's, corr_mono2's, corr_mono3's and corr_pair2's
+    shared-memory sums are the kernels' own, and one SM holds as many blocks
+    as the plans count on."""
     lib = corr_cuda._load()
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     for gdt, rdt in ((bf, bf), (bf, i8), (f32, f32), (f32, i8)):
@@ -649,6 +667,14 @@ def test_pipeline_plans_match_the_kernels(dev):
             assert lib.devo_corr_mono2_smem(9, C, cap, depth, pipes, *flags) == (
                 corr_cuda.mono2_smem_bytes(3, C, gdt, rdt, cap, depth, pipes))
             assert corr_cuda.mono2_blocks_per_sm(3, C, gdt, rdt) >= 1
+            cap, depth = corr_cuda.mono3_plan(3, C, gdt, rdt)
+            assert lib.devo_corr_mono3_smem(9, C, cap, depth, *flags) == (
+                corr_cuda.mono3_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.mono3_blocks_per_sm(3, C, gdt, rdt) >= 1
+            cap, depth, blocks = corr_cuda.pair2_plan(3, C, gdt, rdt)
+            assert lib.devo_corr_pair2_smem(9, C, cap, depth, *flags) == (
+                corr_cuda.pair2_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.pair2_blocks_per_sm(3, C, gdt, rdt) >= blocks
 
 
 def test_new_kernels_occupancy_and_plans(dev):
@@ -657,12 +683,75 @@ def test_new_kernels_occupancy_and_plans(dev):
     assert corr_cuda.level_pipe_blocks_per_sm(3, 128, bf, bf) >= 1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for E in (1, 96, 5003, 12288, 42432):
-        run = corr_cuda.mono3_run(E, dev)
+        run = corr_cuda.mono3_run(E, sms)
         blocks = -(-E // run)
         assert 1 <= run <= corr_cuda.MONO3_RUN
         # whole rounds over the SMs, the last one nearly full
         assert blocks <= sms * -(-blocks // sms) and run * blocks >= E
         assert E < sms or blocks % sms == 0 or blocks % sms > sms * 0.9
+
+
+# --- the one-barrier instances of the edge pipeline: "mono3", "pair2" ------
+
+ROTATING = pytest.mark.parametrize("kernel", ["mono3", "pair2"])
+
+
+@ROTATING
+@DTYPES
+@pytest.mark.parametrize("E", [1, 7, 131, 133, 265, 12289])
+def test_rotating_kernels_runs_and_strides(dev, kernel, dtype, E):
+    """corr_mono3's blocks walk runs of mono3_run's length, corr_pair2's
+    blocks every grid-th edge of pair2_grid's persistent grid: one edge,
+    fewer edges than blocks, just more, and an E that neither the run nor
+    the grid divides (the last run is short, the last blocks take one edge
+    fewer)."""
+    *args, scales = _case(dev, dtype, E=E, mem=8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if E == 12289:
+        gdt, rdt = args[0].dtype, args[1][0].dtype
+        step = (corr_cuda.mono3_run(E, sms) if kernel == "mono3" else
+                corr_cuda.pair2_grid(E, sms, corr_cuda.pair2_blocks_per_sm(
+                    3, 128, gdt, rdt)))
+        assert E % step != 0
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
+
+
+@ROTATING
+@DTYPES
+@REPEATED
+def test_rotating_kernels_repeated_patches_and_frames(dev, kernel, dtype, order):
+    """Edges that repeat their patch or ring slot (_repeated_case): the ring's
+    stages and both surface slots then hold the same data."""
+    *args, scales = _repeated_case(dev, dtype, order)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
+
+
+@ROTATING
+@DTYPES
+def test_rotating_kernels_wide_windows(dev, kernel, dtype):
+    """Patches distorted beyond the staged window (jitter 3 px: level-1
+    windows up to ~20x20 vectors) take that level's taps from the ring into
+    the step's surface slot."""
+    *args, scales = _case(dev, dtype, E=400, jitter=3.0)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
+
+
+@ROTATING
+@DTYPES
+@pytest.mark.parametrize("C", [4, 8, 12, 40])
+def test_rotating_kernels_narrow_feature_vectors(dev, kernel, dtype, C):
+    """C below one chunk of 32 channels or not a multiple of it, as
+    test_mono_kernel_narrow_feature_vectors."""
+    *args, scales = _case(dev, dtype, E=300, C=C)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
+    torch.testing.assert_close(
+        got, corr_plain.corr_pyramid(*args, scales=scales), **TOL)
 
 
 # --- CORR_IMPL="pallas" and the kernels "g8" and "full" ---------------------

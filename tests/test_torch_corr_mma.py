@@ -1,12 +1,15 @@
 """The shared-memory plans of the tensor-core correlation kernels
-(csrc/corr.cu, csrc/corr_group.cu, csrc/corr_mono2.cu on the edge pipeline
-of csrc/corr_pipe.cuh, csrc/corr_fixed.cu, csrc/corr_mma.cuh) and the
+(csrc/corr.cu, csrc/corr_group.cu, csrc/corr_mono2.cu, csrc/corr_mono3.cu,
+csrc/corr_pair2.cu on the edge pipeline of csrc/corr_pipe.cuh,
+csrc/corr_fixed.cu, csrc/corr_mma.cuh), the edges their blocks walk, and the
 arithmetic of their fragments, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_corr_cuda.py).
-Here: ops/corr_cuda.mono_plan, group_plan, mono2_plan and fixed_plan /
-fixed_smem_bytes fit a block's shared memory with the stages, pipelines and
-blocks the designs need, and refuse what the kernels do not take; the
+Here: ops/corr_cuda.mono_plan, group_plan, mono2_plan, mono3_plan,
+pair2_plan and fixed_plan / fixed_smem_bytes fit a block's shared memory
+with the stages, pipelines and blocks the designs need, and refuse what the
+kernels do not take; corr_mono3's runs and corr_pair2's persistent grid
+cover every edge once; the
 channel order that corr_mma.cuh gives the mma fragments computes the plain
 product; its int8 -> bf16 conversion is exact for every int8 value; the
 order of corr_group's taps (round to bf16, then scale, then blend) is
@@ -142,9 +145,105 @@ def test_pipeline_plans_at_the_model_width():
         2 * (9 * 160 * 2 + 2 * 128 * 160) + 4 * 128 * 10 * 4)
 
 
+@pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)
+@pytest.mark.parametrize("C", [8, 32, 128])
+def test_mono3_plan_fits_a_block(gmap_dtype, ring_dtype, C):
+    """corr_mono3 at P = 3 (one pipeline of 512 threads, two rotating
+    surface slots a level, one block an SM): every pair fits a block with
+    its static tables and at least the two stages the one-barrier schedule
+    needs, the deepest ring that fits; bf16 patch features stage whole
+    m-tiles and the full 144-vector windows."""
+    cap, depth = corr_cuda.mono3_plan(3, C, gmap_dtype, ring_dtype)
+
+    def smem(depth):
+        return (corr_cuda.mono3_smem_bytes(3, C, gmap_dtype, ring_dtype, cap,
+                                           depth) + corr_cuda._MONO3_STATIC)
+
+    assert smem(depth) <= SMEM_MAX and 2 <= depth <= corr_cuda.MONO3_MAX_DEPTH
+    assert depth == corr_cuda.MONO3_MAX_DEPTH or smem(depth + 1) > SMEM_MAX
+    if gmap_dtype == BF:
+        assert cap == corr_cuda.LEVEL_WINDOW_CAP
+    # the one pipeline's four slots are K1's two pipelines' four
+    assert (corr_cuda.mono3_smem_bytes(3, C, gmap_dtype, ring_dtype, cap, 2)
+            == corr_cuda.mono_smem_bytes(3, C, gmap_dtype, ring_dtype, cap, 2))
+
+
+@pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)
+@pytest.mark.parametrize("C", [8, 32, 128])
+def test_pair2_plan_fits_a_block(gmap_dtype, ring_dtype, C):
+    """corr_pair2 at P = 3 (blocks of one pipeline of 256 threads with two
+    stages): two blocks an SM, each within half an SM with its static tables
+    and reserved bytes, where full windows fit or nothing is staged; else
+    one block with windows as large as a block allows; bf16 patch features
+    stage whole m-tiles."""
+    cap, depth, blocks = corr_cuda.pair2_plan(3, C, gmap_dtype, ring_dtype)
+    smem = (corr_cuda.pair2_smem_bytes(3, C, gmap_dtype, ring_dtype, cap,
+                                       depth) + corr_cuda._PAIR_STATIC)
+    assert depth == corr_cuda.PAIR2_DEPTH == 2 and blocks in (1, 2)
+    assert smem <= (SMEM_SM // 2 - 1024 if blocks == 2 else SMEM_MAX)
+    if blocks == 1:
+        half = (corr_cuda.pair2_smem_bytes(3, C, gmap_dtype, ring_dtype,
+                                           corr_cuda.LEVEL_WINDOW_CAP, depth)
+                + corr_cuda._PAIR_STATIC)
+        more = (corr_cuda.pair2_smem_bytes(
+            3, C, gmap_dtype, ring_dtype, cap + (16 if gmap_dtype == BF else 1),
+            depth)
+            + corr_cuda._PAIR_STATIC)
+        assert cap > 0 and half > SMEM_SM // 2 - 1024
+        assert cap == corr_cuda.LEVEL_WINDOW_CAP or more > SMEM_MAX
+    elif cap:
+        assert cap == corr_cuda.LEVEL_WINDOW_CAP
+    if gmap_dtype == BF:
+        assert cap == corr_cuda.LEVEL_WINDOW_CAP
+
+
+def _run_edges(E, run):
+    """The edges of each block of a kernel whose blocks walk runs of `run`
+    consecutive edges (csrc/corr_pipe.cuh, Order::kRuns): block b takes
+    b * run .. min(E, b * run + run) - 1."""
+    return [list(range(b * run, min(E, b * run + run)))
+            for b in range(-(-E // run))]
+
+
+def _strided_edges(E, grid):
+    """The edges of each block of a persistent grid of `grid` blocks
+    (Order::kStrided): block b takes b, b + grid, b + 2 grid, ... below E."""
+    return [list(range(b, E, grid)) for b in range(grid)]
+
+
+@pytest.mark.parametrize("E", [0, 1, 131, 5003, 12288])
+def test_rotating_kernels_cover_every_edge_once(E):
+    """On an H100's 132 SMs, corr_mono3's runs (mono3_run) and corr_pair2's
+    persistent grid at one and two blocks an SM (pair2_grid) give every
+    edge to exactly one block, and no block none; corr_mono3's blocks come
+    to whole rounds over the SMs but for a short last round, and its runs
+    stay within MONO3_RUN."""
+    sms = 132
+    assignments = []
+    if E:
+        run = corr_cuda.mono3_run(E, sms)
+        assert 1 <= run <= corr_cuda.MONO3_RUN
+        blocks = -(-E // run)
+        assert blocks <= sms or blocks % sms == 0 or blocks % sms > 0.9 * sms
+        assignments.append(_run_edges(E, run))
+        for per_sm in (1, 2):
+            grid = corr_cuda.pair2_grid(E, sms, per_sm)
+            assert grid == min(E, sms * per_sm)
+            assignments.append(_strided_edges(E, grid))
+    else:
+        # the wrappers launch nothing at E = 0
+        assert corr_cuda.pair2_grid(0, sms, 2) == 0
+    for blocks in assignments:
+        assert all(blocks)
+        edges = sorted(e for block in blocks for e in block)
+        assert edges == list(range(E))
+
+
 PLANS = {"mono": lambda P, C: corr_cuda.mono_plan(P, C, BF, I8),
          "group": lambda P, C: corr_cuda.group_plan(P, C, BF, I8),
          "mono2": lambda P, C: corr_cuda.mono2_plan(P, C, BF, I8),
+         "mono3": lambda P, C: corr_cuda.mono3_plan(P, C, BF, I8),
+         "pair2": lambda P, C: corr_cuda.pair2_plan(P, C, BF, I8),
          "fixed": lambda P, C: corr_cuda.fixed_plan(P, C, BF)}
 
 

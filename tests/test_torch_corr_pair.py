@@ -129,25 +129,34 @@ def test_l4_resident_rules_for_the_pair_kernels(kernel):
 
 
 def test_pair_shared_memory_budget():
-    """At the slice's width both kernels fit a block's 232,448 bytes with
-    the full 144-vector windows on int8 and bf16 rings; corr_pair2 on f32
-    rings stages smaller windows; a feature vector that is no multiple of
-    16 bytes stages nothing."""
+    """At the slice's width corr_pair fits a block's 232,448 bytes with the
+    full 144-vector windows on int8, bf16 and f32 rings. corr_pair2 (the
+    edge pipeline, blocks of one pipeline with two stages and two rotating
+    slots a level) takes one block an SM with full windows on int8 and bf16
+    rings (two blocks on int8 rings would need windows of 128 vectors),
+    smaller windows on f32 rings, two blocks at narrow widths; a feature
+    vector that is no multiple of 16 bytes stages nothing."""
     i8, bf, f32 = torch.int8, torch.bfloat16, torch.float32
     assert corr_cuda.pair_smem_bytes(3, 128, i8, 144) == 9216 + 2 * 18_432
     assert corr_cuda.pair_smem_bytes(3, 128, bf, 144) == 9216 + 2 * 36_864
-    assert corr_cuda.pair2_smem_bytes(3, 128, bf, i8, 144) == (
-        9216 + 2 * (2304 + 2 * 18_432))
-    assert corr_cuda.pair2_smem_bytes(3, 128, bf, bf, 144) == (
-        9216 + 2 * (2304 + 2 * 36_864))
-
-    def cap2(g, r, C=128):
-        return corr_cuda.pair_cap("corr_pair2", 3, C, g, r)
-
-    assert cap2(bf, i8) == cap2(bf, bf) == 144
-    assert 100 <= cap2(f32, f32) < 144
-    assert corr_cuda.pair2_smem_bytes(3, 128, f32, f32, cap2(f32, f32)) <= (
+    assert corr_cuda.pair_cap(3, 128, f32) == 144
+    # two stages of the bf16 patch rows (9 x 160 channels) and two windows,
+    # then four f32 surface slots of the window's rows (10 floats each)
+    assert corr_cuda.pair2_smem_bytes(3, 128, bf, i8, 144, 2) == (
+        2 * (2880 + 2 * 144 * 160) + 4 * 144 * 10 * 4) == 120_960
+    assert corr_cuda.pair2_smem_bytes(3, 128, bf, i8, 128, 2) == (
+        2 * (2880 + 2 * 128 * 160) + 4 * 128 * 10 * 4) == 108_160
+    assert corr_cuda.pair2_smem_bytes(3, 128, bf, bf, 144, 2) == (
+        2 * (2880 + 2 * 144 * 320) + 4 * 144 * 10 * 4) == 213_120
+    assert corr_cuda.pair2_plan(3, 128, bf, i8) == (144, 2, 1)
+    assert corr_cuda.pair2_plan(3, 128, bf, bf) == (144, 2, 1)
+    cap, depth, blocks = corr_cuda.pair2_plan(3, 128, f32, f32)
+    assert blocks == 1 and 64 <= cap < 144
+    assert corr_cuda.pair2_smem_bytes(3, 128, f32, f32, cap, depth) <= (
         corr_cuda.SMEM_MAX - 4096)
-    assert cap2(bf, bf, C=12) == 0 and cap2(bf, i8, C=8) == 0
-    assert cap2(bf, i8, C=16) == 144
-    assert corr_cuda.pair_cap("corr_pair", 3, 128, f32, f32) == 144
+    # two blocks an SM, each with 1,024 bytes reserved and its static tables
+    assert 2 * (corr_cuda.pair2_smem_bytes(3, 128, bf, i8, 128, 2) + 4096
+                + 1024) <= 233_472
+    assert corr_cuda.pair2_plan(3, 12, bf, bf)[0] == 144   # staged in chunks
+    assert corr_cuda.pair2_plan(3, 8, f32, i8) == (0, 2, 2)
+    assert corr_cuda.pair2_plan(3, 16, bf, i8) == (144, 2, 2)

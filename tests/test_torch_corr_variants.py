@@ -273,19 +273,24 @@ def test_new_kernels_shared_memory_plans():
         cap, depth, pipes = cc.mono2_plan(3, 128, bf, ring)
         assert cc.mono2_smem_bytes(3, 128, bf, ring, cap, depth, pipes) <= room - 5120
     assert cc.mono2_plan(3, 8, f32, i8)[0] == 0
-    # corr_mono3: two slots of patch feature, scratch and tap buffer, and a
-    # ring of padded windows as deep as fits
-    assert cc.mono3_smem_bytes(3, 128, i8, 144, 4) == (
-        9216 + 20_736 + 9216 + 4 * 2 * 144 * 144)
-    assert cc.mono3_plan(3, 128, i8) == (144, 4)
-    assert cc.mono3_plan(3, 128, bf) == (144, 2)
-    cap, depth = cc.mono3_plan(3, 128, f32)
+    # corr_mono3 (the edge pipeline, one pipeline of one edge a step, two
+    # rotating slots a level): the deepest ring that fits, each stage the
+    # bf16 patch rows (9 x 160 channels) and two windows of 144 rows, then
+    # four f32 surface slots (144 rows of 10): four int8 stages (K1's own
+    # total), two bf16 ones
+    assert cc.mono3_smem_bytes(3, 128, bf, i8, 144, 4) == (
+        4 * (2880 + 2 * 144 * 160) + 4 * 144 * 10 * 4) == 218_880
+    assert cc.mono3_smem_bytes(3, 128, bf, bf, 144, 2) == (
+        2 * (2880 + 2 * 144 * 320) + 4 * 144 * 10 * 4) == 213_120
+    assert cc.mono3_plan(3, 128, bf, i8) == (144, 4)
+    assert cc.mono3_plan(3, 128, bf, bf) == (144, 2)
+    cap, depth = cc.mono3_plan(3, 128, f32, f32)
     assert depth == 2 and 64 <= cap < 144
-    for ring in (i8, bf, f32):
-        cap, depth = cc.mono3_plan(3, 128, ring)
-        assert cc.mono3_smem_bytes(3, 128, ring, cap, depth) <= room - 6144
-        assert cc.mono3_smem_bytes(3, 128, ring, cap, depth + 1) > room - 6144
-    assert cc.mono3_plan(3, 8, i8) == (0, cc.MONO3_MAX_DEPTH)
+    for gdt, ring in ((bf, i8), (bf, bf), (f32, f32)):
+        cap, depth = cc.mono3_plan(3, 128, gdt, ring)
+        assert cc.mono3_smem_bytes(3, 128, gdt, ring, cap, depth) <= room - 6144
+        assert cc.mono3_smem_bytes(3, 128, gdt, ring, cap, depth + 1) > room - 6144
+    assert cc.mono3_plan(3, 8, f32, i8) == (0, cc.MONO3_MAX_DEPTH)
     # corr_group (the edge pipeline, one level): two blocks an SM with
     # rings of two stages of full windows on int8 and bf16 rings, each stage
     # the bf16 patch rows and one window, two f32 surface slots a block
