@@ -3,11 +3,11 @@
 // feature vector as floats (f32, bf16 or int8 storage), the per-thread dot
 // product over the channels, the bilinear blend, and the launch helper that
 // opts a kernel in to more than 48 KB of dynamic shared memory; and, for the
-// kernels that stage an edge's windows by asynchronous copies (corr_pair.cu,
-// corr_level_pipe.cu, corr_group8.cu, corr_level_full.cu, and the edge
-// pipeline of corr_pipe.cuh), the copies, the per-edge index table, the
-// staging of a level's window, one tap's dot, the blended row, and the
-// products of one window position with every pixel of the patch.
+// kernels that stage an edge's windows by asynchronous copies
+// (corr_level_pipe.cu, corr_level_full.cu, and the edge pipeline of
+// corr_pipe.cuh), the copies, the per-edge index table, the staging of a
+// level's window, one tap's dot, the blended row, and the products of one
+// window position with every pixel of the patch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -299,22 +299,6 @@ __device__ __forceinline__ float pair_tap(const float* g, const F* win,
   return acc * ep.q[lvl];
 }
 
-// The edge's output row from its taps ((2, PP, 8, 8) in shared memory):
-// dst[((ox * 7 + oy) * PP + p) * 2 + lvl], by all threads of the block.
-__device__ __forceinline__ void blend_pair_row(float* dst, const float* taps,
-                                               const EdgePrep& ep, int PP,
-                                               int tid, int nthreads) {
-  const int n_out = 2 * kOut * kOut * PP;
-  for (int o = tid; o < n_out; o += nthreads) {
-    const int lvl = o & 1;
-    const int q = o >> 1;
-    const int p = q % PP;
-    const int t = q / PP;
-    dst[o] = blend_frac(taps + (lvl * PP + p) * kTaps * kTaps, t / kOut,
-                        t % kOut, ep.fx[lvl][p], ep.fy[lvl][p]);
-  }
-}
-
 // One level's output row from its taps ((PP, 8, 8) in shared memory):
 // dst[(ox * 7 + oy) * PP + p], by the threads tid = 0 .. nthreads - 1.
 __device__ __forceinline__ void blend_level_row(float* dst, const float* taps,
@@ -330,8 +314,8 @@ __device__ __forceinline__ void blend_level_row(float* dst, const float* taps,
 }
 
 // ---------------------------------------------------------------------------
-// The product surface of a staged window (corr_group8.cu,
-// corr_level_full.cu, and corr_pipe.cuh for f32 patch features): one
+// The product surface of a staged window (corr_level_full.cu, and
+// corr_pipe.cuh for f32 patch features): one
 // thread takes one window position and dots its feature vector with every
 // pixel of the patch, so the vector leaves shared memory once for PP dots and
 // the patch feature, which all lanes read at the same address, is broadcast.

@@ -13,8 +13,8 @@
 // idles through an extraction; its output block lags one step. On the TPU the
 // grid runs in order and carries the copies from one step to the next; here
 // blocks run in no order and share nothing, so a loop inside the block takes
-// the grid's place, and it is to csrc/corr_level.cu what csrc/corr_pair2.cu
-// is to csrc/corr_pair.cu. None of the TPU's shapes is kept: plain
+// the grid's place, and it is to csrc/corr_level.cu what `_kernel_banded_pair2`
+// is to `_kernel_banded_pair`. None of the TPU's shapes is kept: plain
 // (mem, h, w, C) rings, no bands, stagger, 24-wide windows, R double buffer
 // or strip output; out-of-image taps are zero by a bounds check, and the
 // blended (E, 441) f32 feature is written here.

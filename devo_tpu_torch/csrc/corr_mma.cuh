@@ -38,11 +38,11 @@
 // level) but the bytes that reach shared memory and the reads of A from it.
 //
 // Users: the edge pipeline of csrc/corr_pipe.cuh (csrc/corr.cu,
-// corr_group.cu, corr_mono2.cu, corr_mono3.cu, corr_pair2.cu: covering
-// windows, bf16 and int8 rings) and csrc/corr_fixed.cu (the fixed 16x24
-// window, bf16 rings). The window products of csrc/corr_group8.cu,
-// corr_level_full.cu, corr_band_ablate.cu and corr_frame_probe.cu are the
-// same operation on the CUDA cores.
+// corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
+// corr_group8.cu: covering windows, bf16 and int8 rings) and
+// csrc/corr_fixed.cu (the fixed 16x24 window, bf16 rings). The window
+// products of csrc/corr_level_full.cu, corr_band_ablate.cu and
+// corr_frame_probe.cu are the same operation on the CUDA cores.
 #pragma once
 
 #include "corr_common.cuh"

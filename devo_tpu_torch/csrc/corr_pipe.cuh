@@ -1,6 +1,6 @@
-// The edge pipeline that the tensor-core correlation kernels share
-// (csrc/corr.cu, corr_group.cu, corr_mono2.cu, corr_mono3.cu,
-// corr_pair2.cu): a block walks its edges as one or two independent
+// The edge pipeline that seven correlation kernels share (csrc/corr.cu,
+// corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
+// corr_group8.cu): a block walks its edges as one or two independent
 // pipelines, each behind a ring of stages in shared memory that hold an
 // edge's patch feature and the covering window of each of its levels (the
 // union of the pixels' 8x8 tap grids), copied by cp.async with zeros off the
@@ -136,7 +136,8 @@ __device__ __forceinline__ void pipe_sync(int pipe) {
 // and then the windows (cap rows of wstride elements of F) of level 0 of
 // each edge, of level 1 of each edge; then kPipes x kSlots x kStep x kLevels
 // surface slots of `slot` floats. The wrapper's ops/corr_cuda sums
-// (mono_smem_bytes, group_smem_bytes, mono2_smem_bytes, mono3_smem_bytes,
+// (mono_smem_bytes for corr.cu and corr_pair.cu, group_smem_bytes for
+// corr_group.cu and corr_group8.cu, mono2_smem_bytes, mono3_smem_bytes,
 // pair2_smem_bytes) are the same.
 template <typename G, typename F, class S>
 struct PipeLayout {

@@ -14,9 +14,9 @@ fallback from one to the other. Nine kernels, one launch counter each
 - `resident`, `corr_level_resident_cuda` (csrc/corr_level_resident.cu): the
   last level of a per-level kernel from an int8 ring slot held in a block's
   shared memory;
-- "pair", `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch, a
-  block per edge, the patch feature shared by the levels and each level's
-  window staged by its own group of asynchronous copies;
+- "pair", `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch,
+  an instance of the edge pipeline in corr_pyramid's shape, schedule and
+  plan;
 - "pair2", `corr_pair2_cuda` (csrc/corr_pair2.cu): the same on the edge
   pipeline, by persistent blocks of 256 threads strided over the edges,
   several an SM, one barrier a step and the extraction one step behind the
@@ -37,9 +37,9 @@ fallback from one to the other. Nine kernels, one launch counter each
   on the edge pipeline, one pipeline of 512 threads a block walking a run of
   edges behind the deepest ring of stages that fits, two rotating product
   surfaces a level and one barrier a step;
-- "g8", `corr_group8_cuda` (csrc/corr_group8.cu): one level per launch, eight
-  consecutive edges a block, their f32 product surfaces kept in the block
-  and extracted there;
+- "g8", `corr_group8_cuda` (csrc/corr_group8.cu): one level per launch on
+  the edge pipeline in corr_group's shape and plan, the f32 product surface
+  kept in the block, every tap exact;
 - "full", `corr_level_full_cuda` (csrc/corr_level_full.cu): one level per
   launch, a block walking a run of edges with the copy, the product surface
   and the extraction of every edge interleaved; its stage instances
@@ -94,11 +94,12 @@ _TAPS = (2 * _RADIUS + 2) ** 2          # integer taps of one pixel
 _FEATS = (2 * _RADIUS + 1) ** 2         # blended offsets of one pixel
 SMEM_MAX = 232_448            # the most a block can have on sm_90
 LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
-_PAIR_STATIC = 4096           # bound on the static shared memory of the pair
-                              #   kernels (their per-edge index tables)
+_PAIR_STATIC = 4096           # bound on the static shared memory of
+                              #   corr_level_pipe and corr_pair2 (their
+                              #   per-edge index tables)
 _MONO3_STATIC = 6144          # the same of corr_mono3 (ten such tables)
-_MONO_STATIC = 4096           # and of corr_pyramid and corr_group (six)
-_GROUP_STATIC = 5120          # and of corr_group8 (eight)
+_MONO_STATIC = 4096           # and of corr_pyramid, corr_pair, corr_group
+                              #   and corr_group8 (six)
 _MONO2_STATIC = 5120          # and of corr_mono2 (eight)
 _FULL_STATIC = 4096           # and of corr_level_full (six)
 _SMEM_SM = 233_472            # shared memory of an SM on sm_90
@@ -196,7 +197,10 @@ def _load():
         lib.devo_corr_fixed_blocks_per_sm.argtypes = [i] * 3
         lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
         lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
-        lib.devo_corr_pair.argtypes = [ptr] * 9 + [i] * 8 + [f] * 2 + [i, i, ptr]
+        lib.devo_corr_pair.argtypes = lib.devo_corr_pyramid.argtypes
+        lib.devo_corr_pair_smem.argtypes = [i] * 6
+        lib.devo_corr_pair_smem.restype = ctypes.c_longlong
+        lib.devo_corr_pair_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_pair2.argtypes = ([ptr] * 9 + [i] * 8 + [f] * 2
                                         + [i] * 4 + [ptr])
         lib.devo_corr_pair2_smem.argtypes = [i] * 6
@@ -219,13 +223,18 @@ def _load():
         lib.devo_corr_mono3_smem.restype = ctypes.c_longlong
         lib.devo_corr_mono3_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_fixed.argtypes = [ptr] * 6 + [i] * 6 + [ptr]
-        lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 7 + [ptr]
+        lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+        lib.devo_corr_group8_smem.argtypes = [i] * 5
+        lib.devo_corr_group8_smem.restype = ctypes.c_longlong
+        lib.devo_corr_group8_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
         lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
         lib.devo_corr_frame_probe.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
         lib.devo_copy_probe.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
                                         + [i] * 9 + [ptr])
         for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
+                   lib.devo_corr_group8_blocks_per_sm,
+                   lib.devo_corr_pair_blocks_per_sm,
                    lib.devo_corr_level_full, lib.devo_corr_pyramid,
                    lib.devo_corr_pyramid_blocks_per_sm,
                    lib.devo_corr_fixed_blocks_per_sm,
@@ -351,14 +360,6 @@ def _item(dtype) -> int:
     return dtype.itemsize
 
 
-def pair_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
-    """Dynamic shared memory of a corr_pair block: the patch feature and
-    both levels' taps as f32, and per level `cap` feature vectors of the
-    ring's type."""
-    PP = P * P
-    return (PP * C + 2 * PP * _TAPS) * 4 + 2 * cap * C * _item(ring_dtype)
-
-
 def _fit_cap(smem_of_cap, C: int, ring_dtype, room: int) -> int:
     """Feature vectors of each staged window of a kernel whose block takes
     `smem_of_cap(cap)` bytes of shared memory: LEVEL_WINDOW_CAP, fewer where
@@ -368,12 +369,6 @@ def _fit_cap(smem_of_cap, C: int, ring_dtype, room: int) -> int:
         return 0
     return next((cap for cap in range(LEVEL_WINDOW_CAP, 0, -1)
                  if smem_of_cap(cap) <= room), 0)
-
-
-def pair_cap(P: int, C: int, ring_dtype) -> int:
-    """Feature vectors of each staged window of corr_pair, see `_fit_cap`."""
-    return _fit_cap(lambda cap: pair_smem_bytes(P, C, ring_dtype, cap), C,
-                    ring_dtype, SMEM_MAX - _PAIR_STATIC)
 
 
 def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
@@ -421,17 +416,6 @@ def _patch_shape(gmap):
     the other checks."""
     _check(gmap.ndim == 4, f"gmap must be (M, P, P, C), got {tuple(gmap.shape)}")
     return gmap.shape[1], gmap.shape[3]
-
-
-def corr_pair_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
-                   scales=None) -> torch.Tensor:
-    """Launch csrc/corr_pair.cu. Arguments and result as
-    `corr_pyramid_cuda`; the plain version is ops/corr.corr_pyramid."""
-    P, C = _patch_shape(gmap)
-    cap = pair_cap(P, C, fmap1.dtype)
-    return _staged_call(
-        "corr_pair", pair_smem_bytes(P, C, fmap1.dtype, cap), _PAIR_STATIC,
-        cap, (), gmap, (fmap1, fmap2), coords, kk, jj, levels, scales)
 
 
 def _padded(C: int, ring_dtype) -> int:
@@ -544,6 +528,7 @@ def mono_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
             + 4 * _slot_bytes(P, cap))
 
 
+@functools.lru_cache(maxsize=None)
 def mono_plan(P: int, C: int, gmap_dtype, ring_dtype):
     """(cap, depth, blocks an SM) of corr_pyramid, whose block of 512 threads
     (two halves, each its own pipeline of edges with depth / 2 stages) takes
@@ -552,7 +537,7 @@ def mono_plan(P: int, C: int, gmap_dtype, ring_dtype):
     patch features), then four stages where they fit. f32 patch features on
     a ring whose vector is no multiple of 16 bytes stage nothing (cap = 0:
     every tap reads the ring). Raises ValueError on what the kernel does
-    not take."""
+    not take. Worked out once a shape, as mono3_plan."""
     stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
     mma = gmap_dtype == torch.bfloat16
     room = SMEM_MAX - _MONO_STATIC
@@ -592,13 +577,40 @@ def corr_pyramid_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
         levels, scales)
 
 
-def mono_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Blocks of corr_pyramid's kernel that one SM of the current CUDA device
-    holds at a time at mono_plan's sizes (shared memory and registers)."""
+def _blocks_per_sm(kernel: str, plan) -> int:
+    """Blocks of `kernel` (a launch counter's name, its C entry point
+    devo_<kernel>_blocks_per_sm) that one SM of the current CUDA device
+    holds at a time at the sizes of `plan`, (P, C, gmap dtype, ring dtype,
+    cap, depth): shared memory and registers."""
+    P, C, gmap_dtype, ring_dtype, cap, depth = plan
+    query = getattr(_load(), f"devo_{kernel}_blocks_per_sm")
+    return _occupancy(kernel, query(P * P, C, cap, depth,
+                                    int(gmap_dtype == torch.bfloat16),
+                                    int(ring_dtype == torch.int8)))
+
+
+def mono_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype,
+                       kernel: str = "corr_pyramid") -> int:
+    """Blocks of corr_pyramid's kernel, or of corr_pair's (`kernel`), that
+    one SM of the current CUDA device holds at a time at mono_plan's
+    sizes."""
     cap, depth, _ = mono_plan(P, C, gmap_dtype, ring_dtype)
-    return _occupancy("corr_pyramid", _load().devo_corr_pyramid_blocks_per_sm(
-        P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
-        int(ring_dtype == torch.int8)))
+    return _blocks_per_sm(kernel, (P, C, gmap_dtype, ring_dtype, cap, depth))
+
+
+def corr_pair_cuda(gmap, fmap1, fmap2, coords, kk, jj, levels=(1, 4),
+                   scales=None) -> torch.Tensor:
+    """Launch csrc/corr_pair.cu, corr_pyramid's instance of the edge
+    pipeline under its own name, at mono_plan and mono_run. Arguments and
+    result as `corr_pyramid_cuda`; the plain version is
+    ops/corr.corr_pyramid."""
+    P, C = _patch_shape(gmap)
+    cap, depth, _ = mono_plan(P, C, gmap.dtype, fmap1.dtype)
+    run = mono_run(coords.shape[0], gmap.device) if gmap.is_cuda else 1
+    return _staged_call(
+        "corr_pair", mono_smem_bytes(P, C, gmap.dtype, fmap1.dtype, cap, depth),
+        _MONO_STATIC, cap, (depth, run), gmap, (fmap1, fmap2), coords, kk, jj,
+        levels, scales)
 
 
 MONO2_PIPES_CAP = 128         # windows below which corr_mono2 keeps one
@@ -841,13 +853,15 @@ def group_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int,
             + 2 * _slot_bytes(P, cap))
 
 
+@functools.lru_cache(maxsize=None)
 def group_plan(P: int, C: int, gmap_dtype, ring_dtype):
     """(cap, depth, blocks an SM) of corr_group, whose block of 512 threads
     holds two pipelines of edges: two blocks an SM where half its shared
     memory holds a ring of two stages of full windows (LEVEL_WINDOW_CAP
     vectors) or the ring stages nothing, else one block with windows as
     large as two stages allow; then four stages where they fit that share.
-    Raises ValueError on what the kernel does not take."""
+    Raises ValueError on what the kernel does not take. Worked out once a
+    shape, as mono3_plan."""
     stageable = _pipe_checks(P, C, gmap_dtype, ring_dtype)
     mma = gmap_dtype == torch.bfloat16
 
@@ -916,13 +930,13 @@ def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
     return surface, cap
 
 
-def group_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Blocks of corr_group's kernel that one SM of the current CUDA device
-    holds at a time at group_plan's sizes (shared memory and registers)."""
+def group_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype,
+                        kernel: str = "corr_group") -> int:
+    """Blocks of corr_group's kernel, or of corr_group8's (`kernel`, float
+    rings), that one SM of the current CUDA device holds at a time at
+    group_plan's sizes."""
     cap, depth, _ = group_plan(P, C, gmap_dtype, ring_dtype)
-    return _occupancy("corr_group", _load().devo_corr_group_blocks_per_sm(
-        P * P, C, cap, depth, int(gmap_dtype == torch.bfloat16),
-        int(ring_dtype == torch.int8)))
+    return _blocks_per_sm(kernel, (P, C, gmap_dtype, ring_dtype, cap, depth))
 
 
 def resident_smem_bytes(h: int, w: int, C: int, P: int) -> int:
@@ -1045,30 +1059,12 @@ def corr_fixed_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
     return out
 
 
-def group8_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
-    """Dynamic shared memory of a corr_group8 block: two parities of two
-    edges' f32 patch features, eight f32 surface slots of max(cap, 64)
-    positions, and two parities of two windows with padded vectors."""
-    PP = P * P
-    return ((4 * PP * C + 8 * max(cap, _TAPS) * PP) * 4
-            + 4 * cap * _padded(C, ring_dtype))
-
-
-def group8_cap(P: int, C: int, ring_dtype) -> int:
-    """Positions of corr_group8's staged windows; an edge whose window has
-    more keeps its taps in its surface slot instead."""
-    return _fit_cap(lambda cap: group8_smem_bytes(P, C, ring_dtype, cap), C,
-                    ring_dtype, SMEM_MAX - _GROUP_STATIC)
-
-
 def corr_group8_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
-    """Launch csrc/corr_group8.cu, one pyramid level, eight edges a block
-    (CORR_KERNEL="g8"). Arguments and result as `corr_fixed_cuda`; the plain
-    version is ops/corr.corr_level."""
+    """Launch csrc/corr_group8.cu, one pyramid level on corr_group's pipeline
+    and plan with exact taps (CORR_KERNEL="g8"). Arguments and result as
+    `corr_fixed_cuda`; the plain version is ops/corr.corr_level."""
     E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
-    cap = group8_cap(P, C, fmap.dtype)
-    _check(group8_smem_bytes(P, C, fmap.dtype, cap) <= SMEM_MAX - _GROUP_STATIC,
-           f"P={P}, C={C} needs more shared memory than a block can have")
+    cap, depth, blocks = group_plan(P, C, gmap.dtype, fmap.dtype)
     out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
                       device=gmap.device)
     if E == 0:
@@ -1077,7 +1073,8 @@ def corr_group8_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
     code = lib.devo_corr_group8(
         gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
         jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap.shape[1],
-        fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16),
+        fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16), depth,
+        group_run(E, gmap.device, blocks),
         torch.cuda.current_stream(gmap.device).cuda_stream)
     _launched("corr_group8", code)
     return out

@@ -1,0 +1,147 @@
+"""The parts of chip_smoke.py that run on the CPU: the order of the kernel
+work (rule2_loss), which charges each path's launches at the variant that
+path runs (path_variants: the ring type of the path's configuration by the
+engine's rule), on a made-up record of the kernel phase and the paths'
+launches.
+"""
+import pytest
+import torch
+
+import chip_smoke
+
+E = chip_smoke.E_MAIN
+
+
+def _kernel(name, reported, variants):
+    """A made-up entry of the kernels' JSON record: the reported variant's
+    (ms, bound_ms) and every variant's {label: (ms, bound_ms)} at E_MAIN,
+    with a decoy at another E that must not be read."""
+    return dict(name=name, ms=reported[0], bound_ms=reported[1], variants=[
+        dict(label=label, E=E, ms=ms, bound_ms=b)
+        for label, (ms, b) in variants.items()] + [
+        dict(label=label, E=96, ms=100.0, bound_ms=0.0) for label in variants])
+
+
+KERNELS = [
+    _kernel("corr_pair", (0.568, 0.0361), {"both levels i8": (0.568, 0.0361),
+                                           "both levels bf16": (0.70, 0.057)}),
+    _kernel("corr_group8", (0.5316, 0.0476),
+            {"level 1 bf16": (0.5316, 0.0476), "level 4 bf16": (0.4962, 0.0118)}),
+    _kernel("corr_pyramid", (0.26, 0.0361), {"both levels i8": (0.26, 0.0361),
+                                             "both levels bf16": (0.28, 0.057)}),
+    _kernel("corr_level", (0.26, 0.0282),
+            {"level 1 i8": (0.26, 0.0282), "level 4 i8": (0.25, 0.0103)}),
+    _kernel("corr_level_resident", (0.39, 0.0103), {"level 4 i8": (0.39, 0.0103)}),
+    _kernel("corr_mono2", (0.42, 0.0361),
+            {"both levels i8 gathered": (0.42, 0.0361),
+             "both levels i8 in place": (0.34, 0.0361)}),
+]
+
+
+def _losses(by_path):
+    paths = {label: {k["name"]: 0 for k in KERNELS} | launched
+             for label, launched in by_path.items()}
+    return chip_smoke.rule2_loss(KERNELS, paths, list(paths))
+
+
+def test_bf16_path_and_two_level_kernel_at_their_own_variants():
+    """K5' on its bf16 eval path at its bf16 time and bound (not the int8
+    one the JSON record reports), K9''s launches half at level 1 and half at
+    level 4 (not all at level 1), K1 on an int8 and a bf16 path each at its
+    own ring."""
+    loss = _losses({"eval-eds-bf16-pair": {"corr_pair": 142},
+                    "bf16-g8": {"corr_group8": 142},
+                    "i8-mono": {"corr_pyramid": 71},
+                    "bf16-mono": {"corr_pyramid": 71}})
+    assert loss["corr_pair"] == pytest.approx(142 * (0.70 - 0.057))
+    assert loss["corr_group8"] == pytest.approx(
+        71 * (0.5316 - 0.0476) + 71 * (0.4962 - 0.0118))
+    assert loss["corr_pyramid"] == pytest.approx(
+        71 * (0.26 - 0.0361) + 71 * (0.28 - 0.057))
+    assert loss["corr_level"] == loss["corr_mono2"] == 0
+
+
+def test_resident_level_mono4_and_drivers():
+    """corr_level beside the resident level-4 kernel runs level 1 alone; the
+    in-place bench path runs corr_mono2 in place; a driver of DRIVERS, at
+    its own shapes, is charged at the reported variant."""
+    loss = _losses({"i8-split-resident": {"corr_level": 79,
+                                          "corr_level_resident": 79},
+                    "bench-12288-mono4": {"corr_mono2": 112},
+                    "bench-12288-split2": {"corr_level": 0},
+                    "probe_level_split": {"corr_level": 10}})
+    assert loss["corr_level"] == pytest.approx(
+        79 * (0.26 - 0.0282) + 10 * (0.26 - 0.0282))
+    assert loss["corr_level_resident"] == pytest.approx(79 * (0.39 - 0.0103))
+    assert loss["corr_mono2"] == pytest.approx(112 * (0.34 - 0.0361))
+    assert chip_smoke.path_variants("corr_level", "probe_level_split", {}) is None
+    assert chip_smoke.path_variants("corr_level", "bench-12288-split2", {}) == [
+        ("level 1 i8", 0.5), ("level 4 i8", 0.5)]
+
+
+def test_ring_type_comes_from_the_configuration(monkeypatch):
+    """A path's ring type is the engine's (runtime/engine.ring_i8), not a
+    word of its label: a renamed path with CORR_RING_I8=False runs bf16
+    rings; CORR_RING_I8 under CORR_IMPL="pallas", which only "banded"
+    reads, leaves them bf16; the bench and the g8c launch count keep the
+    default int8 rings."""
+    monkeypatch.setitem(chip_smoke.PATHS, "mono-renamed",
+                        (dict(CORR_RING_I8=False), ("corr_pyramid",)))
+    monkeypatch.setitem(chip_smoke.PATHS, "pallas-i8-knob",
+                        (dict(CORR_IMPL="pallas", CORR_RING_I8=True),
+                         ("corr_fixed",)))
+    assert chip_smoke.path_variants("corr_pyramid", "mono-renamed", {}) == [
+        ("both levels bf16", 1.0)]
+    assert chip_smoke.path_variants("corr_fixed", "pallas-i8-knob", {}) == [
+        ("level 1 bf16", 0.5), ("level 4 bf16", 0.5)]
+    assert chip_smoke.path_variants("corr_pyramid", "bench-12288-mono", {}) == [
+        ("both levels i8", 1.0)]
+    assert chip_smoke.path_variants("corr_group", chip_smoke.G8C_LAUNCHES,
+                                    {}) == [("level 1 i8", 0.5),
+                                            ("level 4 i8", 0.5)]
+    loss = _losses({"mono-renamed": {"corr_pyramid": 10}})
+    assert loss["corr_pyramid"] == pytest.approx(10 * (0.28 - 0.057))
+
+
+def test_a_variant_not_measured_raises():
+    """A tracking path whose variant the kernel phase did not measure is not
+    charged at another: corr_level on bf16 rings (measured on int8 alone in
+    the made-up record) raises, and so does a label of no path."""
+    with pytest.raises(KeyError, match="level 1 bf16"):
+        _losses({"bf16-mono": {"corr_level": 3}})
+    with pytest.raises(KeyError, match="no tracking path"):
+        chip_smoke.path_variants("corr_pyramid", "no-such-path", {})
+
+
+def _tracking_paths():
+    """(label, kernels it launches) of every tracking path that launches
+    one: the slice, eval and bench paths and the g8c launch count."""
+    out = [(label, names) for label, (_, names) in chip_smoke.PATHS.items()]
+    out += [(label, (name,)) for label, (_, name) in chip_smoke.EVAL_PATHS.items()]
+    out += [(label, (name,))
+            for label, (_, _, name) in chip_smoke.BENCH_PATHS.items()]
+    out.append((chip_smoke.G8C_LAUNCHES, ("corr_group",)))
+    return [(label, names) for label, names in out if names]
+
+
+@pytest.mark.parametrize("label,names", _tracking_paths(),
+                         ids=[label for label, _ in _tracking_paths()])
+def test_every_tracking_path_runs_a_measured_variant(label, names):
+    """Each kernel a tracking path launches is charged at variants that the
+    kernel phase measures (chip_smoke.variants, whose labels a tiny CPU case
+    gives without launching anything), with shares that sum to one: the
+    order lines at the end of a card run cannot raise for want of one."""
+    g = torch.zeros(2, 3, 3, 8, dtype=torch.bfloat16)
+    bf = (torch.zeros(2, 8, 8, 8, dtype=torch.bfloat16),
+          torch.zeros(2, 2, 2, 8, dtype=torch.bfloat16))
+    i8 = tuple(r.to(torch.int8) for r in bf)
+    sc = (torch.ones(2), torch.ones(2))
+    idx = torch.zeros(4, dtype=torch.int32)
+    case = (g, bf, i8, sc, torch.zeros(4, 3, 3, 2), idx, idx)
+    measured = {(name, what) for name, what, *_ in chip_smoke.variants(case)}
+    launched = dict.fromkeys(names, 1)
+    for name in names:
+        parts = chip_smoke.path_variants(name, label, launched)
+        assert sum(share for _, share in parts) == pytest.approx(1.0)
+        for variant, _ in parts:
+            assert (name, variant) in measured

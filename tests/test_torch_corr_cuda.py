@@ -337,6 +337,35 @@ def test_pair_kernels_full_size_rings(dev, kernel):
     torch.testing.assert_close(got, want, **TOL)
 
 
+@DTYPES
+@pytest.mark.parametrize("E", [96, 5003, 12288])
+def test_pair_kernel_at_the_step_sizes(dev, dtype, E):
+    """corr_pair (corr_pyramid's pipeline and plan) at the motion
+    probe's E, a ragged E and the step's E on the slice's rings (32 slots of
+    120x160 and 30x40): the plain version within TOL, K1's bits, one
+    launch."""
+    *args, scales = _case(dev, dtype, E=E, mem=32, H=120, W=160)
+    before = corr_cuda.launches["corr_pair"]
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel="pair")
+    torch.cuda.synchronize()
+    assert corr_cuda.launches["corr_pair"] == before + 1
+    torch.testing.assert_close(got, corr_plain.corr_pyramid(*args, scales=scales),
+                               **TOL)
+    mono = corr_cuda.corr_pyramid(*args, scales=scales, kernel="mono")
+    assert torch.equal(got, mono)
+
+
+@DTYPES
+def test_pair_kernel_one_level_staged_the_other_from_the_ring(dev, dtype):
+    """Distorted patches (jitter 3 px) over runs of many edges: in one step
+    a level-1 window beyond the cap reads its taps from the ring while the
+    level-4 window is staged, and the other way round."""
+    *args, scales = _case(dev, dtype, E=4000, mem=8, jitter=3.0)
+    got = corr_cuda.corr_pyramid(*args, scales=scales, kernel="pair")
+    torch.testing.assert_close(got, corr_plain.corr_pyramid(*args, scales=scales),
+                               **TOL)
+
+
 def test_pair2_occupancy_query(dev):
     """The SMs hold as many corr_pair2 blocks at once as pair2_plan sized the
     windows for: one at C = 128 (full windows), two at C = 32; the
@@ -623,12 +652,13 @@ def test_group_kernel_is_one_launch_without_stage_2(dev):
     assert corr_plain.extract_calls == calls
 
 
-@pytest.mark.parametrize("kernel", ["g8c", "mono2", "mono4", "mono3", "pair2"])
+@pytest.mark.parametrize("kernel", ["g8c", "mono2", "mono4", "mono3", "pair2",
+                                    "pair"])
 @pytest.mark.parametrize("dtype", ["bf16", "i8", "f32"])
 def test_pipeline_kernels_two_launches_are_bitwise_equal(dev, kernel, dtype):
-    """corr_group, corr_mono2, corr_mono3 and corr_pair2 sum in a fixed
-    order: the same inputs give the same bits, staged windows and ring reads
-    (jitter 1 px) in one launch."""
+    """corr_group, corr_mono2, corr_mono3, corr_pair2 and corr_pair sum in a
+    fixed order: the same inputs give the same bits, staged windows and ring
+    reads (jitter 1 px) in one launch."""
     *args, scales = _case(dev, dtype, E=5003, mem=8, jitter=1.0)
     first = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
     second = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
@@ -651,14 +681,25 @@ def test_mono2_kernel_runs_of_pairs(dev, dtype, E):
 
 
 def test_pipeline_plans_match_the_kernels(dev):
-    """corr_group's, corr_mono2's, corr_mono3's and corr_pair2's
-    shared-memory sums are the kernels' own, and one SM holds as many blocks
-    as the plans count on."""
+    """corr_pair's, corr_group's, corr_group8's, corr_mono2's, corr_mono3's
+    and corr_pair2's shared-memory sums are the kernels' own, and one SM
+    holds as many blocks as the plans count on."""
     lib = corr_cuda._load()
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     for gdt, rdt in ((bf, bf), (bf, i8), (f32, f32), (f32, i8)):
         flags = (int(gdt == bf), int(rdt == i8))
         for C in (8, 32, 128):
+            cap, depth, blocks = corr_cuda.mono_plan(3, C, gdt, rdt)
+            assert lib.devo_corr_pair_smem(9, C, cap, depth, *flags) == (
+                corr_cuda.mono_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.mono_blocks_per_sm(3, C, gdt, rdt,
+                                                "corr_pair") >= blocks
+            if gdt == rdt:
+                cap, depth, blocks = corr_cuda.group_plan(3, C, gdt, rdt)
+                assert lib.devo_corr_group8_smem(9, C, cap, depth, flags[0]) == (
+                    corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
+                assert corr_cuda.group_blocks_per_sm(3, C, gdt, rdt,
+                                                     "corr_group8") >= blocks
             cap, depth, blocks = corr_cuda.group_plan(3, C, gdt, rdt)
             assert lib.devo_corr_group_smem(9, C, cap, depth, *flags) == (
                 corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
@@ -820,6 +861,67 @@ def test_float_level_kernels_full_size_rings(dev, name):
         torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
 
 
+@FLOAT_DTYPES
+def test_group8_kernel_two_launches_are_bitwise_equal(dev, dtype):
+    """corr_group8 sums in a fixed order: the same bits twice, staged
+    windows and ring reads (jitter 1 px) in one launch, both levels."""
+    for level in (0, 1):
+        args = _level(_case(dev, dtype, E=5003, mem=8, jitter=1.0), level)
+        assert torch.equal(corr_cuda.corr_group8_cuda(*args),
+                           corr_cuda.corr_group8_cuda(*args))
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_group8_taps_are_exact_where_group_rounds_them(dev, level):
+    """corr_group8 (K9'') and corr_group (K8'') are one pipeline shape apart
+    by the rounding alone: on bf16 rings at the step's E corr_group8 holds
+    to corr_level within TOL, and corr_group, whose taps are rounded to
+    bf16, does not, but holds to corr_level_group."""
+    args = _level(_case(dev, "bf16", E=12288, mem=32, H=120, W=160), level)
+    want = corr_plain.corr_level(*args)
+    exact = corr_cuda.corr_group8_cuda(*args)
+    torch.testing.assert_close(exact, want, **TOL)
+    rounded = corr_cuda.corr_group_cuda(*args)
+    assert not torch.allclose(rounded, want, **TOL)
+    rounded_want = corr_plain.corr_level_group(*args)
+    torch.testing.assert_close(
+        rounded, rounded_want,
+        atol=2.0 ** -7 * rounded_want.abs().max().item() + TOL["atol"],
+        rtol=TOL["rtol"])
+
+
+@pytest.mark.parametrize("kernel,name,launches_an_update", [
+    ("pair", "corr_pair", 1), ("g8", "corr_group8", 2)])
+def test_engine_configurations_launch_their_kernel(dev, kernel, name,
+                                                   launches_an_update):
+    """The engine's "pair" and "g8" configurations on bf16 rings, at 64x64
+    and narrow widths with random weights: every correlation of the run is
+    a launch of the configuration's kernel (one an update for "pair", one a
+    level for "g8"), no other kernel is launched and no plain correlation
+    is called."""
+    from devo_tpu_torch import bench
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.runtime.config import VOConfig
+    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.utils.params import random_state_dict
+    cfg = VOConfig(BUFFER_SIZE=64, PATCHES_PER_FRAME=4, PATCH_LIFETIME=5,
+                   REMOVAL_WINDOW=9, OPTIMIZATION_WINDOW=4, MEM=16,
+                   DIM_INET=32, DIM_FNET=16, DIM=8, MOTION_PROBE_THRESH=-1.0,
+                   CORR_RING_I8=False, CORR_KERNEL=kernel)
+    weights = random_state_dict(EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET,
+                                       cfg.DIM, cfg.BINS), seed=0)
+    slam = DEVO(cfg, weights, ht=64, wd=64, seed=0, device=dev)
+    corr_cuda.reset_launches()
+    calls = corr_plain.calls
+    for i, vox in enumerate(bench.frames(16, 64, 64)):
+        slam(i / 30.0, vox, bench.intrinsics(64, 64))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in corr_cuda.launches.items() if v}
+    assert set(launched) == {name} and corr_plain.calls == calls
+    assert launched[name] >= launches_an_update
+    assert launched[name] % launches_an_update == 0
+
+
 @FLOAT_KERNELS
 def test_float_level_kernels_take_float_rings_only(dev, name):
     with pytest.raises(ValueError):
@@ -895,15 +997,16 @@ def test_tensor_paths_on_the_card_launch_no_kernel(dev, impl):
 
 def test_new_kernel_plans(dev):
     """corr_level_full: two blocks an SM with a ring of two full windows on
-    bf16 rings, one block on f32 rings; corr_group8 stages full windows on
-    bf16 rings and smaller ones on f32 rings, none at C = 12 in bf16."""
+    bf16 rings, one block on f32 rings; corr_group8 (corr_group's plan) two
+    blocks an SM of two stages of full windows on bf16 rings, one block on
+    f32 rings, and bf16 rows of 12 channels staged in chunks of 32."""
     bf, f32 = torch.bfloat16, torch.float32
     assert corr_cuda.full_plan(3, 128, bf) == (144, 2, 2)
     assert corr_cuda.full_plan(3, 128, f32) == (144, 2, 1)
     assert corr_cuda.full_plan(3, 12, bf)[0] == 0
-    assert corr_cuda.group8_cap(3, 128, bf) == 144
-    assert 64 <= corr_cuda.group8_cap(3, 128, f32) < 144
-    assert corr_cuda.group8_cap(3, 12, bf) == 0
+    assert corr_cuda.group_plan(3, 128, bf, bf) == (144, 2, 2)
+    assert corr_cuda.group_plan(3, 128, f32, f32) == (144, 2, 1)
+    assert corr_cuda.group_plan(3, 12, bf, bf)[0] == 144
     for E in (1, 96, 5003, 12288):
         run = corr_cuda.full_run(E, dev, 2)
         assert 1 <= run <= corr_cuda.FULL_RUN and run * -(-E // run) >= E

@@ -1,17 +1,16 @@
 """The shared-memory plans of the tensor-core correlation kernels
-(csrc/corr.cu, csrc/corr_group.cu, csrc/corr_mono2.cu, csrc/corr_mono3.cu,
-csrc/corr_pair2.cu on the edge pipeline of csrc/corr_pipe.cuh,
-csrc/corr_fixed.cu, csrc/corr_mma.cuh), the edges their blocks walk, and the
-arithmetic of their fragments, on the CPU.
+(csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu, csrc/corr_mono2.cu,
+csrc/corr_mono3.cu, csrc/corr_group.cu, csrc/corr_group8.cu on the edge
+pipeline of csrc/corr_pipe.cuh, csrc/corr_fixed.cu, csrc/corr_mma.cuh), the
+edges their blocks walk, and the arithmetic of their fragments, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_corr_cuda.py).
-Here: ops/corr_cuda.mono_plan, group_plan, mono2_plan, mono3_plan,
-pair2_plan and fixed_plan / fixed_smem_bytes fit a block's shared memory
-with the stages, pipelines and blocks the designs need, and refuse what the
-kernels do not take; corr_mono3's runs and corr_pair2's persistent grid
-cover every edge once; the
-channel order that corr_mma.cuh gives the mma fragments computes the plain
-product; its int8 -> bf16 conversion is exact for every int8 value; the
+Here: ops/corr_cuda.mono_plan (corr_pyramid's and corr_pair's), group_plan
+(corr_group's and corr_group8's), mono2_plan, mono3_plan, pair2_plan and
+fixed_plan / fixed_smem_bytes fit a block's shared memory with the stages,
+pipelines and blocks the designs need, and refuse what the kernels do not take; corr_mono3's runs and
+corr_pair2's persistent grid cover every edge once; the channel order that
+corr_mma.cuh gives the mma fragments computes the plain product; its int8 -> bf16 conversion is exact for every int8 value; the
 order of corr_group's taps (round to bf16, then scale, then blend) is
 corr_level_group's.
 """
@@ -105,6 +104,28 @@ def test_group_plan_fits_a_block(gmap_dtype, ring_dtype, C):
         assert (cap, blocks) == (corr_cuda.LEVEL_WINDOW_CAP, 2)
     if blocks == 1:
         assert cap > 0
+
+
+def test_pair_and_group8_plans_at_the_model_width():
+    """C = 128: corr_pair at corr_pyramid's plan, four stages of full
+    windows on int8 rings (218,880 bytes), two on bf16 rings (213,120: one
+    stage a pipeline); corr_group8 at corr_group's plan, on bf16 rings two
+    stages of 48,960 bytes and two surface slots of 5,760, 109,440 bytes,
+    within the 111,616 that each of two blocks an SM has beside its static
+    tables; on f32 rings one block."""
+    assert corr_cuda.mono_plan(3, 128, BF, I8) == (144, 4, 1)
+    assert corr_cuda.mono_plan(3, 128, BF, BF) == (144, 2, 1)
+    assert corr_cuda.mono_smem_bytes(3, 128, BF, I8, 144, 4) == (
+        4 * (9 * 160 * 2 + 2 * 144 * 160) + 4 * 144 * 10 * 4) == 218_880
+    assert corr_cuda.mono_smem_bytes(3, 128, BF, BF, 144, 2) == (
+        2 * (9 * 160 * 2 + 2 * 144 * 160 * 2) + 4 * 144 * 10 * 4) == 213_120
+    assert corr_cuda.group_plan(3, 128, BF, BF) == (144, 2, 2)
+    assert corr_cuda._stage_bytes(3, 128, BF, BF, 144, 1) == 48_960
+    assert corr_cuda._slot_bytes(3, 144) == 5_760
+    assert corr_cuda.group_smem_bytes(3, 128, BF, BF, 144, 2) == (
+        2 * 48_960 + 2 * 5_760) == 109_440
+    assert SMEM_SM // 2 - 1024 - corr_cuda._MONO_STATIC == 111_616
+    assert corr_cuda.group_plan(3, 128, F32, F32)[2] == 1
 
 
 @pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)

@@ -129,17 +129,19 @@ def test_l4_resident_rules_for_the_pair_kernels(kernel):
 
 
 def test_pair_shared_memory_budget():
-    """At the slice's width corr_pair fits a block's 232,448 bytes with the
-    full 144-vector windows on int8, bf16 and f32 rings. corr_pair2 (the
-    edge pipeline, blocks of one pipeline with two stages and two rotating
-    slots a level) takes one block an SM with full windows on int8 and bf16
+    """At the slice's width corr_pair (corr_pyramid's block and plan: two
+    pipelines, the stages' patch features and both levels' windows, four
+    surface slots) fits a block's 232,448 bytes with the full 144-vector
+    windows in four stages on int8 rings and two on bf16 rings, smaller
+    windows on f32 rings. corr_pair2 (the edge pipeline, blocks of one
+    pipeline with two stages and two rotating slots a level) takes one block an SM with full windows on int8 and bf16
     rings (two blocks on int8 rings would need windows of 128 vectors),
     smaller windows on f32 rings, two blocks at narrow widths; a feature
     vector that is no multiple of 16 bytes stages nothing."""
     i8, bf, f32 = torch.int8, torch.bfloat16, torch.float32
-    assert corr_cuda.pair_smem_bytes(3, 128, i8, 144) == 9216 + 2 * 18_432
-    assert corr_cuda.pair_smem_bytes(3, 128, bf, 144) == 9216 + 2 * 36_864
-    assert corr_cuda.pair_cap(3, 128, f32) == 144
+    assert corr_cuda.mono_plan(3, 128, bf, i8) == (144, 4, 1)
+    assert corr_cuda.mono_plan(3, 128, bf, bf) == (144, 2, 1)
+    assert 64 <= corr_cuda.mono_plan(3, 128, f32, f32)[0] < 144
     # two stages of the bf16 patch rows (9 x 160 channels) and two windows,
     # then four f32 surface slots of the window's rows (10 floats each)
     assert corr_cuda.pair2_smem_bytes(3, 128, bf, i8, 144, 2) == (
