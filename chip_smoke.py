@@ -40,7 +40,8 @@
    and the output, each once) over 3.35 TB/s and its operations over 989
    TFLOP/s (67 TFLOP/s, the f32 rate outside the tensor cores, on f32
    rings). The plans of the tensor-core kernels (corr_pyramid, corr_pair,
-   corr_group, corr_group8, corr_mono2, corr_mono3, corr_pair2, corr_fixed):
+   corr_group, corr_level_pipe, corr_group8, corr_level_full, corr_mono2,
+   corr_mono3, corr_pair2, corr_fixed):
    windows, stages, pipelines and blocks an SM, planned and by the occupancy
    query. The four structures of the edge pipeline that compute
    corr_pyramid's function (K1: two pipelines, two barriers a step; K5''
@@ -50,20 +51,23 @@
    their C interfaces in turns at E = 12288 on int8 and bf16 rings,
    corr_pair2 also at two blocks an SM with smaller windows, and again on
    patches put back on an exact grid, whose windows all fit those; and the
-   two one-level instances that differ only in the rounding of the taps
-   (K8'' corr_group, K9'' corr_group8) in turns on bf16 rings.
+   one-level instances in turns at both levels (LEVEL_STRUCTURES): K7''
+   corr_level_pipe beside K8'' corr_group (the same shape with its taps
+   rounded) on int8 rings, and K7'', K10'' corr_level_full, K9''
+   corr_group8 and K8'' on bf16 rings.
    With --parent DIR, a directory holding the parent commit's files of
-   PARENT_SOURCES (the seven kernels on the edge pipeline and the headers
+   PARENT_SOURCES (the nine kernels on the edge pipeline and the headers
    corr_pipe.cuh, corr_common.cuh, corr_mma.cuh, from `git archive` of the
    parent), those are built into a library of their own and timed against
    this tree's at E = 12288 in turns (parent, this tree, this tree,
-   parent), each by its C interface: corr_pair on int8 and bf16 rings and
-   corr_group8 at both levels on bf16 rings, redesigned since, each at its
-   own plan and held to each other within TOL; corr_pyramid, corr_group at
-   both levels, corr_mono2 gathered and in place, corr_mono3 and
-   corr_pair2, which share the edge pipeline with them, at this tree's
-   plans on int8 and bf16 rings, whose output must be the parent's bit for
-   bit.
+   parent), each by its C interface: corr_level_pipe at both levels on int8
+   and bf16 rings and corr_level_full at both levels on bf16 rings and at
+   level 1 on f32 rings, redesigned since, each at its own plan and held to
+   each other within TOL; corr_pyramid, corr_pair, corr_group and (bf16
+   rings) corr_group8 at both levels, corr_mono2 gathered and in place,
+   corr_mono3 and corr_pair2, which share the edge pipeline with them, at
+   this tree's plans on int8 and bf16 rings, whose output must be the
+   parent's bit for bit.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound: the banded window ablation (corr_band_ablate, E = 15360 of
@@ -572,9 +576,6 @@ def kernel_phase(dev, gpu: str):
               f"({queried} by the occupancy query), a persistent grid of "
               f"{cc.pair2_grid(E_MAIN, sms, queried)} blocks at E={E_MAIN} "
               f"[{gpu}]", flush=True)
-        blocks = cc.level_pipe_blocks_per_sm(3, 128, torch.bfloat16, ring)
-        print(f"corr_level_pipe [{ring} rings, C=128]: {blocks} block(s) of "
-              f"192 threads per SM [{gpu}]", flush=True)
         cap, depth = cc.mono3_plan(3, 128, torch.bfloat16, ring)
         print(f"corr_mono3 [{ring} rings, C=128]: windows of {cap} vectors, a "
               f"ring of {depth} stages, 1 block of 512 threads per SM planned "
@@ -591,13 +592,16 @@ def kernel_phase(dev, gpu: str):
         print(f"corr_pair [{ring} rings, C=128]: corr_pyramid's plan, {occ} "
               f"block(s) of 512 threads per SM by the occupancy query [{gpu}]",
               flush=True)
-        cap, depth, blocks = cc.group_plan(3, 128, torch.bfloat16, ring)
-        print(f"corr_group [{ring} rings, C=128]: windows of {cap} vectors, "
-              f"a ring of {depth} stages (two pipelines), {blocks} block(s) of "
-              f"512 threads per SM planned "
-              f"({cc.group_blocks_per_sm(3, 128, torch.bfloat16, ring)} by the "
-              f"occupancy query), runs of {cc.group_run(E_MAIN, dev, blocks)} "
-              f"edges at E={E_MAIN} [{gpu}]", flush=True)
+        for name in ("corr_group", "corr_level_pipe"):
+            cap, depth, blocks = cc.group_plan(3, 128, torch.bfloat16, ring)
+            print(f"{name} [{ring} rings, C=128]: windows of {cap} vectors, a "
+                  f"ring of {depth} stages (two pipelines), {blocks} block(s) "
+                  f"of 512 threads per SM planned "
+                  f"({cc.group_blocks_per_sm(3, 128, torch.bfloat16, ring, name)}"
+                  f" by the occupancy query), runs of "
+                  f"{cc.group_run(E_MAIN, dev, blocks)} edges at E={E_MAIN} "
+                  f"({cc.group_smem_bytes(3, 128, torch.bfloat16, ring, cap, depth)}"
+                  f" bytes a block) [{gpu}]", flush=True)
         cap, depth, pipes = cc.mono2_plan(3, 128, torch.bfloat16, ring)
         print(f"corr_mono2 [{ring} rings, C=128]: windows of {cap} vectors, "
               f"{pipes} pipeline(s) of a pair of edges a step, {depth} stage(s)"
@@ -606,13 +610,16 @@ def kernel_phase(dev, gpu: str):
               f"occupancy query), runs of {cc.mono2_run(E_MAIN, dev)} edges at "
               f"E={E_MAIN} [{gpu}]", flush=True)
     for ring in (torch.bfloat16, torch.float32):
-        cap, depth, blocks = cc.group_plan(3, 128, ring, ring)
-        print(f"corr_group8 [{ring} rings, C=128]: windows of {cap} vectors, "
-              f"a ring of {depth} stages (two pipelines), {blocks} block(s) of "
-              f"512 threads per SM planned "
-              f"({cc.group_blocks_per_sm(3, 128, ring, ring, 'corr_group8')} by "
-              f"the occupancy query), runs of {cc.group_run(E_MAIN, dev, blocks)}"
-              f" edges at E={E_MAIN} [{gpu}]", flush=True)
+        for name in ("corr_group8", "corr_level_full"):
+            cap, depth, blocks = cc.group_plan(3, 128, ring, ring)
+            print(f"{name} [{ring} rings, C=128]: windows of {cap} vectors, a "
+                  f"ring of {depth} stages (two pipelines), {blocks} block(s) "
+                  f"of 512 threads per SM planned "
+                  f"({cc.group_blocks_per_sm(3, 128, ring, ring, name)} by the "
+                  f"occupancy query), runs of {cc.group_run(E_MAIN, dev, blocks)}"
+                  f" edges at E={E_MAIN} "
+                  f"({cc.group_smem_bytes(3, 128, ring, ring, cap, depth)} bytes"
+                  f" a block) [{gpu}]", flush=True)
     stages, blocks = cc.fixed_plan(3, 128, torch.bfloat16)
     print(f"corr_fixed [bf16 rings, C=128]: a ring of {stages} stages of 384 "
           f"positions x 32 channels, {blocks} block(s) of 256 threads per SM "
@@ -687,10 +694,8 @@ def structures_phase(case, gpu: str, record):
     windows of 128 vectors allow. On the kernel phase's inputs (int8 and
     bf16 rings), where windows beyond 128 vectors read the ring, and on
     their patches put back on an exact unit grid (int8 rings), where every
-    level-1 window is 10x10 vectors and none reads the ring. Then the two
-    one-level instances K8'' (taps rounded to bf16) and K9'' (exact taps),
-    each held to its own plain version, in turns at both levels on bf16
-    rings: what the rounding costs."""
+    level-1 window is 10x10 vectors and none reads the ring. Then the
+    one-level instances at both levels (level_structures)."""
     from devo_tpu_torch.ops import corr as plain
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = case
@@ -731,42 +736,76 @@ def structures_phase(case, gpu: str, record):
                           f"{t[1]:.4f}" for (label, _, plan), t in
                           zip(versions, ms))
               + f" ms [{gpu}]", flush=True)
-    for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
-        ring, plan = bf[n], group8_tree_plan(gmap, bf[n], E)
-        fns = [lambda c=c, ring=ring: c_group(None, gmap, ring, c, kk, jj, None),
-               lambda c=c, ring=ring: c_group8(None, gmap, ring, c, kk, jj, plan)]
-        torch.testing.assert_close(
-            fns[0](), plain.corr_level_group(gmap, ring, c, kk, jj),
-            **group_tol(fns[0]()))
-        torch.testing.assert_close(fns[1](), plain.corr_level(gmap, ring, c, kk, jj),
-                                   **TOL)
-        (t8, t9) = in_turns(fns)
-        for name, label, t in (("corr_group", "K8'', taps rounded to bf16", t8),
-                               ("corr_group8", "K9'', exact taps", t9)):
-            record[name].setdefault("structures", []).append(dict(
-                label=f"{label} [level {lvl}, bf16 rings]", E=E, ms=t))
-        print(f"structures [level {lvl}, bf16 rings] E={E}, in turns forward "
-              f"and back: K8'' (taps rounded to bf16) {t8[0]:.4f}, {t8[1]:.4f}; "
-              f"K9'' (exact taps) {t9[0]:.4f}, {t9[1]:.4f} ms [{gpu}]",
-              flush=True)
+    level_structures(case, gpu, record)
 
 
-# the kernels redesigned since the parent commit (K5', K9'), the kernels on
-# the edge pipeline that they now share (K1, K8'', K3'', K4'', K2''), and
-# the sources a build of the parent's versions takes from the directory
-# given by --parent
+# the one-level instances of the edge pipeline timed beside each other in
+# the structures phase, by ring: (label, kernel name)
+LEVEL_STRUCTURES = {
+    "i8": (("K7''", "corr_level_pipe"),
+           ("K8'' (taps rounded to bf16)", "corr_group")),
+    "bf16": (("K7''", "corr_level_pipe"), ("K10''", "corr_level_full"),
+             ("K9''", "corr_group8"),
+             ("K8'' (taps rounded to bf16)", "corr_group")),
+}
+
+
+def level_structures(case, gpu: str, record):
+    """The one-level instances of the edge pipeline (LEVEL_STRUCTURES) by
+    their C interfaces at E = 12288, at both levels on int8 and bf16 rings,
+    each held to its plain version (corr_level; corr_group to
+    corr_level_group within group_tol) and timed in turns forward and back:
+    K7'' and K10'' (corr_group8's shape and plan) beside K8'' (the same
+    shape with rounded taps) and K9'' (the same instance on float rings)."""
+    from devo_tpu_torch.ops import corr as plain
+    gmap, bf, i8, sc, coords, kk, jj = case
+    E = coords.shape[0]
+    for ring, pyr, scales in (("i8", i8, sc), ("bf16", bf, None)):
+        ss = scales or (None, None)
+        for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
+            fmap, scale = pyr[n], ss[n]
+            fns, versions = [], []
+            for label, name in LEVEL_STRUCTURES[ring]:
+                plan = level_plan(name, gmap, fmap, E)
+                fns.append(lambda name=name, plan=plan, c=c, fmap=fmap,
+                           scale=scale: c_level(None, name, gmap, fmap, c, kk,
+                                                jj, scale, plan))
+                got = fns[-1]()
+                if name == "corr_group":
+                    want = plain.corr_level_group(gmap, fmap, c, kk, jj, scale)
+                    torch.testing.assert_close(got, want, **group_tol(want))
+                else:
+                    torch.testing.assert_close(
+                        got, plain.corr_level(gmap, fmap, c, kk, jj, scale),
+                        **TOL)
+                versions.append((label, name, plan))
+            ms = in_turns(fns)
+            what = f"level {lvl}, {ring} rings"
+            for (label, name, plan), t in zip(versions, ms):
+                record[name].setdefault("structures", []).append(dict(
+                    label=f"{label} [{what}]", E=E, cap=plan[0], ms=t))
+            print(f"structures [{what}] E={E}, in turns forward and back: "
+                  + "; ".join(f"{label} (windows of {plan[0]}, "
+                              f"{plan[1][0]} stages) {t[0]:.4f}, {t[1]:.4f}"
+                              for (label, _, plan), t in zip(versions, ms))
+                  + f" ms [{gpu}]", flush=True)
+
+
+# the kernels redesigned since the parent commit (K7', K10'), the kernels on
+# the edge pipeline that they now share (K1, K5'', K2'', K3'', K4'', K8'',
+# K9''), and the sources a build of the parent's versions takes from the
+# directory given by --parent
 PARENT_SOURCES = ("corr.cu", "corr_pair.cu", "corr_pair2.cu", "corr_mono2.cu",
                   "corr_mono3.cu", "corr_group.cu", "corr_group8.cu",
+                  "corr_level_pipe.cu", "corr_level_full.cu",
                   "corr_pipe.cuh", "corr_common.cuh", "corr_mma.cuh")
 
 
 def parent_library(parent_dir: str):
     """The parent commit's kernels of PARENT_SOURCES built from parent_dir (a
     copy of them and their headers) into a library of their own, with the
-    parent's C interfaces: corr_pyramid, corr_group, corr_mono2, corr_mono3
-    and corr_pair2 those of this tree, corr_pair without plan arguments
-    after the type flags, corr_group8 with its window size and no plan
-    arguments after it."""
+    parent's C interfaces: those of this tree but corr_level_pipe, which
+    takes no plan arguments after its type flags."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -778,96 +817,122 @@ def parent_library(parent_dir: str):
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     two = [ptr] * 9 + [i] * 8 + [f] * 2
     lib.devo_corr_pyramid.argtypes = two + [i] * 4 + [ptr]
+    lib.devo_corr_pair.argtypes = two + [i] * 4 + [ptr]
     lib.devo_corr_group.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
     lib.devo_corr_mono2.argtypes = two + [i] * 6 + [ptr]
     lib.devo_corr_mono3.argtypes = two + [i] * 4 + [ptr]
     lib.devo_corr_pair2.argtypes = two + [i] * 4 + [ptr]
-    lib.devo_corr_pair.argtypes = two + [i] * 2 + [ptr]
-    lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 7 + [ptr]
-    for fn in (lib.devo_corr_pyramid, lib.devo_corr_group, lib.devo_corr_mono2,
-               lib.devo_corr_mono3, lib.devo_corr_pair2, lib.devo_corr_pair,
-               lib.devo_corr_group8):
+    lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
+    lib.devo_corr_level_pipe.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
+    lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
+    for fn in (lib.devo_corr_pyramid, lib.devo_corr_pair, lib.devo_corr_group,
+               lib.devo_corr_mono2, lib.devo_corr_mono3, lib.devo_corr_pair2,
+               lib.devo_corr_group8, lib.devo_corr_level_pipe,
+               lib.devo_corr_level_full):
         fn.restype = ctypes.c_int
     return lib
 
 
-def parent_plan(name, gmap, ring):
-    """(cap, integers after the type flags or, for corr_group8, after cap)
-    of the parent's corr_pair or corr_group8 as the parent's wrapper
-    launched it, one block an edge or a group of eight edges and no plan
-    arguments: corr_pair the windows that fit its f32 patch feature, both
-    levels' f32 taps and two windows beside 4096 bytes of static tables;
-    corr_group8 those that fit two parities of two f32 patch features,
-    eight surface slots and four padded windows beside 5120."""
+def parent_plan(name, gmap, fmap, E):
+    """(cap, integers after the type flags) of the parent's corr_level_pipe
+    or corr_level_full (the correlation) as the parent's wrapper launched it
+    on E edges: corr_level_pipe the windows that fit its f32 patch feature
+    and taps and two stages of the raw patch feature and a window beside
+    4096 bytes of static tables, and no plan arguments; corr_level_full the
+    windows that fit a ring of two stages at two blocks an SM (else one),
+    beside two f32 patch features, surfaces and tap buffers and 4096 bytes,
+    then up to four stages in that share, and runs of at most 64 edges in
+    whole rounds over the blocks the SMs hold."""
     from devo_tpu_torch.ops import corr_cuda as cc
-    C = gmap.shape[-1]
-    if name == "corr_pair":
-        return cc._fit_cap(lambda cap: (9 * C + 2 * 9 * 64) * 4
-                           + 2 * cap * C * cc._item(ring), C, ring,
-                           cc.SMEM_MAX - 4096), ()
-    return cc._fit_cap(lambda cap: (4 * 9 * C + 8 * max(cap, 64) * 9) * 4
-                       + 4 * cap * cc._padded(C, ring), C, ring,
-                       cc.SMEM_MAX - 5120), ()
+    C, g, r = gmap.shape[-1], gmap.dtype, fmap.dtype
+    PP = 9
+
+    def fit_cap(smem_of_cap, room):
+        # LEVEL_WINDOW_CAP vectors, fewer where `room` holds no more, 0 where
+        # none fits or a vector is no multiple of the 16-byte copies
+        if C * r.itemsize % 16:
+            return 0
+        return next((cap for cap in range(cc.LEVEL_WINDOW_CAP, 0, -1)
+                     if smem_of_cap(cap) <= room), 0)
+
+    if name == "corr_level_pipe":
+        graw = -(-PP * C * g.itemsize // 16) * 16
+        return fit_cap(lambda cap: (PP * C + PP * 64) * 4
+                       + 2 * (graw + cap * C * r.itemsize),
+                       cc.SMEM_MAX - 4096), ()
+
+    def smem(cap, depth):
+        return ((2 * PP * C + 2 * cap * PP + 2 * PP * 64) * 4
+                + depth * cap * cc._padded(C, r))
+
+    for blocks in (2, 1):
+        room = (cc._SMEM_SM // 2 - cc._SMEM_RESERVED if blocks == 2
+                else cc.SMEM_MAX) - 4096
+        cap = fit_cap(lambda cap: smem(cap, 2), room)
+        if cap == cc.LEVEL_WINDOW_CAP or blocks == 1 or cap == 0:
+            break
+    depth = 2
+    while depth < 4 and smem(cap, depth + 1) <= room:
+        depth += 1
+    slots = blocks * torch.cuda.get_device_properties(
+        gmap.device).multi_processor_count
+    rounds = max(1, -(-E // (slots * 64)))
+    return cap, (depth, max(1, -(-E // (slots * rounds))), 0)
 
 
-def group8_tree_plan(gmap, fmap, E):
-    """(cap, integers after cap) of this tree's corr_group8 as its wrapper
-    launches it on E edges."""
+def level_plan(name, gmap, fmap, E):
+    """(cap, integers after the type flags) of this tree's one-level kernel
+    devo_<name> as its wrapper launches it on E edges: group_plan and
+    group_run (corr_level_full's correlation stage)."""
     from devo_tpu_torch.ops import corr_cuda as cc
     cap, depth, blocks = cc.group_plan(3, gmap.shape[-1], gmap.dtype,
                                        fmap.dtype)
-    return cap, (depth, cc.group_run(E, gmap.device, blocks))
+    extra = (depth, cc.group_run(E, gmap.device, blocks))
+    return cap, (extra + (0,) if name == "corr_level_full" else extra)
 
 
-def c_group8(lib, gmap, fmap, coords, kk, jj, plan):
-    """One launch of corr_group8 (one level, the engine's "g8", float rings)
-    of `lib` (this tree's library where None) by its C interface: `plan` is
-    (cap, the integers after the type flag)."""
+# the one-level kernels whose C interface takes the ring slots' scales and
+# two type flags (patch features, ring); the others take float rings and
+# one flag
+SCALED_LEVEL = ("corr_group", "corr_level_pipe")
+
+
+def c_level(lib, name, gmap, fmap, coords, kk, jj, scale, plan):
+    """One launch of the one-level kernel devo_<name> of `lib` (this tree's
+    library where None) by its C interface: `plan` is (cap, the integers
+    after the type flags)."""
     from devo_tpu_torch.ops import corr_cuda as cc
     lib = lib or cc._load()
     E, C = coords.shape[0], gmap.shape[-1]
     cap, extra = plan
+    bf16 = int(gmap.dtype == torch.bfloat16)
+    if name in SCALED_LEVEL:
+        head = (None if scale is None else scale.data_ptr(),)
+        flags = (bf16, int(scale is not None))
+    else:
+        head, flags = (), (bf16,)
     out = torch.empty((E, 49 * 9), dtype=torch.float32, device=gmap.device)
-    code = lib.devo_corr_group8(
-        gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
-        jj.data_ptr(), out.data_ptr(), E, 9, C, fmap.shape[1], fmap.shape[2],
-        cap, int(gmap.dtype == torch.bfloat16), *extra,
-        torch.cuda.current_stream().cuda_stream)
-    if code:
-        raise RuntimeError(f"corr_group8 by its C interface: launch failed ({code})")
-    return out
-
-
-def c_group(lib, gmap, fmap, coords, kk, jj, scale):
-    """One launch of corr_group (one level, the engine's "g8c") of `lib` (this
-    tree's library where None) at this tree's plan, by its C interface."""
-    from devo_tpu_torch.ops import corr_cuda as cc
-    lib = lib or cc._load()
-    E, C = coords.shape[0], gmap.shape[-1]
-    cap, depth, blocks = cc.group_plan(3, C, gmap.dtype, fmap.dtype)
-    out = torch.empty((E, 49 * 9), dtype=torch.float32, device=gmap.device)
-    code = lib.devo_corr_group(
-        gmap.data_ptr(), fmap.data_ptr(),
-        None if scale is None else scale.data_ptr(), coords.data_ptr(),
+    code = getattr(lib, "devo_" + name)(
+        gmap.data_ptr(), fmap.data_ptr(), *head, coords.data_ptr(),
         kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, 9, C, fmap.shape[1],
-        fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16),
-        int(scale is not None), depth, cc.group_run(E, gmap.device, blocks),
+        fmap.shape[2], cap, *flags, *extra,
         torch.cuda.current_stream().cuda_stream)
     if code:
-        raise RuntimeError(f"corr_group by its C interface: launch failed ({code})")
+        raise RuntimeError(f"{name} by its C interface: launch failed ({code})")
     return out
 
 
 def parent_phase(dev, gpu: str, parent_dir: str, record):
     """The kernels redesigned since the parent commit against the parent's
     versions of them, on the kernel phase's inputs at E = 12288, each
-    version by its C interface at its own plan: K5' and K5'' on int8 and
-    bf16 rings, K9' and K9'' at levels 1 and 4 on bf16 rings (held to each
-    other within TOL); and the kernels that share the edge pipeline of
-    csrc/corr_pipe.cuh with them, on int8 and bf16 rings, whose output must
-    equal the parent's bit for bit at the same plan: K1, K8'' at levels 1
-    and 4, K3'' gathered and in place, K4'' and K2''. Each pair is timed in
-    turns, parent, this tree, this tree, parent, in one process on one
+    version by its C interface at its own plan: K7' and K7'' at levels 1 and
+    4 on int8 and bf16 rings, K10' and K10'' at levels 1 and 4 on bf16
+    rings and at level 1 on f32 rings (held to each other within TOL); and
+    the kernels that share the edge pipeline of csrc/corr_pipe.cuh with
+    them, on int8 and bf16 rings, whose output must equal the parent's bit
+    for bit at the same plan: K1, K5'', K8'' and K9'' (bf16 rings) at levels
+    1 and 4, K3'' gathered and in place, K4'' and K2''. Each pair is timed
+    in turns, parent, this tree, this tree, parent, in one process on one
     card."""
     lib = parent_library(parent_dir)
     gmap, bf, i8, sc, coords, kk, jj = corr_case(E_MAIN, dev, 0)
@@ -877,34 +942,43 @@ def parent_phase(dev, gpu: str, parent_dir: str, record):
         return lambda: c_two_level(lib, name, gmap, pyr, coords, kk, jj,
                                    scales, plan)
 
+    def level(lib, name, g, fmap, c, scale, plan):
+        return lambda: c_level(lib, name, g, fmap, c, kk, jj, scale, plan)
+
     cases = []
-    for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
-        cases.append(("corr_group8", f"level {lvl} bf16", "tol", *(
-            lambda x=x, f=bf[n], c=c, plan=plan: c_group8(x, gmap, f, c, kk, jj,
-                                                          plan)
-            for x, plan in ((lib, parent_plan("corr_group8", gmap, bf[n].dtype)),
-                            (None, group8_tree_plan(gmap, bf[n], E))))))
+    levels = ((1, coords), (4, coords / 4))
     for ring, pyr, scales in (("i8", i8, sc), ("bf16", bf, None)):
         ss = scales or (None, None)
         r = pyr[0].dtype
-        cases.append(("corr_pair", f"both levels {ring}", "tol",
-                      two(lib, "corr_pair", pyr, scales,
-                          parent_plan("corr_pair", gmap, r)),
-                      two(None, "corr_pair", pyr, scales,
-                          tree_plan("corr_pair", gmap, r, E))))
-        for name in ("corr_pyramid", "corr_mono3", "corr_pair2"):
+        for n, (lvl, c) in enumerate(levels):
+            cases.append(("corr_level_pipe", f"level {lvl} {ring}", "tol", *(
+                level(x, "corr_level_pipe", gmap, pyr[n], c, ss[n], plan)
+                for x, plan in (
+                    (lib, parent_plan("corr_level_pipe", gmap, pyr[n], E)),
+                    (None, level_plan("corr_level_pipe", gmap, pyr[n], E))))))
+        for name in ("corr_pyramid", "corr_pair", "corr_mono3", "corr_pair2"):
             cases.append((name, f"both levels {ring}", "bits",
                           *(two(x, name, pyr, scales, tree_plan(name, gmap, r, E))
                             for x in (lib, None))))
-        for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
-            cases.append(("corr_group", f"level {lvl} {ring}", "bits",
-                          *(lambda x=x, f=pyr[n], c=c, s=ss[n]: c_group(
-                              x, gmap, f, c, kk, jj, s) for x in (lib, None))))
+        names = ("corr_group",) + (("corr_group8",) if scales is None else ())
+        for name in names:
+            for n, (lvl, c) in enumerate(levels):
+                plan = level_plan(name, gmap, pyr[n], E)
+                cases.append((name, f"level {lvl} {ring}", "bits", *(
+                    level(x, name, gmap, pyr[n], c, ss[n], plan)
+                    for x in (lib, None))))
         for concat, what in ((True, "gathered"), (False, "in place")):
             cases.append(("corr_mono2", f"both levels {ring} {what}", "bits",
                           *(two(x, "corr_mono2", pyr, scales,
                                 tree_plan("corr_mono2", gmap, r, E, concat))
                             for x in (lib, None))))
+    f32 = (gmap.float(), bf[0].float(), "level 1 f32", coords)
+    for g, fmap, label, c in [(gmap, bf[n], f"level {lvl} bf16", c)
+                              for n, (lvl, c) in enumerate(levels)] + [f32]:
+        cases.append(("corr_level_full", label, "tol", *(
+            level(x, "corr_level_full", g, fmap, c, None, plan)
+            for x, plan in ((lib, parent_plan("corr_level_full", g, fmap, E)),
+                            (None, level_plan("corr_level_full", g, fmap, E))))))
     for name, label, rule, old, new in cases:
         a, b = old(), new()
         torch.cuda.synchronize()
@@ -1004,7 +1078,7 @@ def full_stages(case, gpu: str, record):
     from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = case
     ring = bf[0]
-    cap = cc.full_plan(gmap.shape[1], gmap.shape[-1], ring.dtype)[0]
+    cap = cc.full_knobs(gmap.shape[1], gmap.shape[-1], ring.dtype)[0]
     rec = record["corr_level_full"]
     rec["stages"] = {}
     for stage in plain.STAGES:

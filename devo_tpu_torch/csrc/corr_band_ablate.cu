@@ -27,7 +27,7 @@
 // multiply-adds an edge on 128 lanes an SM, which takes longer than the
 // copy. What the design keeps from the TPU kernel is its loop: a ring of
 // window stages filled ahead of the products, two at C = 128 (a stage is 96
-// KB of the 227 KB a block may have), as csrc/corr_level_full.cu does.
+// KB of the 227 KB a block may have).
 
 #include "window_probe.cuh"
 

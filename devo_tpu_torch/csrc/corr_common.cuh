@@ -3,11 +3,10 @@
 // feature vector as floats (f32, bf16 or int8 storage), the per-thread dot
 // product over the channels, the bilinear blend, and the launch helper that
 // opts a kernel in to more than 48 KB of dynamic shared memory; and, for the
-// kernels that stage an edge's windows by asynchronous copies
-// (corr_level_pipe.cu, corr_level_full.cu, and the edge pipeline of
-// corr_pipe.cuh), the copies, the per-edge index table, the staging of a
-// level's window, one tap's dot, the blended row, and the products of one
-// window position with every pixel of the patch.
+// kernels that stage an edge's windows by asynchronous copies (the edge
+// pipeline of corr_pipe.cuh, copy_probe.cu), the copies, the per-edge index
+// table, and the products of one window position with every pixel of the
+// patch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -130,16 +129,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
                : "memory");
 }
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -238,85 +227,9 @@ __device__ __forceinline__ void prep_edge(EdgePrep& ep, const PairArgs<G, F>& a,
   if (lane == 0) { ep.kk = kk; ep.frame = jj; }
 }
 
-// Start the copies of level `lvl`'s window of the edge into `win`
-// (cap vectors, `stride` elements apart, 16-byte aligned), by the `nthreads`
-// threads tid = 0 .. nthreads - 1; a feature vector is a multiple of 16 bytes
-// wherever cap > 0. Positions off the image stay unwritten: no tap reads
-// them. The caller commits the group.
-template <typename F>
-__device__ __forceinline__ void stage_window(F* win, const F* fbase,
-                                             const EdgePrep& ep, int lvl, int H,
-                                             int W, int C, int tid,
-                                             int nthreads, int stride) {
-  const int ww = ep.ww[lvl];
-  if (ww == 0) return;
-  const int wx0 = ep.wx0[lvl];
-  const int wy0 = ep.wy0[lvl];
-  constexpr int kChunk = 16 / sizeof(F);    // elements per 16-byte copy
-  const int chunks = C / kChunk;            // per feature vector
-  const int n = ww * ep.wh[lvl] * chunks;
-  for (int i = tid; i < n; i += nthreads) {
-    const int pos = i / chunks;
-    const int ch = (i - pos * chunks) * kChunk;
-    const int r = pos / ww;
-    const int iy = wy0 + r;
-    const int ix = wx0 + pos - r * ww;
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      cp_async16(win + static_cast<size_t>(pos) * stride + ch,
-                 fbase + (static_cast<size_t>(iy) * W + ix) * C + ch);
-  }
-}
-template <typename F>
-__device__ __forceinline__ void stage_window(F* win, const F* fbase,
-                                             const EdgePrep& ep, int lvl, int H,
-                                             int W, int C, int tid,
-                                             int nthreads) {
-  stage_window(win, fbase, ep, lvl, H, W, C, tid, nthreads, C);
-}
-
-// One integer tap of pixel p at level `lvl`: <g[p], ring vector> times the
-// slot's scale, 0 off the image; from the staged window `win` or, where the
-// window was not staged, from the ring slot `fbase`.
-template <typename F>
-__device__ __forceinline__ float pair_tap(const float* g, const F* win,
-                                          const F* fbase, const EdgePrep& ep,
-                                          int lvl, int p, int tap, int H, int W,
-                                          int C, int start) {
-  const int iy = ep.y0[lvl][p] + tap / kTaps - kRadius;
-  const int ix = ep.x0[lvl][p] + tap % kTaps - kRadius;
-  if (iy < 0 || iy >= H || ix < 0 || ix >= W) return 0.0f;
-  const float* gp = g + p * C;
-  const int ww = ep.ww[lvl];
-  float acc;
-  if (ww > 0)
-    acc = dot_rotated(
-        gp,
-        win + static_cast<size_t>((iy - ep.wy0[lvl]) * ww + (ix - ep.wx0[lvl])) * C,
-        C, start);
-  else
-    acc = dot_rotated(gp, fbase + (static_cast<size_t>(iy) * W + ix) * C, C,
-                      start);
-  return acc * ep.q[lvl];
-}
-
-// One level's output row from its taps ((PP, 8, 8) in shared memory):
-// dst[(ox * 7 + oy) * PP + p], by the threads tid = 0 .. nthreads - 1.
-__device__ __forceinline__ void blend_level_row(float* dst, const float* taps,
-                                                const EdgePrep& ep, int lvl,
-                                                int PP, int tid, int nthreads) {
-  const int n_out = kOut * kOut * PP;
-  for (int o = tid; o < n_out; o += nthreads) {
-    const int p = o % PP;
-    const int t = o / PP;
-    dst[o] = blend_frac(taps + p * kTaps * kTaps, t / kOut, t % kOut,
-                        ep.fx[lvl][p], ep.fy[lvl][p]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The product surface of a staged window (corr_level_full.cu, and
-// corr_pipe.cuh for f32 patch features): one
-// thread takes one window position and dots its feature vector with every
+// The product surface of a staged window (corr_pipe.cuh for f32 patch
+// features): one thread takes one window position and dots its feature vector with every
 // pixel of the patch, so the vector leaves shared memory once for PP dots and
 // the patch feature, which all lanes read at the same address, is broadcast.
 
@@ -402,18 +315,6 @@ __device__ __forceinline__ void position_products_any(const float* g,
     out[p * out_stride] = a;
   }
 }
-
-// Four consecutive elements of a patch feature, loaded from device memory
-// into registers now and written as f32 to shared memory later: the load's
-// latency passes behind whatever the thread does in between.
-template <typename G>
-struct Held4 {
-  float v[kVec];
-  __device__ __forceinline__ void load(const G* p) { load4(p, v); }
-  __device__ __forceinline__ void store(float* dst) const {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
 
 // Typed arguments from the C interface's untyped ones.
 template <typename G, typename F>

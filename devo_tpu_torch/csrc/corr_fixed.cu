@@ -60,8 +60,8 @@
 //
 // f32 rings (MIXED_PRECISION=False), which the tensor cores would round:
 // the multiply-adds and the shared-memory traffic that feeds them the patch
-// feature bound it, as they bound csrc/corr_level_full.cu. What the design
-// does:
+// feature bound it, as they bound the f32 rings of csrc/corr_pipe.cuh. What
+// the design does:
 //   - the window is not staged at all: a thread takes two positions, rows r
 //     and r + 8 of one column, and reads their vectors from the ring (through
 //     L1) straight into registers, each once, four channels at a time;

@@ -39,9 +39,9 @@
 //
 // Users: the edge pipeline of csrc/corr_pipe.cuh (csrc/corr.cu,
 // corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
-// corr_group8.cu: covering windows, bf16 and int8 rings) and
-// csrc/corr_fixed.cu (the fixed 16x24 window, bf16 rings). The window
-// products of csrc/corr_level_full.cu, corr_band_ablate.cu and
+// corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu: covering windows,
+// bf16 and int8 rings) and csrc/corr_fixed.cu (the fixed 16x24 window, bf16
+// rings). The window products of csrc/corr_band_ablate.cu and
 // corr_frame_probe.cu are the same operation on the CUDA cores.
 #pragma once
 

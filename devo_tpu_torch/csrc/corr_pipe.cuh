@@ -1,14 +1,14 @@
-// The edge pipeline that seven correlation kernels share (csrc/corr.cu,
+// The edge pipeline that nine correlation kernels share (csrc/corr.cu,
 // corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
-// corr_group8.cu): a block walks its edges as one or two independent
-// pipelines, each behind a ring of stages in shared memory that hold an
-// edge's patch feature and the covering window of each of its levels (the
-// union of the pixels' 8x8 tap grids), copied by cp.async with zeros off the
-// image; the window product on the tensor cores (corr_mma.cuh) for bf16
-// patch features, on the CUDA cores (position_products) for f32 ones; a
-// level whose window exceeds `cap` takes its taps from the ring, one dot a
-// tap; the product surface, f32 in shared memory; then each output's four
-// taps from it, blended.
+// corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu): a block walks
+// its edges as one or two independent pipelines, each behind a ring of
+// stages in shared memory that hold an edge's patch feature and the covering
+// window of each of its levels (the union of the pixels' 8x8 tap grids),
+// copied by cp.async with zeros off the image; the window product on the
+// tensor cores (corr_mma.cuh) for bf16 patch features, on the CUDA cores
+// (position_products) for f32 ones; a level whose window exceeds `cap`
+// takes its taps from the ring, one dot a tap; the product surface, f32 in
+// shared memory; then each output's four taps from it, blended.
 //
 // What a kernel chooses (PipeShape):
 //   - levels an edge (2: both pyramid levels, coordinates divided in the
@@ -37,7 +37,12 @@
 //   - whether a pair's windows of a level are first gathered into one
 //     contiguous run of rows ("mono2", the TPU's concatenation): edge 1's
 //     rows are copied through the registers to follow edge 0's, behind
-//     their own two barriers, and its m-tiles read them there.
+//     their own two barriers, and its m-tiles read them there;
+//   - which parts of a step run (Part): all of them, the correlation, or
+//     all but the extraction, the window product or the window copies: the
+//     stage instances of csrc/corr_level_full.cu, which time those parts
+//     apart and write what ops/corr.corr_level_stage defines (one level,
+//     one edge a step, two barriers a step).
 //
 // Hazards of kTwoBarriers, for the reader of a pipeline's loop: two pipeline
 // barriers a step s, A(s) before the products and B(s) after them. The stage
@@ -51,7 +56,11 @@
 // written before B(s) by the pipeline's last warps, into the tables of
 // step s + pdepth - kTables, whose extraction ended before A(s); they are
 // read by the copies started after B(s), and by everything of that step
-// later.
+// later. Under Part::kNoMM the extraction of step s reads the windows of its
+// stage instead of its surface slots, and the copies of step s + pdepth
+// would overwrite them: there the copies start after the extraction and a
+// third barrier, C(s). The commit groups keep their order, so every wait
+// counts the same groups.
 //
 // Hazards of kSameStep and kLagged: one barrier Y(s) a step, after the
 // products of step s and each thread's wait for its own copies of step
@@ -91,10 +100,17 @@ constexpr bool kMma = std::is_same<G, __nv_bfloat16>::value;
 
 enum class Order { kRuns, kStrided };
 enum class Sched { kTwoBarriers, kSameStep, kLagged };
+// the parts of a step that run: all (the correlation), or all but the
+// extraction (kNoExt: the surface's first values are written instead), the
+// window product (kNoMM: each tap is the ring value of channel p % C) or the
+// window copies (kNoDMA: the windows are zeroed once); the stage instances,
+// in the order of ops/corr.STAGES
+enum class Part { kAll, kNoExt, kNoMM, kNoDMA };
 
 template <int Levels, int Step, int Pipes, int MaxDepth, bool Round,
           bool Surface, bool Gather, int Block = kPipeBlock,
-          Order EdgeOrder = Order::kRuns, Sched Schedule = Sched::kTwoBarriers>
+          Order EdgeOrder = Order::kRuns, Sched Schedule = Sched::kTwoBarriers,
+          Part Parts = Part::kAll>
 struct PipeShape {
   static constexpr int kLevels = Levels;      // pyramid levels an edge
   static constexpr int kStep = Step;          // edges a step
@@ -106,6 +122,7 @@ struct PipeShape {
   static constexpr int kBlock = Block;        // threads of a block
   static constexpr bool kStrided = EdgeOrder == Order::kStrided;
   static constexpr Sched kSched = Schedule;
+  static constexpr Part kPart = Parts;
   static constexpr bool kOneBarrier = Schedule != Sched::kTwoBarriers;
   static constexpr int kSlots = kOneBarrier ? 2 : 1;   // a level's, an edge's
   static constexpr int kThreads = Block / Pipes;       // a pipeline's
@@ -123,6 +140,10 @@ struct PipeShape {
                                  MaxDepth >= 2),
                 "rotating slots: one pipeline of one edge, two stages");
   static_assert(kThreads % 32 == 0 && kWarps >= Step, "whole warps");
+  static_assert(Parts == Part::kAll ||
+                    (Levels == 1 && Step == 1 && !Surface &&
+                     Schedule == Sched::kTwoBarriers),
+                "a stage instance: one level, one edge a step, two barriers");
 };
 
 // The barrier of one pipeline of the block (named barrier 1 + pipe).
@@ -337,6 +358,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       stage_rows_any(gstage(s, j), lay.gstride, PP, lay.chans, C,
                      [&](int p) { return gsrc + static_cast<size_t>(p) * C; },
                      gsrc, ptid, kN);
+      if constexpr (S::kPart == Part::kNoDMA) continue;   // no window copies
       for (int lvl = 0; lvl < L; ++lvl) {
         const int ww = ep.ww[lvl];
         if (ww == 0) continue;
@@ -397,7 +419,9 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
     __syncwarp();
   };
 
-  // the surface of each edge and level of step s into its slot
+  // the surface of each edge and level of step s into its slot (none of a
+  // staged window under kNoMM)
+  constexpr bool kProducts = S::kPart != Part::kNoMM;
   auto products = [&](int s) {
     EdgePrep* const tabs = prep[pipe][s % S::kTables];   // step s's tables
     if constexpr (kMma<G>) {
@@ -406,7 +430,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       int n_tiles = 0;
 #pragma unroll
       for (int part = 0; part < kParts; ++part) {
-        tiles[part] = rows_in(s, part / L, part % L) / 16;
+        tiles[part] = kProducts ? rows_in(s, part / L, part % L) / 16 : 0;
         n_tiles += tiles[part];
       }
       for (int tile = pwarp; tile < n_tiles; tile += kW) {
@@ -436,7 +460,7 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       int n_rows = 0;
 #pragma unroll
       for (int part = 0; part < kParts; ++part) {
-        rows[part] = rows_in(s, part / L, part % L);
+        rows[part] = kProducts ? rows_in(s, part / L, part % L) : 0;
         n_rows += rows[part];
       }
       for (int t = ptid; t < n_rows; t += kN) {
@@ -464,6 +488,9 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       }
     }
     // a level without a staged window: its taps from the ring, (PP, 8, 8)
+    // (none under kNoExt, whose rows leave them out; under kNoMM a tap is
+    // the ring value of channel p % C)
+    if constexpr (S::kPart == Part::kNoExt) return;
     for (int part = 0; part < kParts; ++part) {
       const int j = part / L, lvl = part % L;
       if (!valid(s, j) || tabs[j].ww[lvl] > 0) continue;
@@ -477,13 +504,17 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
         const int tap = it - p * kTaps * kTaps;
         const int iy = ep.y0[lvl][p] + tap / kTaps - kRadius;
         const int ix = ep.x0[lvl][p] + tap % kTaps - kRadius;
-        slot[it] = (iy < 0 || iy >= H || ix < 0 || ix >= W)
-                       ? 0.0f
-                       : scaled_tap<S::kRound>(
-                             dot_any(g + static_cast<size_t>(p) * lay.gstride,
-                                     fbase + (static_cast<size_t>(iy) * W + ix) * C,
-                                     C),
-                             ep.q[lvl]);
+        if (iy < 0 || iy >= H || ix < 0 || ix >= W) {
+          slot[it] = 0.0f;
+          continue;
+        }
+        const F* f = fbase + (static_cast<size_t>(iy) * W + ix) * C;
+        if constexpr (kProducts)
+          slot[it] = scaled_tap<S::kRound>(
+              dot_any(g + static_cast<size_t>(p) * lay.gstride, f, C),
+              ep.q[lvl]);
+        else
+          slot[it] = to_float(f[p % C]);
       }
     }
   };
@@ -512,6 +543,15 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
                                    : slot[p * kTaps * kTaps + row];
           dst[static_cast<size_t>(row) * 128 + p] = __float2bfloat16_rn(v);
         }
+      } else if constexpr (S::kPart == Part::kNoExt) {
+        // no extraction: the surface's first values, output o the window
+        // position o / PP and pixel o % PP; 0 past the window and for an
+        // edge whose window was not staged
+        float* dst = a.out + edge(s, j) * n_out;
+        const float* slot = slot_of(s, j, 0);
+        const int n_val = ep.ww[0] > 0 ? ep.ww[0] * ep.wh[0] * PP : 0;
+        for (int o = ptid; o < n_out; o += kN)
+          dst[o] = o < n_val ? slot[(o / PP) * lay.ss + o % PP] : 0.0f;
       } else {
         // extraction and blend, from the surface or the taps
         float* dst = a.out + edge(s, j) * n_out;
@@ -527,8 +567,20 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
           if (ww > 0) {
             const int r = ep.y0[lvl][p] + oy - kRadius - ep.wy0[lvl];
             const int c = ep.x0[lvl][p] + ox - kRadius - ep.wx0[lvl];
-            dst[o] = blend_at(slot + (r * ww + c) * lay.ss + p, lay.ss,
-                              ww * lay.ss, fx, fy);
+            if constexpr (kProducts) {
+              dst[o] = blend_at(slot + (r * ww + c) * lay.ss + p, lay.ss,
+                                ww * lay.ss, fx, fy);
+            } else {
+              // no product: channel p % C of the four window positions
+              const F* v = window(s, j, lvl) +
+                           static_cast<size_t>(r * ww + c) * lay.wstride +
+                           p % C;
+              const size_t dy = static_cast<size_t>(ww) * lay.wstride;
+              const float four[4] = {to_float(v[0]), to_float(v[lay.wstride]),
+                                     to_float(v[dy]),
+                                     to_float(v[dy + lay.wstride])};
+              dst[o] = blend_at(four, 1, 2, fx, fy);
+            }
           } else {
             dst[o] = blend_frac(slot + p * kTaps * kTaps, ox, oy, fx, fy);
           }
@@ -544,6 +596,16 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       const size_t e = edge(s, j);
       prep_edge<L>(table(s, j), a, a.coords + e * PP * 2, a.kk[e], a.jj[e],
                    lane);
+    }
+  }
+  if constexpr (S::kPart == Part::kNoDMA) {
+    // the windows are never copied: the pipeline's are zeroed once
+    for (int s = 0; s < pdepth; ++s) {
+      uint4* w = reinterpret_cast<uint4*>(stage_of(s) + kStep * lay.gbytes);
+      const int n_words =
+          static_cast<int>((lay.stage - kStep * lay.gbytes) / 16);
+      for (int i = ptid; i < n_words; i += kN)
+        w[i] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
   pipe_sync<kN>(pipe);
@@ -625,10 +687,14 @@ __device__ __forceinline__ void edge_pipeline(const PipeArgs<G, F>& args) {
       store_ahead(ah, s + pdepth);
       pipe_sync<kN>(pipe);                // B(s): the surfaces are complete
 
+      if constexpr (!kProducts) {
+        extract(s);                       // reads the windows of step s
+        pipe_sync<kN>(pipe);              // C(s): read no more
+      }
       // the stage of step s is read no more: the copies of step s + pdepth
       if (s + pdepth < count) start_copies(s + pdepth);
       cp_async_commit();              // a group every step, empty at the end
-      extract(s);
+      if constexpr (kProducts) extract(s);
     }
   }
 }

@@ -6,10 +6,10 @@
 // ops/probe.py. A front end (the caller's type) says where an edge's window
 // rows lie and whether the edge's block is live.
 //
-// The loop follows csrc/corr_level_full.cu: a block of 384 threads (one a
-// window position) walks a run of consecutive edges; the copies of edge
-// e+depth-1 (cp.async, 16 bytes a thread) start before the products of edge
-// e, one commit group an edge. Three barriers an edge:
+// The loop is that of the TPU kernel `_kernel_banded`: a block of 384
+// threads (one a window position) walks a run of consecutive edges; the
+// copies of edge e+depth-1 (cp.async, 16 bytes a thread) start before the
+// products of edge e, one commit group an edge. Three barriers an edge:
 //   S1  after the wait for edge e's copies and the store of its patch rows;
 //   S2  after the products, before the extraction reads the surface;
 //   S3  after the extraction: the next iteration's copies overwrite the

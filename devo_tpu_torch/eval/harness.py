@@ -149,7 +149,7 @@ def evaluate_sequence(
     if viz:
         raise NotImplementedError(
             "the live viewer (devo_tpu/runtime/viewer.py) is not ported yet: "
-            "ROADMAP Queue 1 item 7")
+            "see ROADMAP.md, Queue 1, the viewer")
     results, fps_list = [], []
     if engine_cache is None:
         engine_cache = {}

@@ -22,7 +22,8 @@ fallback from one to the other. Nine kernels, one launch counter each
   several an SM, one barrier a step and the extraction one step behind the
   products;
 - "split2", `corr_level_pipe_cuda` (csrc/corr_level_pipe.cu): one level per
-  launch by such persistent blocks;
+  launch on the edge pipeline in corr_group8's shape and plan, every tap
+  exact, on every ring type;
 - "g8c", `corr_group_cuda` (csrc/corr_group.cu): one level per launch,
   every tap rounded once to bf16 before the ring slot's scale (the TPU's bf16
   product surface, kept in shared memory), on the edge pipeline of
@@ -41,9 +42,10 @@ fallback from one to the other. Nine kernels, one launch counter each
   the edge pipeline in corr_group's shape and plan, the f32 product surface
   kept in the block, every tap exact;
 - "full", `corr_level_full_cuda` (csrc/corr_level_full.cu): one level per
-  launch, a block walking a run of edges with the copy, the product surface
-  and the extraction of every edge interleaved; its stage instances
-  ("noext", "nomm", "noDMA") time those parts apart.
+  launch on the edge pipeline in corr_group8's shape and plan, whose ring
+  depth and runs of edges may be set for tuning; its stage instances
+  ("noext", "nomm", "noDMA") time the copy, the product and the extraction
+  apart.
 
 `impl` (the engine's CORR_IMPL) chooses the family: "banded" is the kernel
 `kernel` names; "pallas" is `corr_fixed_cuda` (csrc/corr_fixed.cu), one
@@ -95,20 +97,18 @@ _FEATS = (2 * _RADIUS + 1) ** 2         # blended offsets of one pixel
 SMEM_MAX = 232_448            # the most a block can have on sm_90
 LEVEL_WINDOW_CAP = 144        # feature vectors of a level's staged window
 _PAIR_STATIC = 4096           # bound on the static shared memory of
-                              #   corr_level_pipe and corr_pair2 (their
-                              #   per-edge index tables)
+                              #   corr_pair2 (its per-edge index tables)
 _MONO3_STATIC = 6144          # the same of corr_mono3 (ten such tables)
-_MONO_STATIC = 4096           # and of corr_pyramid, corr_pair, corr_group
-                              #   and corr_group8 (six)
+_MONO_STATIC = 4096           # and of corr_pyramid, corr_pair, corr_group,
+                              #   corr_group8, corr_level_pipe and
+                              #   corr_level_full (six)
 _MONO2_STATIC = 5120          # and of corr_mono2 (eight)
-_FULL_STATIC = 4096           # and of corr_level_full (six)
 _SMEM_SM = 233_472            # shared memory of an SM on sm_90
 _SMEM_RESERVED = 1024         # of which each resident block takes this much
 MONO3_RUN = 64                # edges a corr_mono3 block walks
 MONO3_MAX_DEPTH = 8           # stages of its window ring
 PAIR2_DEPTH = 2               # stages of a corr_pair2 block
-FULL_RUN = 64                 # edges a corr_level_full block walks
-FULL_MAX_DEPTH = 4            # stages of its window ring
+FULL_MAX_DEPTH = 4            # stages of corr_level_full's window ring
 _FIXED_POSITIONS = 16 * 24    # corr_fixed's window
 _FIXED_STAGES = 2             # chunk stages of its bf16 kernel's window
 _FIXED_STATIC = 1024          # bound on its static shared memory
@@ -206,9 +206,11 @@ def _load():
         lib.devo_corr_pair2_smem.argtypes = [i] * 6
         lib.devo_corr_pair2_smem.restype = ctypes.c_longlong
         lib.devo_corr_pair2_blocks_per_sm.argtypes = [i] * 6
-        lib.devo_corr_level_pipe.argtypes = lib.devo_corr_level.argtypes
-        lib.devo_corr_level_pipe_blocks_per_sm.argtypes = [i] * 5
         lib.devo_corr_group.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
+        lib.devo_corr_level_pipe.argtypes = lib.devo_corr_group.argtypes
+        lib.devo_corr_level_pipe_smem.argtypes = [i] * 6
+        lib.devo_corr_level_pipe_smem.restype = ctypes.c_longlong
+        lib.devo_corr_level_pipe_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_group_surface.argtypes = [ptr] * 6 + [i] * 11 + [ptr]
         lib.devo_corr_group_smem.argtypes = [i] * 6
         lib.devo_corr_group_smem.restype = ctypes.c_longlong
@@ -228,6 +230,9 @@ def _load():
         lib.devo_corr_group8_smem.restype = ctypes.c_longlong
         lib.devo_corr_group8_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
+        lib.devo_corr_level_full_smem.argtypes = [i] * 5
+        lib.devo_corr_level_full_smem.restype = ctypes.c_longlong
+        lib.devo_corr_level_full_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
         lib.devo_corr_frame_probe.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
         lib.devo_copy_probe.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
@@ -235,7 +240,8 @@ def _load():
         for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
                    lib.devo_corr_group8_blocks_per_sm,
                    lib.devo_corr_pair_blocks_per_sm,
-                   lib.devo_corr_level_full, lib.devo_corr_pyramid,
+                   lib.devo_corr_level_full,
+                   lib.devo_corr_level_full_blocks_per_sm, lib.devo_corr_pyramid,
                    lib.devo_corr_pyramid_blocks_per_sm,
                    lib.devo_corr_fixed_blocks_per_sm,
                    lib.devo_corr_level,
@@ -360,17 +366,6 @@ def _item(dtype) -> int:
     return dtype.itemsize
 
 
-def _fit_cap(smem_of_cap, C: int, ring_dtype, room: int) -> int:
-    """Feature vectors of each staged window of a kernel whose block takes
-    `smem_of_cap(cap)` bytes of shared memory: LEVEL_WINDOW_CAP, fewer where
-    `room` bytes hold no more, and 0 (every tap reads the ring) where none
-    fits or a feature vector is no multiple of the 16-byte copies."""
-    if C * _item(ring_dtype) % 16 != 0:
-        return 0
-    return next((cap for cap in range(LEVEL_WINDOW_CAP, 0, -1)
-                 if smem_of_cap(cap) <= room), 0)
-
-
 def _staged_call(name, smem, static, cap, extra, gmap, rings, coords, kk, jj,
                  levels, scales):
     """The checks, the output and the launch that the kernels with windows
@@ -423,45 +418,6 @@ def _padded(C: int, ring_dtype) -> int:
     position (corr_mono3, corr_group): 16 more than a vector, so that the
     lanes' 16-byte reads fall into different banks."""
     return C * _item(ring_dtype) + 16
-
-
-def level_pipe_smem_bytes(P: int, C: int, gmap_dtype, ring_dtype, cap: int) -> int:
-    """Dynamic shared memory of a corr_level_pipe block: the patch feature
-    and the taps as f32, and two stages, each the raw patch feature (rounded
-    up to 16 bytes) and `cap` feature vectors."""
-    PP = P * P
-    graw = -(-PP * C * _item(gmap_dtype) // 16) * 16
-    return ((PP * C + PP * _TAPS) * 4
-            + 2 * (graw + cap * C * _item(ring_dtype)))
-
-
-def level_pipe_cap(P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Feature vectors of corr_level_pipe's staged window, see `_fit_cap`."""
-    return _fit_cap(
-        lambda cap: level_pipe_smem_bytes(P, C, gmap_dtype, ring_dtype, cap),
-        C, ring_dtype, SMEM_MAX - _PAIR_STATIC)
-
-
-def corr_level_pipe_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
-    """Launch csrc/corr_level_pipe.cu, one pyramid level. Arguments and
-    result as `corr_level_cuda`; the plain version is ops/corr.corr_level."""
-    P, C = _patch_shape(gmap)
-    cap = level_pipe_cap(P, C, gmap.dtype, fmap.dtype)
-    return _staged_call(
-        "corr_level_pipe",
-        level_pipe_smem_bytes(P, C, gmap.dtype, fmap.dtype, cap),
-        _PAIR_STATIC, cap, (), gmap, (fmap,), coords, kk, jj, (1,), (scale,))
-
-
-def level_pipe_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype) -> int:
-    """Blocks of corr_level_pipe's kernel that one SM of the current CUDA
-    device holds at a time at these sizes (its grid is that times the number
-    of SMs)."""
-    cap = level_pipe_cap(P, C, gmap_dtype, ring_dtype)
-    return _occupancy(
-        "corr_level_pipe", _load().devo_corr_level_pipe_blocks_per_sm(
-            P * P, C, cap, int(gmap_dtype == torch.bfloat16),
-            int(ring_dtype == torch.int8)))
 
 
 def _mma_stride(C: int) -> int:
@@ -888,18 +844,25 @@ def group_run(E: int, device, blocks: int) -> int:
     return max(1, -(-E // (sms * blocks)))
 
 
+def _group_call(name, gmap, fmap, coords, kk, jj, scale):
+    """One launch of the one-level kernel devo_<name> that takes the ring
+    slots' scales at group_plan and group_run (corr_group,
+    corr_level_pipe)."""
+    P, C = _patch_shape(gmap)
+    cap, depth, blocks = group_plan(P, C, gmap.dtype, fmap.dtype)
+    run = group_run(coords.shape[0], gmap.device, blocks) if gmap.is_cuda else 1
+    return _staged_call(
+        name, group_smem_bytes(P, C, gmap.dtype, fmap.dtype, cap, depth),
+        _MONO_STATIC, cap, (depth, run), gmap, (fmap,), coords, kk, jj, (1,),
+        (scale,))
+
+
 def corr_group_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
     """Launch csrc/corr_group.cu, one pyramid level through the bf16 product
     surface in one launch (CORR_KERNEL="g8c"): every tap rounded once to
     bf16 before the ring slot's scale and the blend. Arguments and result as
     `corr_level_cuda`; the plain version is ops/corr.corr_level_group."""
-    P, C = _patch_shape(gmap)
-    cap, depth, blocks = group_plan(P, C, gmap.dtype, fmap.dtype)
-    run = group_run(coords.shape[0], gmap.device, blocks) if gmap.is_cuda else 1
-    return _staged_call(
-        "corr_group", group_smem_bytes(P, C, gmap.dtype, fmap.dtype, cap, depth),
-        _MONO_STATIC, cap, (depth, run), gmap, (fmap,), coords, kk, jj, (1,),
-        (scale,))
+    return _group_call("corr_group", gmap, fmap, coords, kk, jj, scale)
 
 
 def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
@@ -932,11 +895,20 @@ def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
 
 def group_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype,
                         kernel: str = "corr_group") -> int:
-    """Blocks of corr_group's kernel, or of corr_group8's (`kernel`, float
+    """Blocks of corr_group's kernel, or of another kernel at group_plan
+    (`kernel`: corr_level_pipe, or corr_group8 or corr_level_full on float
     rings), that one SM of the current CUDA device holds at a time at
     group_plan's sizes."""
     cap, depth, _ = group_plan(P, C, gmap_dtype, ring_dtype)
     return _blocks_per_sm(kernel, (P, C, gmap_dtype, ring_dtype, cap, depth))
+
+
+def corr_level_pipe_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
+    """Launch csrc/corr_level_pipe.cu, one pyramid level on the edge pipeline
+    in corr_group8's shape at group_plan and group_run, every tap exact, on
+    every ring type (CORR_KERNEL="split2"). Arguments and result as
+    `corr_level_cuda`; the plain version is ops/corr.corr_level."""
+    return _group_call("corr_level_pipe", gmap, fmap, coords, kk, jj, scale)
 
 
 def resident_smem_bytes(h: int, w: int, C: int, P: int) -> int:
@@ -1080,73 +1052,44 @@ def corr_group8_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
     return out
 
 
-def full_smem_bytes(P: int, C: int, ring_dtype, cap: int, depth: int) -> int:
-    """Dynamic shared memory of a corr_level_full block: `depth` window
-    stages with padded vectors, and two slots each of the f32 patch
-    feature, the f32 product surface (cap positions) and the tap buffer."""
-    PP = P * P
-    return ((2 * PP * C + 2 * cap * PP + 2 * PP * _TAPS) * 4
-            + depth * cap * _padded(C, ring_dtype))
-
-
-def full_plan(P: int, C: int, ring_dtype):
-    """(cap, depth, blocks an SM) of corr_level_full: two blocks an SM where
-    their shared memory holds full windows (LEVEL_WINDOW_CAP vectors) in a
-    ring of two stages, else one; then as many stages, at most
-    FULL_MAX_DEPTH, as that share holds."""
-    for blocks in (2, 1):
-        room = (_SMEM_SM // blocks - _SMEM_RESERVED if blocks > 1
-                else SMEM_MAX) - _FULL_STATIC
-        cap = _fit_cap(lambda cap: full_smem_bytes(P, C, ring_dtype, cap, 2),
-                       C, ring_dtype, room)
-        if cap == LEVEL_WINDOW_CAP or blocks == 1 or cap == 0:
-            break
-    depth = 2
-    while (depth < FULL_MAX_DEPTH
-           and full_smem_bytes(P, C, ring_dtype, cap, depth + 1) <= room):
-        depth += 1
-    return cap, depth, blocks
-
-
 def full_knobs(P: int, C: int, ring_dtype, depth: int = None,
                run: int = None):
-    """(cap, depth, blocks an SM) of corr_level_full: full_plan's, with
-    `depth` in its place where given. Raises ValueError on a depth outside
-    2 .. FULL_MAX_DEPTH or beyond a block's shared memory, and on a run
-    below 1."""
-    cap, plan_depth, blocks = full_plan(P, C, ring_dtype)
-    depth = plan_depth if depth is None else depth
-    if not 2 <= depth <= FULL_MAX_DEPTH:
-        raise ValueError(f"depth must be 2 to {FULL_MAX_DEPTH}, got {depth}")
+    """(cap, depth, blocks an SM) of corr_level_full, an instance of the edge
+    pipeline in corr_group8's shape: group_plan's, with `depth` (the stages
+    of a block's ring, half of them each of its two pipelines') in its place
+    where given, and then two blocks an SM where half an SM holds that ring,
+    else one. Raises ValueError on a depth outside 2 .. FULL_MAX_DEPTH or no
+    multiple of the two pipelines, on a depth beyond a block's shared
+    memory, and on a run below 1."""
     if run is not None and run < 1:
         raise ValueError(f"run must be at least 1, got {run}")
-    if full_smem_bytes(P, C, ring_dtype, cap, depth) > SMEM_MAX - _FULL_STATIC:
+    cap, plan_depth, blocks = group_plan(P, C, ring_dtype, ring_dtype)
+    if depth is None:
+        return cap, plan_depth, blocks
+    if not 2 <= depth <= FULL_MAX_DEPTH or depth % 2:
+        raise ValueError(f"depth must be 2 to {FULL_MAX_DEPTH} and a multiple "
+                         f"of the block's 2 pipelines, got {depth}")
+    smem = group_smem_bytes(P, C, ring_dtype, ring_dtype, cap, depth)
+    if smem > SMEM_MAX - _MONO_STATIC:
         raise ValueError(f"P={P}, C={C} with a ring of {depth} stages needs "
                          f"more shared memory than a block can have")
-    return cap, depth, blocks
-
-
-def full_run(E: int, device, blocks: int) -> int:
-    """Consecutive edges a corr_level_full block walks: at most FULL_RUN, and
-    such that the runs come to a whole number of rounds over the `blocks`
-    blocks an SM of `device` holds (as `mono3_run`)."""
-    slots = blocks * torch.cuda.get_device_properties(device).multi_processor_count
-    rounds = max(1, -(-E // (slots * FULL_RUN)))
-    return max(1, -(-E // (slots * rounds)))
+    half = _SMEM_SM // 2 - _SMEM_RESERVED - _MONO_STATIC
+    return cap, depth, 2 if smem <= half else 1
 
 
 def corr_level_full_cuda(gmap, fmap, coords, kk, jj, scale=None,
                          stage: str = "full", depth: int = None,
                          run: int = None) -> torch.Tensor:
-    """Launch csrc/corr_level_full.cu, one pyramid level
-    (CORR_KERNEL="full"). Arguments and result as `corr_fixed_cuda`; the
-    plain version is ops/corr.corr_level. `stage` picks the kernel's
-    instance: "full" (the correlation) or one that skips a part of it to
-    time the rest, "noext" (no extraction), "nomm" (no product), "noDMA" (no
-    copy); those write what ops/corr.corr_level_stage defines. `depth` (2 ..
-    FULL_MAX_DEPTH, as many as a block's shared memory holds) and `run` (at
-    least 1) override full_plan's ring depth and full_run's edges a block,
-    for tuning."""
+    """Launch csrc/corr_level_full.cu, one pyramid level on the edge pipeline
+    in corr_group8's shape (CORR_KERNEL="full"). Arguments and result as
+    `corr_fixed_cuda`; the plain version is ops/corr.corr_level. `stage`
+    picks the kernel's instance: "full" (the correlation) or one that skips
+    a part of it to time the rest, "noext" (no extraction), "nomm" (no
+    product), "noDMA" (no copy); those write what ops/corr.corr_level_stage
+    defines at full_knobs' cap. `depth` (the stages of a block's ring: 2 or
+    FULL_MAX_DEPTH, a multiple of its two pipelines, as many as a block's
+    shared memory holds) and `run` (at least 1) override group_plan's ring
+    depth and group_run's edges a block, for tuning."""
     if stage not in plain.STAGES:
         raise ValueError(f"stage must be one of {plain.STAGES}, got {stage!r}")
     E, P, C = _float_level_call(gmap, fmap, coords, kk, jj, scale)
@@ -1160,7 +1103,7 @@ def corr_level_full_cuda(gmap, fmap, coords, kk, jj, scale=None,
         gmap.data_ptr(), fmap.data_ptr(), coords.data_ptr(), kk.data_ptr(),
         jj.data_ptr(), out.data_ptr(), E, P * P, C, fmap.shape[1],
         fmap.shape[2], cap, int(gmap.dtype == torch.bfloat16), depth,
-        run or full_run(E, gmap.device, blocks), plain.STAGES.index(stage),
+        run or group_run(E, gmap.device, blocks), plain.STAGES.index(stage),
         torch.cuda.current_stream(gmap.device).cuda_stream)
     _launched("corr_level_full", code)
     return out

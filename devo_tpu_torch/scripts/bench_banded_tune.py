@@ -7,17 +7,20 @@ of scripts/bench_banded_tune.py.
         [--stage full|noext|nomm|noDMA]
 
 The TPU script's knobs (IF, K, NSC, BE: the copies in flight, the ring, the
-result scratches, the edge block) have these counterparts: --depth, the
-stages of the window ring (2 to ops/corr_cuda.FULL_MAX_DEPTH; default as
-many as two blocks an SM hold), and --run, the consecutive edges a block
-walks (default ops/corr_cuda.full_run's); both are checked against the
-kernel's shared memory. --stage is the TPU's ABLATE. The workload: 32 bf16
-rings of 120x160x128, 3072 patch features, E edges sorted by patch with
-their frames cycling a 13-frame window (or random, or one frame), patch
-centers scattered over the image; the first LIVE edges are the live ones,
-which the kernel takes (the port's engine passes live edges alone). With
-drift the coordinates move by -1, 0 and +1 pixel in turn from launch to
-launch.
+result scratches, the edge block) have these counterparts on the kernel's
+edge pipeline: --depth, the stages of a block's window ring, half of them
+each of its two pipelines' (2 or ops/corr_cuda.FULL_MAX_DEPTH, a multiple
+of the pipelines, as many as a block's shared memory holds; default
+ops/corr_cuda.group_plan's, two stages at two blocks an SM), and --run,
+the consecutive edges a block walks (at least 1; default
+ops/corr_cuda.group_run's, one round over the blocks the SMs hold); both
+are checked by ops/corr_cuda.full_knobs. --stage is the TPU's ABLATE.
+The workload: 32 bf16 rings of 120x160x128, 3072 patch features, E edges
+sorted by patch with their frames cycling a 13-frame window (or random, or
+one frame), patch centers scattered over the image; the first LIVE edges
+are the live ones, which the kernel takes (the port's engine passes live
+edges alone). With drift the coordinates move by -1, 0 and +1 pixel in turn
+from launch to launch.
 Prints ms a launch and us a live edge, the median over repeats of
 back-to-back launches between CUDA events.
 """
@@ -84,7 +87,7 @@ def main(argv=None):
                                               run=args.run)
 
     ms = common.median(common.median_ms(launch, dev, args.iters, args.repeats))
-    run = (args.run or corr_cuda.full_run(live, dev, blocks)
+    run = (args.run or corr_cuda.group_run(live, dev, blocks)
            if dev.type == "cuda" else args.run)
     print(f"depth={depth} run={run} cap={cap} E={E} LIVE={live} jj={args.jj} "
           f"drift={args.drift} {args.stage}: {ms:8.3f} ms "

@@ -35,6 +35,13 @@ KERNELS = [
     _kernel("corr_mono2", (0.42, 0.0361),
             {"both levels i8 gathered": (0.42, 0.0361),
              "both levels i8 in place": (0.34, 0.0361)}),
+    _kernel("corr_level_pipe", (0.2958, 0.0282),
+            {"level 1 i8": (0.2958, 0.0282), "level 4 i8": (0.3129, 0.0103),
+             "level 1 bf16": (0.3861, 0.0476),
+             "level 4 bf16": (0.3969, 0.0118)}),
+    _kernel("corr_level_full", (0.4948, 0.0476),
+            {"level 1 bf16": (0.4948, 0.0476), "level 4 bf16": (0.4342, 0.0118),
+             "level 1 f32": (0.7402, 0.0883), "level 4 f32": (0.6130, 0.0217)}),
 ]
 
 
@@ -77,6 +84,30 @@ def test_resident_level_mono4_and_drivers():
     assert chip_smoke.path_variants("corr_level", "probe_level_split", {}) is None
     assert chip_smoke.path_variants("corr_level", "bench-12288-split2", {}) == [
         ("level 1 i8", 0.5), ("level 4 i8", 0.5)]
+
+
+def test_split2_and_full_paths_at_their_levels_and_rings():
+    """K7'' on the int8 bench path and K10'' on the bf16 slice path: each
+    path's launches half at level 1 and half at level 4, at its own ring
+    type (int8 for the bench's default CORR_RING_I8, bf16 for "bf16-full"),
+    never at the other ring's times."""
+    assert chip_smoke.path_variants(
+        "corr_level_pipe", "bench-12288-split2", {"corr_level_pipe": 224}) == [
+        ("level 1 i8", 0.5), ("level 4 i8", 0.5)]
+    assert chip_smoke.path_variants(
+        "corr_level_full", "bf16-full", {"corr_level_full": 142}) == [
+        ("level 1 bf16", 0.5), ("level 4 bf16", 0.5)]
+    loss = _losses({"bench-12288-split2": {"corr_level_pipe": 224},
+                    "bf16-full": {"corr_level_full": 142}})
+    assert loss["corr_level_pipe"] == pytest.approx(
+        112 * (0.2958 - 0.0282) + 112 * (0.3129 - 0.0103))
+    assert loss["corr_level_full"] == pytest.approx(
+        71 * (0.4948 - 0.0476) + 71 * (0.4342 - 0.0118))
+    # bf16 rings on the split2 kernel are measured too, and charged as such
+    # where a path runs them
+    loss = _losses({"bf16-mono": {"corr_level_pipe": 2}})
+    assert loss["corr_level_pipe"] == pytest.approx(
+        (0.3861 - 0.0476) + (0.3969 - 0.0118))
 
 
 def test_ring_type_comes_from_the_configuration(monkeypatch):

@@ -466,9 +466,12 @@ def test_mono_variants_match_plain_and_the_two_level_kernel(dev, kernel, dtype, 
 
 
 @DTYPES
-@pytest.mark.parametrize("E", [0, 1, 96, 5003])
+@pytest.mark.parametrize("E", [0, 1, 96, 5003, 12288])
 @pytest.mark.parametrize("level", [0, 1])
 def test_level_pipe_kernel_matches_plain_and_the_level_kernel(dev, dtype, E, level):
+    """corr_level_pipe (K7'', the edge pipeline at group_plan) on the four
+    (patch feature, ring) type pairs, int8 rings with their slots' scales:
+    the plain corr_level and corr_level's kernel, one launch, none at E = 0."""
     args = _level(_case(dev, dtype, E=E), level)
     before = corr_cuda.launches["corr_level_pipe"]
     got = corr_cuda.corr_level_pipe_cuda(*args)
@@ -477,6 +480,23 @@ def test_level_pipe_kernel_matches_plain_and_the_level_kernel(dev, dtype, E, lev
     assert got.shape == (E, 49 * 9)
     torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
     torch.testing.assert_close(got, corr_cuda.corr_level_cuda(*args), **TOL)
+
+
+@DTYPES
+@pytest.mark.parametrize("C,jitter", [(8, 0.0), (128, 3.0)])
+def test_level_pipe_kernel_narrow_and_distorted(dev, dtype, C, jitter):
+    """corr_level_pipe at C = 8 (an int8 vector of 8 bytes: f32 patch
+    features stage nothing and read every tap from the ring, bf16 ones
+    stage it as the tensor cores' rows) and on patches distorted beyond the
+    staged window's cap (jitter 3 px), at both levels."""
+    case = _case(dev, dtype, E=1001, C=C, jitter=jitter)
+    if jitter:
+        wide = corr_plain._group_index(case[2], corr_plain.GROUP_ROWS)[-1]
+        assert int(wide.sum()) > 20
+    for level in (0, 1):
+        args = _level(case, level)
+        got = corr_cuda.corr_level_pipe_cuda(*args)
+        torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
 
 
 def _group_tolerances(args):
@@ -653,11 +673,11 @@ def test_group_kernel_is_one_launch_without_stage_2(dev):
 
 
 @pytest.mark.parametrize("kernel", ["g8c", "mono2", "mono4", "mono3", "pair2",
-                                    "pair"])
+                                    "pair", "split2"])
 @pytest.mark.parametrize("dtype", ["bf16", "i8", "f32"])
 def test_pipeline_kernels_two_launches_are_bitwise_equal(dev, kernel, dtype):
-    """corr_group, corr_mono2, corr_mono3, corr_pair2 and corr_pair sum in a
-    fixed order: the same inputs give the same bits, staged windows and ring
+    """corr_group, corr_mono2, corr_mono3, corr_pair2, corr_pair and
+    corr_level_pipe sum in a fixed order: the same inputs give the same bits, staged windows and ring
     reads (jitter 1 px) in one launch."""
     *args, scales = _case(dev, dtype, E=5003, mem=8, jitter=1.0)
     first = corr_cuda.corr_pyramid(*args, scales=scales, kernel=kernel)
@@ -681,8 +701,9 @@ def test_mono2_kernel_runs_of_pairs(dev, dtype, E):
 
 
 def test_pipeline_plans_match_the_kernels(dev):
-    """corr_pair's, corr_group's, corr_group8's, corr_mono2's, corr_mono3's
-    and corr_pair2's shared-memory sums are the kernels' own, and one SM
+    """corr_pair's, corr_group's, corr_group8's, corr_level_pipe's,
+    corr_level_full's, corr_mono2's, corr_mono3's and corr_pair2's
+    shared-memory sums are the kernels' own, and one SM
     holds as many blocks as the plans count on."""
     lib = corr_cuda._load()
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
@@ -704,6 +725,17 @@ def test_pipeline_plans_match_the_kernels(dev):
             assert lib.devo_corr_group_smem(9, C, cap, depth, *flags) == (
                 corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
             assert corr_cuda.group_blocks_per_sm(3, C, gdt, rdt) >= blocks
+            assert lib.devo_corr_level_pipe_smem(9, C, cap, depth, *flags) == (
+                corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.group_blocks_per_sm(3, C, gdt, rdt,
+                                                 "corr_level_pipe") >= blocks
+            if gdt == rdt:
+                for d in (2, corr_cuda.FULL_MAX_DEPTH):
+                    assert lib.devo_corr_level_full_smem(9, C, cap, d,
+                                                         flags[0]) == (
+                        corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, d))
+                assert corr_cuda.group_blocks_per_sm(
+                    3, C, gdt, rdt, "corr_level_full") >= blocks
             cap, depth, pipes = corr_cuda.mono2_plan(3, C, gdt, rdt)
             assert lib.devo_corr_mono2_smem(9, C, cap, depth, pipes, *flags) == (
                 corr_cuda.mono2_smem_bytes(3, C, gdt, rdt, cap, depth, pipes))
@@ -720,8 +752,9 @@ def test_pipeline_plans_match_the_kernels(dev):
 
 def test_new_kernels_occupancy_and_plans(dev):
     bf, i8 = torch.bfloat16, torch.int8
-    assert corr_cuda.level_pipe_blocks_per_sm(3, 128, bf, i8) >= 2
-    assert corr_cuda.level_pipe_blocks_per_sm(3, 128, bf, bf) >= 1
+    for ring in (i8, bf):
+        assert corr_cuda.group_blocks_per_sm(3, 128, bf, ring,
+                                             "corr_level_pipe") >= 2
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for E in (1, 96, 5003, 12288, 42432):
         run = corr_cuda.mono3_run(E, sms)
@@ -891,14 +924,15 @@ def test_group8_taps_are_exact_where_group_rounds_them(dev, level):
 
 
 @pytest.mark.parametrize("kernel,name,launches_an_update", [
-    ("pair", "corr_pair", 1), ("g8", "corr_group8", 2)])
+    ("pair", "corr_pair", 1), ("g8", "corr_group8", 2),
+    ("split2", "corr_level_pipe", 2), ("full", "corr_level_full", 2)])
 def test_engine_configurations_launch_their_kernel(dev, kernel, name,
                                                    launches_an_update):
-    """The engine's "pair" and "g8" configurations on bf16 rings, at 64x64
-    and narrow widths with random weights: every correlation of the run is
-    a launch of the configuration's kernel (one an update for "pair", one a
-    level for "g8"), no other kernel is launched and no plain correlation
-    is called."""
+    """The engine's "pair", "g8", "split2" and "full" configurations on bf16
+    rings, at 64x64 and narrow widths with random weights: every correlation
+    of the run is a launch of the configuration's kernel (one an update for
+    "pair", one a level for the others), no other kernel is launched and no
+    plain correlation is called."""
     from devo_tpu_torch import bench
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.runtime.config import VOConfig
@@ -938,7 +972,7 @@ def test_full_kernel_stages_match_their_plain_versions(dev, stage, dtype, E,
     with: on staged windows and, with jitter 3 px, on edges whose windows
     are not staged."""
     args = _level(_case(dev, dtype, E=E, jitter=jitter), 0)
-    cap = corr_cuda.full_plan(3, 128, args[1].dtype)[0]
+    cap = corr_cuda.full_knobs(3, 128, args[1].dtype)[0]
     got = corr_cuda.corr_level_full_cuda(*args, stage=stage)
     want = corr_plain.corr_level_stage(*args[:5], stage, cap)
     torch.cuda.synchronize()
@@ -996,17 +1030,47 @@ def test_tensor_paths_on_the_card_launch_no_kernel(dev, impl):
 
 
 def test_new_kernel_plans(dev):
-    """corr_level_full: two blocks an SM with a ring of two full windows on
-    bf16 rings, one block on f32 rings; corr_group8 (corr_group's plan) two
-    blocks an SM of two stages of full windows on bf16 rings, one block on
-    f32 rings, and bf16 rows of 12 channels staged in chunks of 32."""
+    """corr_level_full (full_knobs) and corr_group8 at corr_group's plan:
+    two blocks an SM of two stages (one a pipeline) of full windows on bf16
+    rings, one block on f32 rings, and bf16 rows of 12 channels staged in
+    chunks of 32; the occupancy query holds as many blocks as planned, and a
+    ring of four stages takes an SM alone. The runs of group_run cover every
+    edge in one round over the blocks the SMs hold."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert corr_cuda.full_plan(3, 128, bf) == (144, 2, 2)
-    assert corr_cuda.full_plan(3, 128, f32) == (144, 2, 1)
-    assert corr_cuda.full_plan(3, 12, bf)[0] == 0
+    assert corr_cuda.full_knobs(3, 128, bf) == (144, 2, 2)
+    assert corr_cuda.full_knobs(3, 128, f32) == (144, 2, 1)
+    assert corr_cuda.full_knobs(3, 12, bf)[0] == 144
     assert corr_cuda.group_plan(3, 128, bf, bf) == (144, 2, 2)
     assert corr_cuda.group_plan(3, 128, f32, f32) == (144, 2, 1)
     assert corr_cuda.group_plan(3, 12, bf, bf)[0] == 144
+    for ring, blocks in ((bf, 2), (f32, 1)):
+        for name in ("corr_level_full", "corr_group8"):
+            assert corr_cuda.group_blocks_per_sm(3, 128, ring, ring,
+                                                 name) >= blocks
+    lib = corr_cuda._load()
+    smem = corr_cuda.group_smem_bytes(3, 128, bf, bf, 144, 4)
+    assert lib.devo_corr_level_full_smem(9, 128, 144, 4, 1) == smem
+    assert corr_cuda._occupancy("corr_level_full",
+                                lib.devo_corr_level_full_blocks_per_sm(
+                                    9, 128, 144, 4, 1, 0)) == 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for E in (1, 96, 5003, 12288):
-        run = corr_cuda.full_run(E, dev, 2)
-        assert 1 <= run <= corr_cuda.FULL_RUN and run * -(-E // run) >= E
+        run = corr_cuda.group_run(E, dev, 2)
+        assert run * sms * 2 >= E and (run - 1) * sms * 2 < E
+
+
+@pytest.mark.parametrize("stage", ["full", "noext", "nomm", "noDMA"])
+@FLOAT_DTYPES
+def test_full_kernel_two_launches_are_bitwise_equal(dev, stage, dtype):
+    """corr_level_full and its stage instances sum in a fixed order: the
+    same bits twice, staged windows and ring reads (jitter 1 px) in one
+    launch, both levels, and at a ring of four stages and short runs."""
+    for level in (0, 1):
+        args = _level(_case(dev, dtype, E=5003, mem=8, jitter=1.0), level)
+        first = corr_cuda.corr_level_full_cuda(*args, stage=stage)
+        assert torch.equal(first,
+                           corr_cuda.corr_level_full_cuda(*args, stage=stage))
+        if dtype == "bf16":
+            tuned = corr_cuda.corr_level_full_cuda(*args, stage=stage,
+                                                   depth=4, run=5)
+            torch.testing.assert_close(tuned, first, **TOL)

@@ -1,14 +1,17 @@
 """The shared-memory plans of the tensor-core correlation kernels
 (csrc/corr.cu, csrc/corr_pair.cu, csrc/corr_pair2.cu, csrc/corr_mono2.cu,
-csrc/corr_mono3.cu, csrc/corr_group.cu, csrc/corr_group8.cu on the edge
-pipeline of csrc/corr_pipe.cuh, csrc/corr_fixed.cu, csrc/corr_mma.cuh), the
-edges their blocks walk, and the arithmetic of their fragments, on the CPU.
+csrc/corr_mono3.cu, csrc/corr_group.cu, csrc/corr_group8.cu,
+csrc/corr_level_pipe.cu, csrc/corr_level_full.cu on the edge pipeline of
+csrc/corr_pipe.cuh, csrc/corr_fixed.cu, csrc/corr_mma.cuh), the edges their
+blocks walk, and the arithmetic of their fragments, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_corr_cuda.py).
 Here: ops/corr_cuda.mono_plan (corr_pyramid's and corr_pair's), group_plan
-(corr_group's and corr_group8's), mono2_plan, mono3_plan, pair2_plan and
-fixed_plan / fixed_smem_bytes fit a block's shared memory with the stages,
-pipelines and blocks the designs need, and refuse what the kernels do not take; corr_mono3's runs and
+(corr_group's, corr_group8's, corr_level_pipe's and corr_level_full's, the
+last with its tuning knobs, full_knobs), mono2_plan, mono3_plan, pair2_plan
+and fixed_plan / fixed_smem_bytes fit a block's shared memory with the
+stages, pipelines and blocks the designs need, and refuse what the kernels
+do not take; corr_mono3's runs and
 corr_pair2's persistent grid cover every edge once; the channel order that
 corr_mma.cuh gives the mma fragments computes the plain product; its int8 -> bf16 conversion is exact for every int8 value; the
 order of corr_group's taps (round to bf16, then scale, then blend) is
@@ -126,6 +129,50 @@ def test_pair_and_group8_plans_at_the_model_width():
         2 * 48_960 + 2 * 5_760) == 109_440
     assert SMEM_SM // 2 - 1024 - corr_cuda._MONO_STATIC == 111_616
     assert corr_cuda.group_plan(3, 128, F32, F32)[2] == 1
+
+
+def test_level_pipe_and_full_plans_at_the_model_width():
+    """C = 128: corr_level_pipe (K7'') and corr_level_full (K10'') are
+    instances of the edge pipeline in corr_group8's shape at group_plan.
+    K7'' on int8 rings: two stages of the bf16 patch rows (9 x 160 x 2
+    bytes) and a window of 144 rows of 160 bytes, 25,920 each, and two
+    surface slots of 5,760: 63,360 bytes, two blocks an SM; four stages
+    (115,200) would miss the 111,616 of half an SM. K10'' (full_knobs): the
+    plan on bf16 rings, two blocks of 109,440 bytes an SM; a ring of four
+    stages, 207,360 bytes, takes an SM alone; on f32 rings two stages of
+    80,640 (9 x 128 floats and 144 rows of 528 bytes), 172,800 bytes, one
+    block an SM."""
+    assert corr_cuda.group_plan(3, 128, BF, I8) == (144, 2, 2)
+    assert corr_cuda._stage_bytes(3, 128, BF, I8, 144, 1) == (
+        9 * 160 * 2 + 144 * 160) == 25_920
+    assert corr_cuda.group_smem_bytes(3, 128, BF, I8, 144, 2) == (
+        2 * 25_920 + 2 * 5_760) == 63_360
+    assert corr_cuda.group_smem_bytes(3, 128, BF, I8, 144, 4) == 115_200
+    assert corr_cuda.full_knobs(3, 128, BF) == (144, 2, 2)
+    assert corr_cuda.full_knobs(3, 128, BF, depth=2, run=7) == (144, 2, 2)
+    assert corr_cuda.full_knobs(3, 128, BF, depth=4) == (144, 4, 1)
+    assert corr_cuda.group_smem_bytes(3, 128, BF, BF, 144, 4) == (
+        4 * 48_960 + 2 * 5_760) == 207_360
+    assert corr_cuda._stage_bytes(3, 128, F32, F32, 144, 1) == (
+        9 * 128 * 4 + 144 * 528) == 80_640
+    assert corr_cuda.full_knobs(3, 128, F32) == (144, 2, 1)
+    assert corr_cuda.group_smem_bytes(3, 128, F32, F32, 144, 2) == 172_800
+
+
+@pytest.mark.parametrize("dtype,depth,run,match", [
+    (BF, 3, None, "multiple of the block's 2 pipelines"),
+    (BF, 6, None, "depth must be 2 to 4"),
+    (BF, 0, None, "depth must be 2 to 4"),
+    (F32, 4, None, "more shared memory than a block can have"),
+    (BF, None, 0, "run must be at least 1"),
+    (BF, 2, -3, "run must be at least 1")])
+def test_full_knobs_refusals(dtype, depth, run, match):
+    """corr_level_full's tuning knobs: a depth that is no multiple of the
+    block's two pipelines or outside 2 .. FULL_MAX_DEPTH, a depth whose ring
+    a block's shared memory does not hold (four f32 stages, 334,080 bytes),
+    and a run below one edge."""
+    with pytest.raises(ValueError, match=match):
+        corr_cuda.full_knobs(3, 128, dtype, depth, run)
 
 
 @pytest.mark.parametrize("gmap_dtype,ring_dtype", PAIRS)
@@ -262,6 +309,7 @@ def test_rotating_kernels_cover_every_edge_once(E):
 
 PLANS = {"mono": lambda P, C: corr_cuda.mono_plan(P, C, BF, I8),
          "group": lambda P, C: corr_cuda.group_plan(P, C, BF, I8),
+         "full": lambda P, C: corr_cuda.full_knobs(P, C, BF),
          "mono2": lambda P, C: corr_cuda.mono2_plan(P, C, BF, I8),
          "mono3": lambda P, C: corr_cuda.mono3_plan(P, C, BF, I8),
          "pair2": lambda P, C: corr_cuda.pair2_plan(P, C, BF, I8),

@@ -251,13 +251,31 @@ def test_new_kernels_shared_memory_plans():
     i8, bf, f32 = torch.int8, torch.bfloat16, torch.float32
     cc = corr_cuda
     room = cc.SMEM_MAX
-    # corr_level_pipe: f32 patch feature and taps, two stages of (raw patch
-    # feature, window)
-    assert cc.level_pipe_smem_bytes(3, 128, bf, i8, 144) == 6912 + 2 * (2304 + 18_432)
-    assert cc.level_pipe_smem_bytes(3, 128, bf, bf, 144) == 6912 + 2 * (2304 + 36_864)
-    assert cc.level_pipe_cap(3, 128, bf, i8) == cc.level_pipe_cap(3, 128, bf, bf) == 144
-    assert cc.level_pipe_cap(3, 128, f32, f32) == 144
-    assert cc.level_pipe_cap(3, 8, bf, i8) == 0
+    # corr_level_pipe (the edge pipeline in corr_group8's shape, one level):
+    # group_plan, two blocks an SM of two stages (one a pipeline) of full
+    # windows, each stage the bf16 patch rows (9 x 160 channels) and one
+    # window of 144 rows of 160 int8 / 320 bf16 bytes, then two f32 surface
+    # slots (144 rows of 10 floats); f32 patch features stage their 9 x 128
+    # floats and rows of C + 16 bytes: on int8 rings still two blocks an SM,
+    # on f32 rings one
+    assert cc.group_smem_bytes(3, 128, bf, i8, 144, 2) == (
+        2 * (9 * 160 * 2 + 144 * 160) + 2 * 144 * 10 * 4) == 63_360
+    assert cc.group_smem_bytes(3, 128, bf, bf, 144, 2) == (
+        2 * (9 * 160 * 2 + 144 * 320) + 2 * 144 * 10 * 4) == 109_440
+    assert cc.group_smem_bytes(3, 128, f32, i8, 144, 2) == (
+        2 * (9 * 128 * 4 + 144 * 144) + 2 * 144 * 10 * 4) == 62_208
+    assert cc.group_smem_bytes(3, 128, f32, f32, 144, 2) == (
+        2 * (9 * 128 * 4 + 144 * 528) + 2 * 144 * 10 * 4) == 172_800
+    assert cc.group_plan(3, 128, bf, i8) == cc.group_plan(3, 128, bf, bf) == (144, 2, 2)
+    assert cc.group_plan(3, 128, f32, i8) == (144, 2, 2)
+    # four int8 stages (115,200 bytes) miss half an SM beside the static
+    # tables (111,616) by 3,584 bytes
+    assert cc.group_smem_bytes(3, 128, bf, i8, 144, 4) - (
+        233_472 // 2 - 1024 - 4096) == 3_584
+    # an int8 ring of 8-byte vectors is staged for bf16 patch features (the
+    # tensor cores' rows), not for f32 ones: every tap reads the ring
+    assert cc.group_plan(3, 8, bf, i8)[0] == 144
+    assert cc.group_plan(3, 8, f32, i8)[0] == 0
     # corr_mono2 (the edge pipeline, a pair a step): int8 rings two
     # pipelines of one stage, each stage two edges' bf16 patch rows (9 x 160
     # channels) and four windows of 128 rows of 160 bytes, and four f32

@@ -244,7 +244,7 @@ def test_run_voxel_crops_346_wide_input(shared):
 
 
 def test_harness_refuses_what_is_not_ported(shared):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1, the viewer"):
         harness.evaluate_sequence(
             CFG, shared["weights"], lambda: _iterator(_voxels(2)),
             traj_gt=_straight_gt(2, 0.05), tss_gt=np.arange(2.0), viz=True,
