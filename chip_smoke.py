@@ -16,7 +16,8 @@
    (corr_pyramid, corr_pair, corr_pair2 and corr_mono3 also on f32 patch
    features and rings), the per-level kernels (corr_level,
    corr_level_pipe, corr_group) on both levels and both ring types, the
-   resident level-4 kernel on int8 rings, and the per-level kernels that
+   resident level-4 kernel on int8 rings with bf16 and f32 patch features,
+   and the per-level kernels that
    take float rings only (corr_fixed for CORR_IMPL="pallas", corr_group8
    for "g8", corr_level_full for
    "full") on both levels, on bf16 and f32 rings; corr_level_full's stage
@@ -52,22 +53,31 @@
    corr_pair2 also at two blocks an SM with smaller windows, and again on
    patches put back on an exact grid, whose windows all fit those; and the
    one-level instances in turns at both levels (LEVEL_STRUCTURES): K7''
-   corr_level_pipe beside K8'' corr_group (the same shape with its taps
-   rounded) on int8 rings, and K7'', K10'' corr_level_full, K9''
-   corr_group8 and K8'' on bf16 rings.
+   corr_level_pipe beside K6'' corr_level (its instance under another
+   name, which must give its bits) and K8'' corr_group (the same shape with
+   its taps rounded) on int8 rings, and K7'', K6'', K10'' corr_level_full, K9''
+   corr_group8 and K8'' on bf16 rings; at level 4 on int8 rings with them
+   K11'' corr_level_resident by its C interface on edges already sorted by
+   slot and through its wrapper. The resident phase: K11'' on three
+   distributions of the edges' ring slots (uniform, all on one slot, the
+   10 newest slots), the same bits at two block counts (by its C
+   interface) and through its wrapper, and the wrapper's sort and search
+   timed apart from the kernel.
    With --parent DIR, a directory holding the parent commit's files of
-   PARENT_SOURCES (the nine kernels on the edge pipeline and the headers
-   corr_pipe.cuh, corr_common.cuh, corr_mma.cuh, from `git archive` of the
-   parent), those are built into a library of their own and timed against
-   this tree's at E = 12288 in turns (parent, this tree, this tree,
-   parent), each by its C interface: corr_level_pipe at both levels on int8
-   and bf16 rings and corr_level_full at both levels on bf16 rings and at
-   level 1 on f32 rings, redesigned since, each at its own plan and held to
-   each other within TOL; corr_pyramid, corr_pair, corr_group and (bf16
-   rings) corr_group8 at both levels, corr_mono2 gathered and in place,
-   corr_mono3 and corr_pair2, which share the edge pipeline with them, at
-   this tree's plans on int8 and bf16 rings, whose output must be the
-   parent's bit for bit.
+   PARENT_SOURCES (the kernels on the edge pipeline, K6' corr_level.cu and
+   K11' corr_level_resident.cu, and the headers corr_pipe.cuh,
+   corr_common.cuh, corr_mma.cuh, from `git archive` of the parent), those
+   are built into a library of their own and timed against this tree's at
+   E = 12288 in turns (parent, this tree, this tree, parent), each by its C
+   interface (parent_ab): corr_level at both levels on int8 and bf16 rings
+   and at level 1 on f32 rings, and corr_level_resident at level 4 on int8
+   rings, redesigned since, each at its own plan and held to each other
+   within TOL; corr_pyramid, corr_pair, corr_group, corr_level_pipe and
+   (bf16 rings) corr_group8 and corr_level_full at both levels (and
+   corr_level_full at level 1 on f32 rings), corr_mono2 gathered and in
+   place, corr_mono3 and corr_pair2, which share the edge pipeline, at this
+   tree's plans on int8 and bf16 rings, whose output must be the parent's
+   bit for bit.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound: the banded window ablation (corr_band_ablate, E = 15360 of
@@ -436,10 +446,15 @@ def variants(case):
                     lambda fn=fn: fn(gmap.float(), f32[0], f32[1], coords, kk, jj),
                     lambda: plain.corr_pyramid(gmap.float(), f32, coords, kk, jj),
                     (f32, (1, 4), (None, None))))
-    out.append(("corr_level_resident", "level 4 i8",
-                lambda: cc.corr_level_resident_cuda(gmap, i8[1], c4, kk, jj, sc[1]),
-                lambda: plain.corr_level(gmap, i8[1], c4, kk, jj, sc[1]),
-                ((i8[1],), (4,), (sc[1],))))
+    # the resident level 4 on bf16 patch features (the tensor cores) and f32
+    # ones (the CUDA cores)
+    for label, g in (("level 4 i8", gmap),
+                     ("level 4 i8, f32 patch features", gmap.float())):
+        out.append(("corr_level_resident", label,
+                    lambda g=g: cc.corr_level_resident_cuda(g, i8[1], c4, kk, jj,
+                                                            sc[1]),
+                    lambda g=g: plain.corr_level(g, i8[1], c4, kk, jj, sc[1]),
+                    ((i8[1],), (4,), (sc[1],))))
     # the kernels that take float rings only: bf16, and f32 rings (and patch
     # features) holding the same values
     for label, g, pyr in (("bf16", gmap, bf),
@@ -566,6 +581,7 @@ def kernel_phase(dev, gpu: str):
         if E == E_MAIN:
             group_surface_phase(case, gpu, record)
             full_stages(case, gpu, record)
+            resident_phase(case, gpu, record)
             structures_phase(case, gpu, record)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for ring in (torch.bfloat16, torch.int8):
@@ -592,7 +608,7 @@ def kernel_phase(dev, gpu: str):
         print(f"corr_pair [{ring} rings, C=128]: corr_pyramid's plan, {occ} "
               f"block(s) of 512 threads per SM by the occupancy query [{gpu}]",
               flush=True)
-        for name in ("corr_group", "corr_level_pipe"):
+        for name in ("corr_group", "corr_level_pipe", "corr_level"):
             cap, depth, blocks = cc.group_plan(3, 128, torch.bfloat16, ring)
             print(f"{name} [{ring} rings, C=128]: windows of {cap} vectors, a "
                   f"ring of {depth} stages (two pipelines), {blocks} block(s) "
@@ -620,6 +636,12 @@ def kernel_phase(dev, gpu: str):
                   f" edges at E={E_MAIN} "
                   f"({cc.group_smem_bytes(3, 128, ring, ring, cap, depth)} bytes"
                   f" a block) [{gpu}]", flush=True)
+    for g in (torch.bfloat16, torch.float32):
+        warps, cap, smem = cc.resident_plan(HT // 16, WD // 16, 128, 3, g)
+        print(f"corr_level_resident [int8 rings, {g} patch features, C=128, "
+              f"{HT // 16}x{WD // 16} frame]: {warps} warps a block, windows of "
+              f"{cap} positions on the surface, {smem} bytes a block, "
+              f"{cc._sms(dev)} persistent blocks [{gpu}]", flush=True)
     stages, blocks = cc.fixed_plan(3, 128, torch.bfloat16)
     print(f"corr_fixed [bf16 rings, C=128]: a ring of {stages} stages of 384 "
           f"positions x 32 channels, {blocks} block(s) of 256 threads per SM "
@@ -742,10 +764,10 @@ def structures_phase(case, gpu: str, record):
 # the one-level instances of the edge pipeline timed beside each other in
 # the structures phase, by ring: (label, kernel name)
 LEVEL_STRUCTURES = {
-    "i8": (("K7''", "corr_level_pipe"),
+    "i8": (("K7''", "corr_level_pipe"), ("K6'' (P)", "corr_level"),
            ("K8'' (taps rounded to bf16)", "corr_group")),
-    "bf16": (("K7''", "corr_level_pipe"), ("K10''", "corr_level_full"),
-             ("K9''", "corr_group8"),
+    "bf16": (("K7''", "corr_level_pipe"), ("K6'' (P)", "corr_level"),
+             ("K10''", "corr_level_full"), ("K9''", "corr_group8"),
              ("K8'' (taps rounded to bf16)", "corr_group")),
 }
 
@@ -755,57 +777,176 @@ def level_structures(case, gpu: str, record):
     their C interfaces at E = 12288, at both levels on int8 and bf16 rings,
     each held to its plain version (corr_level; corr_group to
     corr_level_group within group_tol) and timed in turns forward and back:
-    K7'' and K10'' (corr_group8's shape and plan) beside K8'' (the same
-    shape with rounded taps) and K9'' (the same instance on float rings)."""
+    K7'', K6'' (P) and K10'' (corr_group8's shape and plan) beside K8''
+    (the same shape with rounded taps) and K9'' (the same instance on float
+    rings); K6'' (P) must give K7'''s bits. At level 4 on int8 rings K11'' (the
+    resident frame) in the same turns, by its C interface on the edges
+    already sorted by slot and through its wrapper with the sort."""
     from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
     gmap, bf, i8, sc, coords, kk, jj = case
     E = coords.shape[0]
     for ring, pyr, scales in (("i8", i8, sc), ("bf16", bf, None)):
         ss = scales or (None, None)
         for n, (lvl, c) in enumerate(((1, coords), (4, coords / 4))):
             fmap, scale = pyr[n], ss[n]
-            fns, versions = [], []
+            want = plain.corr_level(gmap, fmap, c, kk, jj, scale)
+            fns, versions, outs = [], [], {}
             for label, name in LEVEL_STRUCTURES[ring]:
                 plan = level_plan(name, gmap, fmap, E)
                 fns.append(lambda name=name, plan=plan, c=c, fmap=fmap,
                            scale=scale: c_level(None, name, gmap, fmap, c, kk,
                                                 jj, scale, plan))
-                got = fns[-1]()
+                outs[name] = got = fns[-1]()
                 if name == "corr_group":
-                    want = plain.corr_level_group(gmap, fmap, c, kk, jj, scale)
-                    torch.testing.assert_close(got, want, **group_tol(want))
+                    want_g = plain.corr_level_group(gmap, fmap, c, kk, jj, scale)
+                    torch.testing.assert_close(got, want_g, **group_tol(want_g))
                 else:
-                    torch.testing.assert_close(
-                        got, plain.corr_level(gmap, fmap, c, kk, jj, scale),
-                        **TOL)
-                versions.append((label, name, plan))
+                    torch.testing.assert_close(got, want, **TOL)
+                versions.append((label, name,
+                                 f"windows of {plan[0]}, {plan[1][0]} stages"))
+            if not torch.equal(outs["corr_level"], outs["corr_level_pipe"]):
+                raise RuntimeError(f"K6'' (P) [level {lvl}, {ring} rings]: not "
+                                   f"K7'''s bits")
+            if ring == "i8" and lvl == 4:
+                warps, cap, _ = cc.resident_plan(*fmap.shape[1:], gmap.shape[1],
+                                                 gmap.dtype)
+                sorted_ = cc.resident_order(jj, fmap.shape[0])
+                blocks = cc._sms(gmap.device)
+                fns.append(lambda c=c, fmap=fmap, scale=scale: c_resident(
+                    None, gmap, fmap, c, kk, scale, sorted_,
+                    (cap, warps, blocks)))
+                fns.append(lambda c=c, fmap=fmap, scale=scale:
+                           cc.corr_level_resident_cuda(gmap, fmap, c, kk, jj,
+                                                       scale))
+                for f in fns[-2:]:
+                    torch.testing.assert_close(f(), want, **TOL)
+                versions += [("K11'' (kernel alone)", "corr_level_resident",
+                              f"{warps} warps, {blocks} blocks"),
+                             ("K11'' (wrapper, with the sort)",
+                              "corr_level_resident", "the same")]
             ms = in_turns(fns)
             what = f"level {lvl}, {ring} rings"
             for (label, name, plan), t in zip(versions, ms):
-                record[name].setdefault("structures", []).append(dict(
-                    label=f"{label} [{what}]", E=E, cap=plan[0], ms=t))
+                record[name].setdefault("structures", []).append(
+                    dict(label=f"{label} [{what}]", E=E, plan=plan, ms=t))
             print(f"structures [{what}] E={E}, in turns forward and back: "
-                  + "; ".join(f"{label} (windows of {plan[0]}, "
-                              f"{plan[1][0]} stages) {t[0]:.4f}, {t[1]:.4f}"
+                  + "; ".join(f"{label} ({plan}) {t[0]:.4f}, {t[1]:.4f}"
                               for (label, _, plan), t in zip(versions, ms))
-                  + f" ms [{gpu}]", flush=True)
+                  + f" ms; K6'' (P) gives K7'''s bits [{gpu}]", flush=True)
 
 
-# the kernels redesigned since the parent commit (K7', K10'), the kernels on
-# the edge pipeline that they now share (K1, K5'', K2'', K3'', K4'', K8'',
-# K9''), and the sources a build of the parent's versions takes from the
-# directory given by --parent
+def c_resident(lib, gmap, fmap, coords, kk, scale, sorted_, plan):
+    """One launch of devo_corr_level_resident of `lib` (this tree's library
+    where None) by its C interface on edges already sorted by slot
+    (`sorted_`: ops/corr_cuda.resident_order's (order, slots, offsets)):
+    this tree's interface with `plan` = (cap, warps, blocks), or the
+    parent's (a grid of (mem, 8) blocks, no plan) where plan is None."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    lib = lib or cc._load()
+    E, C, PP = coords.shape[0], gmap.shape[-1], gmap.shape[1] ** 2
+    mem, h, w, _ = fmap.shape
+    order, slots, offsets = sorted_
+    out = torch.empty((E, 49 * PP), dtype=torch.float32, device=gmap.device)
+    head = (gmap.data_ptr(), fmap.data_ptr(), scale.data_ptr(),
+            coords.data_ptr(), kk.data_ptr(), order.data_ptr())
+    bf16 = int(gmap.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    if plan is None:
+        code = lib.devo_corr_level_resident(
+            *head, offsets.data_ptr(), out.data_ptr(), E, mem, 8, PP, C, h, w,
+            bf16, stream)
+    else:
+        cap, warps, blocks = plan
+        code = lib.devo_corr_level_resident(
+            *head, slots.data_ptr(), offsets.data_ptr(), out.data_ptr(), E, PP,
+            C, h, w, cap, bf16, warps, blocks, stream)
+    if code:
+        raise RuntimeError(f"corr_level_resident by its C interface: launch "
+                           f"failed ({code})")
+    return out
+
+
+def resident_phase(case, gpu: str, record):
+    """K11'' (the resident level 4) at E = 12288 on int8 rings with bf16
+    patch features, on three distributions of jj: the kernel phase's
+    uniform one, every edge on one slot, and the edges on the 10 newest
+    slots (the tracking path's shape). Each: within TOL of corr_level; the
+    same bits at two block counts by the C interface (one an SM, and 7) and
+    through the wrapper; the blocks' edge counts and the frames they copy,
+    worked out on the host from the kernel's split of the sorted edges (not
+    counted by the kernel); and timed apart, the wrapper, the kernel alone
+    by its C interface on the sorted edges, and the wrapper's sort and
+    search alone."""
+    from devo_tpu_torch.ops import corr as plain
+    from devo_tpu_torch.ops import corr_cuda as cc
+    gmap, bf, i8, sc, coords, kk, jj = case
+    fmap, scale, c4 = i8[1], sc[1], coords / 4
+    E, mem = coords.shape[0], fmap.shape[0]
+    sms = cc._sms(gmap.device)
+    warps, cap, smem = cc.resident_plan(*fmap.shape[1:], gmap.shape[1],
+                                        gmap.dtype)
+    g = torch.Generator(device=gmap.device).manual_seed(7)
+    newest = (mem - 1 - torch.randint(0, 10, (E,), generator=g,
+                                      device=gmap.device)).to(torch.int32)
+    rec = record["corr_level_resident"].setdefault("distributions", [])
+    for what, slots in (("uniform", jj), ("one slot", torch.full_like(jj, 5)),
+                        ("10 newest slots", newest)):
+        want = plain.corr_level(gmap, fmap, c4, kk, slots, scale)
+        sorted_ = cc.resident_order(slots, mem)
+        got = {b: c_resident(None, gmap, fmap, c4, kk, scale, sorted_,
+                             (cap, warps, b)) for b in (sms, 7)}
+        again = cc.corr_level_resident_cuda(gmap, fmap, c4, kk, slots, scale)
+        torch.cuda.synchronize()
+        err = (again - want).abs().max().item()
+        torch.testing.assert_close(again, want, **TOL)
+        if not (torch.equal(got[sms], got[7]) and torch.equal(got[sms], again)):
+            raise RuntimeError(f"K11'' [{what}]: other bits at another block "
+                               f"count or launch")
+        # each block's share of the sorted edges and the frames it copies
+        # (its runs of one slot), by the kernel's split formula on the host
+        cuts = [b * E // sms for b in range(sms + 1)]
+        ordered = sorted_[1].cpu()
+        frames = sum(int(torch.unique_consecutive(ordered[a:b]).numel())
+                     for a, b in zip(cuts, cuts[1:]) if b > a)
+        counts = [b - a for a, b in zip(cuts, cuts[1:])]
+        ms = median_ms(lambda: cc.corr_level_resident_cuda(gmap, fmap, c4, kk,
+                                                           slots, scale))
+        alone = median_ms(lambda: c_resident(None, gmap, fmap, c4, kk, scale,
+                                             sorted_, (cap, warps, sms)))
+        sort_ms = median_ms(lambda: cc.resident_order(slots, mem))
+        b_ms, _ = bound_ms(gmap, (fmap,), (4,), (scale,), coords, kk, slots)
+        rec.append(dict(label=what, E=E, max_abs_err=err, ms=ms, kernel_ms=alone,
+                        sort_ms=sort_ms, bound_ms=b_ms, frames=frames,
+                        edges_per_block=[min(counts), max(counts)]))
+        record["corr_level_resident"]["max_abs_err"] = max(
+            record["corr_level_resident"]["max_abs_err"], err)
+        print(f"corr_level_resident [{what}, level 4 i8] E={E}: max_abs_err "
+              f"{err:.3e}; the same bits at {sms} and 7 blocks and in two "
+              f"launches; {warps} warps a block ({smem} bytes); by the split "
+              f"formula {min(counts)}-{max(counts)} edges a block, {frames} "
+              f"frames copied; wrapper "
+              f"{ms:.4f} ms, kernel alone {alone:.4f} ms, sort and search "
+              f"{sort_ms:.4f} ms, bound {b_ms:.4f} ms [{gpu}]", flush=True)
+
+
+# the kernels redesigned since the parent commit (K6', K11'), the kernels on
+# the edge pipeline that K6'' now shares (K1, K5'', K2'', K3'', K4'', K8'',
+# K9'', K7'', K10''), and the sources a build of the parent's versions takes
+# from the directory given by --parent
 PARENT_SOURCES = ("corr.cu", "corr_pair.cu", "corr_pair2.cu", "corr_mono2.cu",
                   "corr_mono3.cu", "corr_group.cu", "corr_group8.cu",
-                  "corr_level_pipe.cu", "corr_level_full.cu",
-                  "corr_pipe.cuh", "corr_common.cuh", "corr_mma.cuh")
+                  "corr_level_pipe.cu", "corr_level_full.cu", "corr_level.cu",
+                  "corr_level_resident.cu", "corr_pipe.cuh", "corr_common.cuh",
+                  "corr_mma.cuh")
 
 
 def parent_library(parent_dir: str):
     """The parent commit's kernels of PARENT_SOURCES built from parent_dir (a
     copy of them and their headers) into a library of their own, with the
-    parent's C interfaces: those of this tree but corr_level_pipe, which
-    takes no plan arguments after its type flags."""
+    parent's C interfaces: those of this tree but corr_level (no plan
+    arguments after its type flags) and corr_level_resident (the edges'
+    order and slot offsets, a grid of ring slots x shares, no plan)."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -823,61 +964,27 @@ def parent_library(parent_dir: str):
     lib.devo_corr_mono3.argtypes = two + [i] * 4 + [ptr]
     lib.devo_corr_pair2.argtypes = two + [i] * 4 + [ptr]
     lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
-    lib.devo_corr_level_pipe.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
+    lib.devo_corr_level_pipe.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
     lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
+    lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
+    lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
     for fn in (lib.devo_corr_pyramid, lib.devo_corr_pair, lib.devo_corr_group,
                lib.devo_corr_mono2, lib.devo_corr_mono3, lib.devo_corr_pair2,
                lib.devo_corr_group8, lib.devo_corr_level_pipe,
-               lib.devo_corr_level_full):
+               lib.devo_corr_level_full, lib.devo_corr_level,
+               lib.devo_corr_level_resident):
         fn.restype = ctypes.c_int
     return lib
 
 
 def parent_plan(name, gmap, fmap, E):
-    """(cap, integers after the type flags) of the parent's corr_level_pipe
-    or corr_level_full (the correlation) as the parent's wrapper launched it
-    on E edges: corr_level_pipe the windows that fit its f32 patch feature
-    and taps and two stages of the raw patch feature and a window beside
-    4096 bytes of static tables, and no plan arguments; corr_level_full the
-    windows that fit a ring of two stages at two blocks an SM (else one),
-    beside two f32 patch features, surfaces and tap buffers and 4096 bytes,
-    then up to four stages in that share, and runs of at most 64 edges in
-    whole rounds over the blocks the SMs hold."""
+    """(cap, integers after the type flags) of the parent's corr_level as
+    the parent's wrapper launched it: windows of LEVEL_WINDOW_CAP vectors
+    where a ring's vector is a whole number of 16-byte copies (else 0, every
+    tap from the ring), and no plan arguments."""
     from devo_tpu_torch.ops import corr_cuda as cc
-    C, g, r = gmap.shape[-1], gmap.dtype, fmap.dtype
-    PP = 9
-
-    def fit_cap(smem_of_cap, room):
-        # LEVEL_WINDOW_CAP vectors, fewer where `room` holds no more, 0 where
-        # none fits or a vector is no multiple of the 16-byte copies
-        if C * r.itemsize % 16:
-            return 0
-        return next((cap for cap in range(cc.LEVEL_WINDOW_CAP, 0, -1)
-                     if smem_of_cap(cap) <= room), 0)
-
-    if name == "corr_level_pipe":
-        graw = -(-PP * C * g.itemsize // 16) * 16
-        return fit_cap(lambda cap: (PP * C + PP * 64) * 4
-                       + 2 * (graw + cap * C * r.itemsize),
-                       cc.SMEM_MAX - 4096), ()
-
-    def smem(cap, depth):
-        return ((2 * PP * C + 2 * cap * PP + 2 * PP * 64) * 4
-                + depth * cap * cc._padded(C, r))
-
-    for blocks in (2, 1):
-        room = (cc._SMEM_SM // 2 - cc._SMEM_RESERVED if blocks == 2
-                else cc.SMEM_MAX) - 4096
-        cap = fit_cap(lambda cap: smem(cap, 2), room)
-        if cap == cc.LEVEL_WINDOW_CAP or blocks == 1 or cap == 0:
-            break
-    depth = 2
-    while depth < 4 and smem(cap, depth + 1) <= room:
-        depth += 1
-    slots = blocks * torch.cuda.get_device_properties(
-        gmap.device).multi_processor_count
-    rounds = max(1, -(-E // (slots * 64)))
-    return cap, (depth, max(1, -(-E // (slots * rounds))), 0)
+    return (cc.LEVEL_WINDOW_CAP
+            if gmap.shape[-1] * fmap.element_size() % 16 == 0 else 0), ()
 
 
 def level_plan(name, gmap, fmap, E):
@@ -894,7 +1001,7 @@ def level_plan(name, gmap, fmap, E):
 # the one-level kernels whose C interface takes the ring slots' scales and
 # two type flags (patch features, ring); the others take float rings and
 # one flag
-SCALED_LEVEL = ("corr_group", "corr_level_pipe")
+SCALED_LEVEL = ("corr_group", "corr_level_pipe", "corr_level")
 
 
 def c_level(lib, name, gmap, fmap, coords, kk, jj, scale, plan):
@@ -922,64 +1029,73 @@ def c_level(lib, name, gmap, fmap, coords, kk, jj, scale, plan):
     return out
 
 
+def parent_ab():
+    """What the A/B against the parent compares: (kernel, label, rule), rule
+    "tol" for a kernel redesigned since the parent (each version at its own
+    plan, held to each other within TOL) and "bits" for one that must give
+    the parent's bits at this tree's plan. K6' / K6'' at levels 1 and 4 on
+    int8 and bf16 rings and at level 1 on f32 rings; K11' / K11'' at level 4
+    on int8 rings; the kernels on the edge pipeline on int8 and bf16 rings
+    (K9'', K10'' on bf16 rings alone, K10'' also at level 1 on f32)."""
+    out = []
+    for ring in ("i8", "bf16"):
+        for name in ("corr_level", "corr_level_pipe", "corr_group") + (
+                ("corr_group8", "corr_level_full") if ring == "bf16" else ()):
+            rule = "tol" if name == "corr_level" else "bits"
+            out += [(name, f"level {lvl} {ring}", rule) for lvl in (1, 4)]
+        out += [(name, f"both levels {ring}", "bits") for name in
+                ("corr_pyramid", "corr_pair", "corr_mono3", "corr_pair2")]
+        out += [("corr_mono2", f"both levels {ring} {what}", "bits")
+                for what in ("gathered", "in place")]
+    out += [("corr_level", "level 1 f32", "tol"),
+            ("corr_level_full", "level 1 f32", "bits"),
+            ("corr_level_resident", "level 4 i8", "tol")]
+    return out
+
+
 def parent_phase(dev, gpu: str, parent_dir: str, record):
     """The kernels redesigned since the parent commit against the parent's
-    versions of them, on the kernel phase's inputs at E = 12288, each
-    version by its C interface at its own plan: K7' and K7'' at levels 1 and
-    4 on int8 and bf16 rings, K10' and K10'' at levels 1 and 4 on bf16
-    rings and at level 1 on f32 rings (held to each other within TOL); and
-    the kernels that share the edge pipeline of csrc/corr_pipe.cuh with
-    them, on int8 and bf16 rings, whose output must equal the parent's bit
-    for bit at the same plan: K1, K5'', K8'' and K9'' (bf16 rings) at levels
-    1 and 4, K3'' gathered and in place, K4'' and K2''. Each pair is timed
+    versions of them, and the kernels that share the edge pipeline with K6''
+    against the parent's bits (parent_ab), on the kernel phase's inputs at
+    E = 12288, each version by its C interface: K6' and K11' at the
+    parent's plans, every other version at this tree's. Each pair is timed
     in turns, parent, this tree, this tree, parent, in one process on one
     card."""
+    from devo_tpu_torch.ops import corr_cuda as cc
     lib = parent_library(parent_dir)
     gmap, bf, i8, sc, coords, kk, jj = corr_case(E_MAIN, dev, 0)
     E = coords.shape[0]
+    rings = {"i8": (gmap, i8, sc), "bf16": (gmap, bf, None),
+             "f32": (gmap.float(), tuple(r.float() for r in bf), None)}
 
-    def two(lib, name, pyr, scales, plan):
-        return lambda: c_two_level(lib, name, gmap, pyr, coords, kk, jj,
-                                   scales, plan)
+    def versions(name, label):
+        ring = label.split()[-1] if name != "corr_mono2" else label.split()[2]
+        g, pyr, scales = rings[ring]
+        if label.startswith("both levels"):
+            concat = not label.endswith("in place")
+            plan = tree_plan(name, g, pyr[0].dtype, E, concat)
+            return [lambda x=x: c_two_level(x, name, g, pyr, coords, kk, jj,
+                                            scales, plan) for x in (lib, None)]
+        n = 0 if label.startswith("level 1") else 1
+        c, fmap = coords / (1, 4)[n], pyr[n]
+        scale = None if scales is None else scales[n]
+        if name == "corr_level_resident":
+            sorted_ = cc.resident_order(jj, fmap.shape[0])
+            warps, cap, _ = cc.resident_plan(*fmap.shape[1:], g.shape[1],
+                                             g.dtype)
+            return [lambda x=x, plan=plan: c_resident(
+                        x, g, fmap, c, kk, scale, sorted_, plan)
+                    for x, plan in ((lib, None),
+                                    (None, (cap, warps, cc._sms(dev))))]
+        plans = [level_plan(name, g, fmap, E)] * 2
+        if name == "corr_level":
+            plans[0] = parent_plan(name, g, fmap, E)
+        return [lambda x=x, plan=plan: c_level(x, name, g, fmap, c, kk, jj,
+                                               scale, plan)
+                for x, plan in zip((lib, None), plans)]
 
-    def level(lib, name, g, fmap, c, scale, plan):
-        return lambda: c_level(lib, name, g, fmap, c, kk, jj, scale, plan)
-
-    cases = []
-    levels = ((1, coords), (4, coords / 4))
-    for ring, pyr, scales in (("i8", i8, sc), ("bf16", bf, None)):
-        ss = scales or (None, None)
-        r = pyr[0].dtype
-        for n, (lvl, c) in enumerate(levels):
-            cases.append(("corr_level_pipe", f"level {lvl} {ring}", "tol", *(
-                level(x, "corr_level_pipe", gmap, pyr[n], c, ss[n], plan)
-                for x, plan in (
-                    (lib, parent_plan("corr_level_pipe", gmap, pyr[n], E)),
-                    (None, level_plan("corr_level_pipe", gmap, pyr[n], E))))))
-        for name in ("corr_pyramid", "corr_pair", "corr_mono3", "corr_pair2"):
-            cases.append((name, f"both levels {ring}", "bits",
-                          *(two(x, name, pyr, scales, tree_plan(name, gmap, r, E))
-                            for x in (lib, None))))
-        names = ("corr_group",) + (("corr_group8",) if scales is None else ())
-        for name in names:
-            for n, (lvl, c) in enumerate(levels):
-                plan = level_plan(name, gmap, pyr[n], E)
-                cases.append((name, f"level {lvl} {ring}", "bits", *(
-                    level(x, name, gmap, pyr[n], c, ss[n], plan)
-                    for x in (lib, None))))
-        for concat, what in ((True, "gathered"), (False, "in place")):
-            cases.append(("corr_mono2", f"both levels {ring} {what}", "bits",
-                          *(two(x, "corr_mono2", pyr, scales,
-                                tree_plan("corr_mono2", gmap, r, E, concat))
-                            for x in (lib, None))))
-    f32 = (gmap.float(), bf[0].float(), "level 1 f32", coords)
-    for g, fmap, label, c in [(gmap, bf[n], f"level {lvl} bf16", c)
-                              for n, (lvl, c) in enumerate(levels)] + [f32]:
-        cases.append(("corr_level_full", label, "tol", *(
-            level(x, "corr_level_full", g, fmap, c, None, plan)
-            for x, plan in ((lib, parent_plan("corr_level_full", g, fmap, E)),
-                            (None, level_plan("corr_level_full", g, fmap, E))))))
-    for name, label, rule, old, new in cases:
+    for name, label, rule in parent_ab():
+        old, new = versions(name, label)
         a, b = old(), new()
         torch.cuda.synchronize()
         if rule == "bits":
@@ -1116,6 +1232,12 @@ def empty_case(dev, gpu: str):
         if got.shape != (0, 882) or cc.launches != before:
             raise RuntimeError(f"{impl} {kernel} at E=0: {tuple(got.shape)}, "
                                f"launches {cc.launches}")
+    for g in (gmap, gmap.float()):          # the resident level 4
+        got = cc.corr_pyramid(g, i8, coords[:0], kk[:0], jj[:0], scales=sc,
+                              kernel="split", resident=True)
+        if got.shape != (0, 882) or cc.launches != before:
+            raise RuntimeError(f"split + resident at E=0: {tuple(got.shape)}, "
+                               f"launches {cc.launches}")
     print(f"E=0: every kernel choice and family returns (0, 882) and launches "
           f"nothing [{gpu}]", flush=True)
 
@@ -1126,7 +1248,7 @@ F32_TWO_LEVEL = {"corr_pyramid": "mono", "corr_pair": "pair",
                  "corr_mono3": "mono3", "corr_pair2": "pair2"}
 # kernel choice -> the launch counters it runs on
 COUNTERS = {"mono": ("corr_pyramid",), "pair": ("corr_pair",),
-            "pair2": ("corr_pair2",),
+            "pair2": ("corr_pair2",), "split": ("corr_level",),
             "mono2": ("corr_mono2",), "mono4": ("corr_mono2",),
             "mono3": ("corr_mono3",), "split2": ("corr_level_pipe",),
             "g8c": ("corr_group",)}

@@ -93,12 +93,6 @@ __device__ __forceinline__ float blend_frac(const float* taps8x8, int ox, int oy
          (1.0f - fx) * fy * tp[kTaps] + fx * fy * tp[kTaps + 1];
 }
 
-// The same from the coordinate itself.
-__device__ __forceinline__ float blend_tap(const float* taps8x8, int ox, int oy,
-                                           float x, float y) {
-  return blend_frac(taps8x8, ox, oy, x - floorf(x), y - floorf(y));
-}
-
 constexpr size_t kDefaultSharedMemory = 48 * 1024;
 constexpr size_t kStaticSharedMemory = 8 * 1024;   // more than any kernel's
 

@@ -39,10 +39,12 @@
 //
 // Users: the edge pipeline of csrc/corr_pipe.cuh (csrc/corr.cu,
 // corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
-// corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu: covering windows,
-// bf16 and int8 rings) and csrc/corr_fixed.cu (the fixed 16x24 window, bf16
-// rings). The window products of csrc/corr_band_ablate.cu and
-// corr_frame_probe.cu are the same operation on the CUDA cores.
+// corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu, corr_level.cu:
+// covering windows, bf16 and int8 rings), csrc/corr_fixed.cu (the fixed
+// 16x24 window, bf16 rings) and csrc/corr_level_resident.cu (windows read
+// in place from a swizzled int8 frame, tile_chunk_rows). The window
+// products of csrc/corr_band_ablate.cu and corr_frame_probe.cu are the same
+// operation on the CUDA cores.
 #pragma once
 
 #include "corr_common.cuh"
@@ -174,6 +176,22 @@ struct ChunkB {
       }
     }
   }
+  // The same from rows of C channels (a multiple of 8), zero past C: the
+  // patch feature read where it lies in device memory, its rows not padded
+  // to whole chunks.
+  __device__ __forceinline__ void load_upto(const __nv_bfloat16* g, int C,
+                                            int PP, int c0, int lane) {
+    const int row = lane >> 2, c = c0 + 8 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int p = 8 * n + row;
+      if (p < PP && c < C) {
+        row8(g + static_cast<size_t>(p) * C + c, w[n]);
+      } else {
+        w[n][0] = w[n][1] = w[n][2] = w[n][3] = 0u;
+      }
+    }
+  }
 };
 
 // One chunk of an m-tile: rows m0 + g and m0 + g + 8 of the window `win`
@@ -193,6 +211,34 @@ __device__ __forceinline__ void tile_chunk(float (&d)[2][4], const F* win,
 #pragma unroll
     for (int n = 0; n < 2; ++n)
       mma_16816(d[n], ra[2 * s], rb[2 * s], ra[2 * s + 1], rb[2 * s + 1],
+                b.w[n][2 * s], b.w[n][2 * s + 1]);
+}
+
+// Rows of int8 stored in swizzled 16-byte chunks (csrc/corr_level_resident.cu's
+// resident frame): chunk k of a row lies at chunk k ^ sw, sw the row's own
+// swizzle. The address of channels c .. c+7 (c a multiple of 8) of a row.
+__device__ __forceinline__ const int8_t* swizzled_at(const int8_t* row, int sw,
+                                                     int c) {
+  return row + (((c >> 4) ^ sw) << 4) + (c & 15);
+}
+
+// One chunk of an m-tile whose rows lie anywhere, as tile_chunk: row m0 + g
+// at `ra` with swizzle `sa`, row m0 + g + 8 at `rb` with `sb` (each lane's
+// own two rows), channels c0 .. c0+31 (rows padded to whole chunks).
+__device__ __forceinline__ void tile_chunk_rows(float (&d)[2][4],
+                                                const int8_t* ra, int sa,
+                                                const int8_t* rb, int sb,
+                                                int c0, const ChunkB& b,
+                                                int lane) {
+  const int c = c0 + 8 * (lane & 3);
+  unsigned wa[4], wb[4];
+  row8(swizzled_at(ra, sa, c), wa);
+  row8(swizzled_at(rb, sb, c), wb);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      mma_16816(d[n], wa[2 * s], wb[2 * s], wa[2 * s + 1], wb[2 * s + 1],
                 b.w[n][2 * s], b.w[n][2 * s + 1]);
 }
 

@@ -1,6 +1,7 @@
-// The edge pipeline that nine correlation kernels share (csrc/corr.cu,
+// The edge pipeline that ten correlation kernels share (csrc/corr.cu,
 // corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
-// corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu): a block walks
+// corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu, corr_level.cu): a
+// block walks
 // its edges as one or two independent pipelines, each behind a ring of
 // stages in shared memory that hold an edge's patch feature and the covering
 // window of each of its levels (the union of the pixels' 8x8 tap grids),

@@ -3,17 +3,20 @@ kernels in csrc/.
 
 `corr_pyramid` takes the plain PyTorch versions (ops/corr.py) for tensors on
 the CPU and launches a kernel for tensors on a CUDA device; there is no
-fallback from one to the other. Nine kernels, one launch counter each
-(`launches`), chosen by `kernel` (the engine's CORR_KERNEL) and `resident`:
+fallback from one to the other. Twelve correlation kernels, one launch
+counter each (`launches`), chosen by `impl` (the engine's CORR_IMPL),
+`kernel` (its CORR_KERNEL) and `resident`:
 
 - "mono", `corr_pyramid_cuda` (csrc/corr.cu): both pyramid levels in one
   launch, blocks walking runs of edges behind a ring of staged windows (the
   edge pipeline, csrc/corr_pipe.cuh), the window products on the tensor
   cores (csrc/corr_mma.cuh) for bf16 patch features;
-- "split", `corr_level_cuda` (csrc/corr_level.cu): one level per launch;
+- "split", `corr_level_cuda` (csrc/corr_level.cu): one level per launch,
+  the edge pipeline's one-level instance of "split2" under its own name;
 - `resident`, `corr_level_resident_cuda` (csrc/corr_level_resident.cu): the
-  last level of a per-level kernel from an int8 ring slot held in a block's
-  shared memory;
+  last level of a per-level kernel from an int8 ring slot held, swizzled, in
+  a block's shared memory, one warp an edge on the tensor cores, persistent
+  blocks over the slot-sorted edges;
 - "pair", `corr_pair_cuda` (csrc/corr_pair.cu): both levels in one launch,
   an instance of the edge pipeline in corr_pyramid's shape, schedule and
   plan;
@@ -114,8 +117,10 @@ _FIXED_STAGES = 2             # chunk stages of its bf16 kernel's window
 _FIXED_STATIC = 1024          # bound on its static shared memory
 MONO_MAX_DEPTH = 4            # stages of corr_pyramid's window ring
 _MMA_CHUNK = 32               # channels of a chunk of a tensor-core product
-_RESIDENT_WARPS = 8           # warps of a corr_level_resident block
-_RESIDENT_SPLIT = 8           # blocks per ring slot (grid.y)
+RESIDENT_CAP = 96             # window positions of corr_level_resident's
+                              #   surface (six m-tiles)
+RESIDENT_MAX_WARPS = 16       # warps of its block, at most
+_RESIDENT_TABLE = 256         # bytes of a warp's pixel table
 _lib = None
 
 
@@ -195,8 +200,13 @@ def _load():
         lib.devo_corr_fixed_smem.argtypes = [i] * 3
         lib.devo_corr_fixed_smem.restype = ctypes.c_longlong
         lib.devo_corr_fixed_blocks_per_sm.argtypes = [i] * 3
-        lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
-        lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
+        lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
+        lib.devo_corr_level_smem.argtypes = [i] * 6
+        lib.devo_corr_level_smem.restype = ctypes.c_longlong
+        lib.devo_corr_level_blocks_per_sm.argtypes = [i] * 6
+        lib.devo_corr_level_resident.argtypes = [ptr] * 9 + [i] * 9 + [ptr]
+        lib.devo_corr_level_resident_smem.argtypes = [i] * 7
+        lib.devo_corr_level_resident_smem.restype = ctypes.c_longlong
         lib.devo_corr_pair.argtypes = lib.devo_corr_pyramid.argtypes
         lib.devo_corr_pair_smem.argtypes = [i] * 6
         lib.devo_corr_pair_smem.restype = ctypes.c_longlong
@@ -244,7 +254,7 @@ def _load():
                    lib.devo_corr_level_full_blocks_per_sm, lib.devo_corr_pyramid,
                    lib.devo_corr_pyramid_blocks_per_sm,
                    lib.devo_corr_fixed_blocks_per_sm,
-                   lib.devo_corr_level,
+                   lib.devo_corr_level, lib.devo_corr_level_blocks_per_sm,
                    lib.devo_corr_level_resident, lib.devo_corr_pair,
                    lib.devo_corr_pair2, lib.devo_corr_pair2_blocks_per_sm,
                    lib.devo_corr_level_pipe,
@@ -326,40 +336,6 @@ def _check_call(gmap, rings, scales, coords, kk, jj):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def level_smem_bytes(P: int, C: int, ring_dtype, cap: int) -> int:
-    """Dynamic shared memory of a corr_level block: the patch feature and
-    the taps as f32, and `cap` feature vectors of the ring's type."""
-    PP = P * P
-    return (PP * C + PP * _TAPS) * 4 + cap * C * _item(ring_dtype)
-
-
-def corr_level_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
-    """Launch csrc/corr_level.cu, one pyramid level: gmap (Mring, P, P, C)
-    bf16 or f32; fmap (mem, h, w, C) of gmap's dtype, or int8 with scale
-    (mem,) f32; coords (E, P, P, 2) f32 at this level's resolution; kk, jj
-    (E,) int32. Returns (E, 49*P*P) f32 in [dx, dy, pixel] order."""
-    E, P, C, i8 = _check_call(gmap, (fmap,), (scale,), coords, kk, jj)
-    # the window is staged by 16-byte copies; a ring whose feature vector
-    # is no multiple of that reads every tap from the ring
-    cap = LEVEL_WINDOW_CAP if C * fmap.element_size() % 16 == 0 else 0
-    _check(level_smem_bytes(P, C, fmap.dtype, cap) <= SMEM_MAX,
-           f"P={P}, C={C} needs more shared memory than a block can have")
-
-    out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
-                      device=gmap.device)
-    if E == 0:
-        return out
-    lib = _load()
-    code = lib.devo_corr_level(
-        gmap.data_ptr(), fmap.data_ptr(), _ptr(scale), coords.data_ptr(),
-        kk.data_ptr(), jj.data_ptr(), out.data_ptr(), E, P * P, C,
-        fmap.shape[1], fmap.shape[2], cap,
-        int(gmap.dtype == torch.bfloat16), int(i8),
-        torch.cuda.current_stream(gmap.device).cuda_stream)
-    _launched("corr_level", code)
-    return out
 
 
 def _item(dtype) -> int:
@@ -847,7 +823,7 @@ def group_run(E: int, device, blocks: int) -> int:
 def _group_call(name, gmap, fmap, coords, kk, jj, scale):
     """One launch of the one-level kernel devo_<name> that takes the ring
     slots' scales at group_plan and group_run (corr_group,
-    corr_level_pipe)."""
+    corr_level_pipe, corr_level)."""
     P, C = _patch_shape(gmap)
     cap, depth, blocks = group_plan(P, C, gmap.dtype, fmap.dtype)
     run = group_run(coords.shape[0], gmap.device, blocks) if gmap.is_cuda else 1
@@ -896,9 +872,9 @@ def group_surface_cuda(gmap, fmap, coords, kk, jj, scale=None):
 def group_blocks_per_sm(P: int, C: int, gmap_dtype, ring_dtype,
                         kernel: str = "corr_group") -> int:
     """Blocks of corr_group's kernel, or of another kernel at group_plan
-    (`kernel`: corr_level_pipe, or corr_group8 or corr_level_full on float
-    rings), that one SM of the current CUDA device holds at a time at
-    group_plan's sizes."""
+    (`kernel`: corr_level_pipe, corr_level, or corr_group8 or
+    corr_level_full on float rings), that one SM of the current CUDA device
+    holds at a time at group_plan's sizes."""
     cap, depth, _ = group_plan(P, C, gmap_dtype, ring_dtype)
     return _blocks_per_sm(kernel, (P, C, gmap_dtype, ring_dtype, cap, depth))
 
@@ -911,52 +887,104 @@ def corr_level_pipe_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor
     return _group_call("corr_level_pipe", gmap, fmap, coords, kk, jj, scale)
 
 
-def resident_smem_bytes(h: int, w: int, C: int, P: int) -> int:
-    """Dynamic shared memory of a corr_level_resident block: one int8
-    (h, w, C) frame, and per warp the patch feature and the taps as f32."""
-    PP = P * P
-    return h * w * C + _RESIDENT_WARPS * (PP * C + PP * _TAPS) * 4
+def corr_level_cuda(gmap, fmap, coords, kk, jj, scale=None) -> torch.Tensor:
+    """Launch csrc/corr_level.cu, one pyramid level (CORR_KERNEL="split"):
+    corr_level_pipe's instance of the edge pipeline under its own name, at
+    group_plan and group_run, its bits. gmap (Mring, P, P, C) bf16 or f32;
+    fmap (mem, h, w, C) of gmap's dtype, or int8 with scale (mem,) f32;
+    coords (E, P, P, 2) f32 at this level's resolution; kk, jj (E,) int32.
+    Returns (E, 49*P*P) f32 in [dx, dy, pixel] order; the plain version is
+    ops/corr.corr_level."""
+    return _group_call("corr_level", gmap, fmap, coords, kk, jj, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_plan(h: int, w: int, C: int, P: int, gmap_dtype):
+    """(warps, cap, bytes) of a corr_level_resident block on an (h, w, C)
+    int8 ring with P x P patches of `gmap_dtype`: the frame, one row a
+    position of C rounded up to whole chunks of 32 channels, and one zero
+    row; then for each warp its surface slot (RESIDENT_CAP rows of a column
+    a pixel, or a level's P*P x 64 taps where that is more), its pixel table
+    and, for f32 patch features, the patch feature as f32; as many warps as
+    the rest of a block holds, at most RESIDENT_MAX_WARPS. Raises
+    ValueError on what the kernel does not take: C no multiple of 16 (the
+    frame copies in 16-byte pieces), more than 16 pixels, a frame that
+    leaves no room for one warp. The C query devo_corr_level_resident_smem
+    gives the same bytes."""
+    _check(C % 16 == 0, f"C must be a multiple of 16, got {C}")
+    _check(P * P <= 16, f"P={P}: the kernel's pixel table holds 16 pixels")
+    row = -(-C // _MMA_CHUNK) * _MMA_CHUNK
+    frame = (h * w + 1) * row
+    warp = (_slot_bytes(P, RESIDENT_CAP) + _RESIDENT_TABLE
+            + (P * P * C * 4 if gmap_dtype == torch.float32 else 0))
+    warps = min(RESIDENT_MAX_WARPS, (SMEM_MAX - frame) // warp)
+    _check(warps >= 1, f"a {h}x{w}x{C} int8 frame and one warp's scratch "
+                       f"({frame + warp} bytes) exceed the {SMEM_MAX} bytes "
+                       f"of shared memory a block can have")
+    return warps, RESIDENT_CAP, frame + warps * warp
+
+
+def resident_smem_bytes(h: int, w: int, C: int, P: int,
+                        gmap_dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of a corr_level_resident block (resident_plan)."""
+    return resident_plan(h, w, C, P, gmap_dtype)[2]
 
 
 def resident_fits(h: int, w: int, C: int, P: int) -> bool:
-    """Whether corr_level_resident takes an (h, w, C) int8 ring: the block's
-    shared memory holds a frame, and the frame copies in 16-byte pieces."""
-    return (C % 4 == 0 and (h * w * C) % 16 == 0
-            and resident_smem_bytes(h, w, C, P) <= SMEM_MAX)
+    """Whether corr_level_resident takes an (h, w, C) int8 ring with P x P
+    patches whatever the patch features' type: the plan with fewer warps
+    (f32 patch features) holds one warp beside the frame."""
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            resident_plan(h, w, C, P, dtype)
+    except ValueError:
+        return False
+    return True
 
 
 def corr_level_resident_cuda(gmap, fmap, coords, kk, jj, scale) -> torch.Tensor:
     """Launch csrc/corr_level_resident.cu: corr_level_cuda's function for an
     int8 ring small enough that one frame fits a block's shared memory
-    (`resident_fits`). The edges are bucketed by ring slot on the device,
-    without a host sync; every row of the output is written at its edge's
-    own position."""
+    (`resident_plan`), read from that frame. The edges are sorted by ring
+    slot on the device (a stable sort and a search, no host sync) and
+    walked by persistent blocks, one an SM; every row of the output is
+    written at its edge's own position, the same bits whatever the block
+    count."""
     _check(fmap.dtype == torch.int8 and scale is not None,
            "the resident kernel takes int8 rings with per-slot scales")
     E, P, C, _ = _check_call(gmap, (fmap,), (scale,), coords, kk, jj)
     mem, h, w, _ = fmap.shape
-    _check(resident_fits(h, w, C, P),
-           f"a {h}x{w}x{C} frame does not fit a block's shared memory")
+    warps, cap, _ = resident_plan(h, w, C, P, gmap.dtype)
+    for name, t in (("gmap", gmap), ("coords", coords)):
+        _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
 
     out = torch.empty((E, _FEATS * P * P), dtype=torch.float32,
                       device=gmap.device)
     if E == 0:
         return out
+    order, slots, offsets = resident_order(jj, mem)
+    lib = _load()
+    code = lib.devo_corr_level_resident(
+        gmap.data_ptr(), fmap.data_ptr(), scale.data_ptr(), coords.data_ptr(),
+        kk.data_ptr(), order.data_ptr(), slots.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), E, P * P, C, h, w, cap,
+        int(gmap.dtype == torch.bfloat16), warps,
+        _sms(gmap.device),
+        torch.cuda.current_stream(gmap.device).cuda_stream)
+    _launched("corr_level_resident", code)
+    return out
+
+
+def resident_order(jj, mem: int):
+    """The edges sorted by ring slot on jj's device, without a host sync:
+    (order, the slots in that order, offsets (mem + 1,) of each slot's
+    first position), all int32."""
     by_slot = torch.sort(jj, stable=True)
-    order = by_slot.indices.to(torch.int32)
     offsets = torch.searchsorted(
         by_slot.values,
         torch.arange(mem + 1, dtype=torch.int32, device=jj.device),
         out_int32=True)
-    lib = _load()
-    code = lib.devo_corr_level_resident(
-        gmap.data_ptr(), fmap.data_ptr(), scale.data_ptr(), coords.data_ptr(),
-        kk.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        E, mem, _RESIDENT_SPLIT, P * P, C, h, w,
-        int(gmap.dtype == torch.bfloat16),
-        torch.cuda.current_stream(gmap.device).cuda_stream)
-    _launched("corr_level_resident", code)
-    return out
+    return by_slot.indices.to(torch.int32), by_slot.values, offsets
 
 
 def _float_level_call(gmap, fmap, coords, kk, jj, scale):

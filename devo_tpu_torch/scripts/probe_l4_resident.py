@@ -8,12 +8,13 @@ scripts/probe_l4_resident.py.
 E = 10240 edges of which the first 6912 (the live ones) are computed, f32
 patch features, every pixel of an edge at one random point; 32 int8 ring
 slots of one quantised frame, 120x160 and 30x40, each level with the
-frame's own scale. Patches of 3x3 pixels: the TPU script's 4x4 patches do
-not fit the resident kernel's block (a 30x40x128 int8 frame and eight
-warps' taps of 16 pixels take 251,904 bytes of shared memory, a block has
-232,448), and --patch 4 is refused. Prints each configuration's agreement
-with the plain version, then its ms a launch and us a live edge, the
-median over repeats of back-to-back launches between CUDA events.
+frame's own scale. Patches of 3x3 pixels; --patch 4 runs the TPU script's
+4x4 patches (with f32 patch features the resident kernel's block then holds
+5 warps beside the 30x40x128 frame, ops/corr_cuda.resident_plan), and a
+patch the kernel does not take (more than 16 pixels) is refused. Prints
+each configuration's agreement with the plain version, then its ms a launch
+and us a live edge, the median over repeats of back-to-back launches
+between CUDA events.
 """
 from __future__ import annotations
 
@@ -37,12 +38,11 @@ def main(argv=None):
                    help="back-to-back launches a repeat")
     p.add_argument("--repeats", type=int, default=5)
     args = p.parse_args(argv)
-    if not corr_cuda.resident_fits(H0 // 4, W0 // 4, C, args.patch):
-        raise SystemExit(
-            f"refused: a {H0 // 4}x{W0 // 4}x{C} int8 frame with {args.patch}x"
-            f"{args.patch} patches needs "
-            f"{corr_cuda.resident_smem_bytes(H0 // 4, W0 // 4, C, args.patch)} "
-            f"bytes of shared memory; a block has {corr_cuda.SMEM_MAX}")
+    try:
+        corr_cuda.resident_plan(H0 // 4, W0 // 4, C, args.patch, torch.float32)
+    except ValueError as err:
+        raise SystemExit(f"refused: {args.patch}x{args.patch} patches on a "
+                         f"{H0 // 4}x{W0 // 4}x{C} int8 frame: {err}")
     dev = common.device(args)
     gpu = common.card(dev)
     live = min(args.live, args.edges)

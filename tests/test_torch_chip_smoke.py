@@ -176,3 +176,52 @@ def test_every_tracking_path_runs_a_measured_variant(label, names):
         assert sum(share for _, share in parts) == pytest.approx(1.0)
         for variant, _ in parts:
             assert (name, variant) in measured
+
+
+def test_split_resident_path_charges_level_1_and_the_resident_level_4():
+    """The i8-split-resident path runs K6'' at level 1 alone and K11'' at
+    level 4, both on int8 rings: each launch at that variant's time and
+    bound, never half at the other level."""
+    launched = {"corr_level": 79, "corr_level_resident": 79}
+    assert chip_smoke.path_variants("corr_level", "i8-split-resident",
+                                    launched) == [("level 1 i8", 1.0)]
+    assert chip_smoke.path_variants("corr_level_resident", "i8-split-resident",
+                                    launched) == [("level 4 i8", 1.0)]
+    loss = _losses({"i8-split-resident": launched})
+    assert loss["corr_level"] == pytest.approx(79 * (0.26 - 0.0282))
+    assert loss["corr_level_resident"] == pytest.approx(79 * (0.39 - 0.0103))
+
+
+def test_parent_sources_and_what_the_ab_compares():
+    """--parent builds the parent's K6' and K11' beside the pipeline
+    kernels and their headers; the A/B holds K6' / K6'' (levels 1 and 4 on
+    int8 and bf16 rings, level 1 on f32) and K11' / K11'' (level 4, int8)
+    within TOL, and every other pipeline kernel, K7'' and K10'' now among
+    them, to the parent's bits."""
+    for name in ("corr_level.cu", "corr_level_resident.cu", "corr_pipe.cuh",
+                 "corr_mma.cuh", "corr_common.cuh", "corr_level_pipe.cu",
+                 "corr_level_full.cu"):
+        assert name in chip_smoke.PARENT_SOURCES
+    ab = chip_smoke.parent_ab()
+    assert len(set(ab)) == len(ab)
+    tol = {(name, label) for name, label, rule in ab if rule == "tol"}
+    assert tol == {("corr_level", f"level {lvl} {ring}")
+                   for lvl in (1, 4) for ring in ("i8", "bf16")} | {
+        ("corr_level", "level 1 f32"), ("corr_level_resident", "level 4 i8")}
+    bits = {name for name, _, rule in ab if rule == "bits"}
+    assert bits == {"corr_pyramid", "corr_pair", "corr_pair2", "corr_mono2",
+                    "corr_mono3", "corr_group", "corr_group8",
+                    "corr_level_pipe", "corr_level_full"}
+
+
+def test_level_structures_put_k6_beside_k7():
+    """K6'' (P) is timed beside K7'' on both ring types, and every one-level
+    instance timed there is a kernel of the record; the kernel record names
+    every kernel of the port."""
+    names = {ring: [name for _, name in chip_smoke.LEVEL_STRUCTURES[ring]]
+             for ring in ("i8", "bf16")}
+    for ring in ("i8", "bf16"):
+        assert names[ring][:2] == ["corr_level_pipe", "corr_level"]
+        assert set(names[ring]) <= set(chip_smoke.KERNELS)
+    assert len(chip_smoke.KERNELS) == 15
+    assert chip_smoke.COUNTERS["split"] == ("corr_level",)

@@ -702,8 +702,8 @@ def test_mono2_kernel_runs_of_pairs(dev, dtype, E):
 
 def test_pipeline_plans_match_the_kernels(dev):
     """corr_pair's, corr_group's, corr_group8's, corr_level_pipe's,
-    corr_level_full's, corr_mono2's, corr_mono3's and corr_pair2's
-    shared-memory sums are the kernels' own, and one SM
+    corr_level's, corr_level_full's, corr_mono2's, corr_mono3's and
+    corr_pair2's shared-memory sums are the kernels' own, and one SM
     holds as many blocks as the plans count on."""
     lib = corr_cuda._load()
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
@@ -729,6 +729,10 @@ def test_pipeline_plans_match_the_kernels(dev):
                 corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
             assert corr_cuda.group_blocks_per_sm(3, C, gdt, rdt,
                                                  "corr_level_pipe") >= blocks
+            assert lib.devo_corr_level_smem(9, C, cap, depth, *flags) == (
+                corr_cuda.group_smem_bytes(3, C, gdt, rdt, cap, depth))
+            assert corr_cuda.group_blocks_per_sm(3, C, gdt, rdt,
+                                                 "corr_level") >= blocks
             if gdt == rdt:
                 for d in (2, corr_cuda.FULL_MAX_DEPTH):
                     assert lib.devo_corr_level_full_smem(9, C, cap, d,
@@ -1074,3 +1078,161 @@ def test_full_kernel_two_launches_are_bitwise_equal(dev, stage, dtype):
             tuned = corr_cuda.corr_level_full_cuda(*args, stage=stage,
                                                    depth=4, run=5)
             torch.testing.assert_close(tuned, first, **TOL)
+
+
+# --- csrc/corr_level.cu (K6''): the edge pipeline's one-level instance ------
+
+
+@DTYPES
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("jitter", [0.0, 3.0])
+def test_level_kernel_gives_the_level_pipe_bits(dev, dtype, level, jitter):
+    """corr_level (K6'') is corr_level_pipe's (K7'') instance at the same
+    plan: its output is K7'''s bits on the four type pairs, staged windows
+    and windows beyond the cap alike, and the same bits twice."""
+    args = _level(_case(dev, dtype, E=5003, jitter=jitter), level)
+    got = corr_cuda.corr_level_cuda(*args)
+    assert torch.equal(got, corr_cuda.corr_level_pipe_cuda(*args))
+    assert torch.equal(got, corr_cuda.corr_level_cuda(*args))
+
+
+def _case4(dev, dtype, E=700, mem=4, H=32, W=40, C=128, seed=9):
+    """4x4 patches (16 pixels, the most the kernels take) on the rings of
+    _case, with its indices and scales."""
+    rng = np.random.default_rng(seed)
+    gmap, pyr, _, kk, jj, scales = _case(dev, dtype, E=E, mem=mem, H=H, W=W,
+                                         C=C, seed=seed)
+    g4 = torch.from_numpy(rng.standard_normal((gmap.shape[0], 4, 4, C)).astype(
+        np.float32)).to(dev).to(gmap.dtype)
+    cx = rng.uniform(-6, W + 6, (E, 1, 1))
+    cy = rng.uniform(-6, H + 6, (E, 1, 1))
+    off = np.arange(4) - 1.5
+    coords = np.stack([np.broadcast_to(cx + off[None, None, :], (E, 4, 4)),
+                       np.broadcast_to(cy + off[None, :, None], (E, 4, 4))],
+                      -1) + 0.3 * rng.standard_normal((E, 4, 4, 2))
+    return (g4, pyr, torch.from_numpy(coords.astype(np.float32)).to(dev), kk,
+            jj, scales)
+
+
+@DTYPES
+@pytest.mark.parametrize("level", [0, 1])
+def test_level_kernel_4x4_patches(dev, dtype, level):
+    """K6'' takes the 4x4 patches that devo_tpu_torch/scripts/
+    probe_level_split.py runs: 16 pixels, two n-tiles of the products."""
+    args = _level(_case4(dev, dtype), level)
+    got = corr_cuda.corr_level_cuda(*args)
+    assert got.shape == (700, 49 * 16)
+    torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+# --- csrc/corr_level_resident.cu (K11''): the resident frame ----------------
+
+
+RESIDENT_DTYPES = pytest.mark.parametrize("dtype", ["i8", "f32-i8"])
+
+
+def _resident_case(dev, dtype, slots, E=3000, mem=32):
+    """Level 4 of a full-size ring (30x40x128 frames, 32 slots) with jj set
+    by `slots`: "uniform", "one slot" (every edge on slot 5) or "newest"
+    (the 10 newest slots, as on the tracking path)."""
+    args = list(_level(_case(dev, dtype, E=E, mem=mem, H=120, W=160), 1))
+    rng = np.random.default_rng(11)
+    if slots == "one slot":
+        args[4] = torch.full_like(args[4], 5)
+    elif slots == "newest":
+        args[4] = torch.from_numpy(
+            (mem - 1 - rng.integers(0, 10, E)).astype(np.int32)).to(dev)
+    return tuple(args)
+
+
+@RESIDENT_DTYPES
+@pytest.mark.parametrize("slots", ["uniform", "one slot", "newest"])
+def test_resident_kernel_skewed_slots(dev, dtype, slots):
+    """K11'' on every edge of one slot and on the 10 newest slots as on a
+    uniform spread: within TOL of corr_level, one launch."""
+    args = _resident_case(dev, dtype, slots)
+    before = corr_cuda.launches["corr_level_resident"]
+    got = corr_cuda.corr_level_resident_cuda(*args)
+    torch.cuda.synchronize()
+    assert corr_cuda.launches["corr_level_resident"] == before + 1
+    torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+def _resident_at(args, blocks):
+    """One launch of devo_corr_level_resident by its C interface at `blocks`
+    persistent blocks, on the wrapper's plan and slot-sorted edges."""
+    gmap, fmap, coords, kk, jj, scale = args
+    E, P, C = coords.shape[0], gmap.shape[1], gmap.shape[-1]
+    mem, h, w, _ = fmap.shape
+    warps, cap, _ = corr_cuda.resident_plan(h, w, C, P, gmap.dtype)
+    order, slots, offsets = corr_cuda.resident_order(jj, mem)
+    out = torch.empty((E, 49 * P * P), dtype=torch.float32, device=gmap.device)
+    code = corr_cuda._load().devo_corr_level_resident(
+        gmap.data_ptr(), fmap.data_ptr(), scale.data_ptr(), coords.data_ptr(),
+        kk.data_ptr(), order.data_ptr(), slots.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), E, P * P, C, h, w, cap,
+        int(gmap.dtype == torch.bfloat16), warps, blocks,
+        torch.cuda.current_stream().cuda_stream)
+    assert code == 0
+    return out
+
+
+@RESIDENT_DTYPES
+@pytest.mark.parametrize("slots", ["uniform", "one slot"])
+def test_resident_kernel_same_bits_at_any_block_count(dev, dtype, slots):
+    """Each row is written by one warp in a fixed order: the same bits at
+    1 and 7 blocks by the C interface as at one block an SM (the wrapper's
+    persistent grid), and in two launches; distorted patches (jitter 3 px
+    at level 1) take both the surface and the taps beyond the cap."""
+    args = list(_resident_case(dev, dtype, slots))
+    g = torch.Generator(device=dev).manual_seed(3)
+    args[2] = args[2] + 0.75 * torch.randn(args[2].shape, generator=g,
+                                           device=dev)
+    first = corr_cuda.corr_level_resident_cuda(*args)
+    torch.testing.assert_close(first, corr_plain.corr_level(*args), **TOL)
+    assert torch.equal(first, corr_cuda.corr_level_resident_cuda(*args))
+    for blocks in (1, 7):
+        assert torch.equal(first, _resident_at(args, blocks))
+
+
+@RESIDENT_DTYPES
+def test_resident_kernel_off_image_rows_are_zero(dev, dtype):
+    """Edges whose patch lies wholly off the frame (every window position
+    on the zero row) give rows of zeros; the others their values."""
+    args = list(_resident_case(dev, dtype, "uniform", E=400))
+    coords = args[2].clone()
+    coords[::3] += torch.tensor([-60.0, 45.0], device=dev)
+    args[2] = coords
+    got = corr_cuda.corr_level_resident_cuda(*args)
+    assert torch.equal(got[::3], torch.zeros_like(got[::3]))
+    torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+@RESIDENT_DTYPES
+def test_resident_kernel_4x4_patches(dev, dtype):
+    """4x4 patches, which the TPU script probe_l4_resident runs: the plan
+    holds fewer warps (5 for f32 patch features) and the kernel takes
+    them."""
+    args = _level(_case4(dev, dtype, mem=8, H=120, W=160), 1)
+    warps = corr_cuda.resident_plan(30, 40, 128, 4, args[0].dtype)[0]
+    assert warps == (12 if dtype == "i8" else 5)
+    got = corr_cuda.corr_level_resident_cuda(*args)
+    torch.testing.assert_close(got, corr_plain.corr_level(*args), **TOL)
+
+
+def test_resident_plan_matches_the_kernel(dev):
+    """resident_plan's bytes are the kernel's own (its C query), and a
+    narrow ring (C = 16, rows padded to one chunk of 32 channels) and a
+    346-wide input's 16x21 frame launch as planned."""
+    lib = corr_cuda._load()
+    for h, w, C, P in ((30, 40, 128, 3), (30, 40, 128, 4), (16, 21, 128, 3),
+                       (4, 4, 16, 3)):
+        for gdt in (torch.bfloat16, torch.float32):
+            warps, cap, smem = corr_cuda.resident_plan(h, w, C, P, gdt)
+            assert lib.devo_corr_level_resident_smem(
+                P * P, C, h, w, cap, int(gdt == torch.bfloat16), warps) == smem
+    for C, H, W in ((16, 16, 16), (128, 64, 84)):
+        for dtype in ("i8", "f32-i8"):
+            args = _level(_case(dev, dtype, E=500, C=C, H=H, W=W), 1)
+            torch.testing.assert_close(corr_cuda.corr_level_resident_cuda(*args),
+                                       corr_plain.corr_level(*args), **TOL)

@@ -230,11 +230,49 @@ def test_entry_point_rejects_what_no_kernel_computes():
 
 
 def test_resident_shared_memory_budget():
-    """One level-4 frame of a 480x640 input (30x40x128 int8) and the
-    kernel's scratch fit a block's 232,448 bytes; a 720x1280 input's does
-    not, nor does a frame that does not copy in 16-byte pieces."""
-    assert corr_cuda.resident_smem_bytes(30, 40, 128, 3) == 153_600 + 55_296
+    """One level-4 frame of a 480x640 input (30x40x128 int8, and its zero
+    row) and 16 warps' surfaces and pixel tables fit a block's 232,448
+    bytes; a 720x1280 input's does not, nor does a frame that does not copy
+    in 16-byte pieces. K6'' takes K7'''s plan (63,360 bytes on int8 rings)."""
+    assert corr_cuda.resident_smem_bytes(30, 40, 128, 3) == 153_728 + 16 * 4_096
     assert corr_cuda.resident_fits(30, 40, 128, 3)
     assert not corr_cuda.resident_fits(45, 80, 128, 3)
     assert not corr_cuda.resident_fits(3, 3, 4, 3)
-    assert corr_cuda.level_smem_bytes(3, 128, torch.int8, 144) == 6912 + 18_432
+    cap, depth, _ = corr_cuda.group_plan(3, 128, torch.bfloat16, torch.int8)
+    assert corr_cuda.group_smem_bytes(3, 128, torch.bfloat16, torch.int8, cap,
+                                      depth) == 63_360
+
+
+@pytest.mark.parametrize("h,w", [(30, 40), (16, 21)])
+@pytest.mark.parametrize("P", [3, 4])
+@pytest.mark.parametrize("gdt", [BF, torch.float32])
+def test_resident_plan(h, w, P, gdt):
+    """resident_plan worked out by hand: the frame (rows of 128 bytes) and
+    one zero row, then per warp the surface slot (96 rows of an even number
+    of columns, or the P*P x 64 taps), the 256-byte pixel table and, for f32
+    patch features, the f32 patch feature; 16 warps at most, as many as a
+    block's 232,448 bytes hold. At 480x640 (30x40) bf16 patch features keep
+    16 warps with P = 3, f32 ones 9; P = 4 takes 12 and 5."""
+    frame = (h * w + 1) * 128
+    slot = 4 * max(96 * (P * P + P * P % 2), P * P * 64)
+    warp = slot + 256 + (P * P * 128 * 4 if gdt == torch.float32 else 0)
+    warps = min(16, (232_448 - frame) // warp)
+    assert corr_cuda.resident_plan(h, w, 128, P, gdt) == (
+        warps, 96, frame + warps * warp)
+    if (h, w) == (30, 40):
+        assert warps == {(3, BF): 16, (3, torch.float32): 9, (4, BF): 12,
+                         (4, torch.float32): 5}[P, gdt]
+    assert corr_cuda.resident_fits(h, w, 128, P)
+
+
+@pytest.mark.parametrize("gdt", [BF, torch.float32])
+def test_resident_plan_refusals(gdt):
+    """The refused 45x80 frame of a 720x1280 input (460,800 bytes), a width
+    no multiple of 16 and patches beyond 16 pixels raise ValueError; a
+    narrow ring pads its rows to one chunk of 32 channels."""
+    for args, match in (((45, 80, 128, 3), "exceed"), ((30, 40, 24, 3), "16"),
+                        ((30, 40, 128, 5), "16 pixels")):
+        with pytest.raises(ValueError, match=match):
+            corr_cuda.resident_plan(*args, gdt)
+    assert corr_cuda.resident_plan(4, 4, 16, 3, gdt)[2] % 32 == 0
+    assert corr_cuda.resident_plan(4, 4, 16, 3, gdt)[0] == 16

@@ -240,6 +240,23 @@ def test_resident_level_is_off_outside_banded(impl, mode):
     assert got == want == (impl == "banded")
 
 
+@pytest.mark.parametrize("kernel", ["split", "split2", "g8c"])
+@pytest.mark.parametrize("mode", ["on", "auto"])
+def test_resident_level_at_480x640(kernel, mode):
+    """At the reference's width and 480x640 (30x40x128 level-4 frames)
+    "auto" and "on" turn the resident level 4 on with int8 rings and a
+    per-level kernel, as devo_tpu's _l4_resident does: its plan holds the
+    frame beside 16 warps (bf16 patch features) or 9 (f32), and the rule
+    does not depend on the patch features' type."""
+    cfg = dict(CORR_IMPL="banded", CORR_RING_I8=True, CORR_KERNEL=kernel,
+               CORR_L4_RESIDENT=mode)
+    with _configured_impl():
+        want = jengine._l4_resident(jconfig.VOConfig().replace(**cfg), 480, 640)
+    for mixed in (True, False):
+        got = l4_resident(VOConfig(MIXED_PRECISION=mixed, **cfg), 480, 640)
+        assert got == want is True
+
+
 @pytest.mark.parametrize("kernel", ["g8", "full"])
 def test_g8_and_full_take_float_rings_only(kernel):
     gmap, fmap, coords, kk, jj, mask = make_case(0, E=8)

@@ -373,11 +373,21 @@ def test_driver_runs_on_the_cpu(name, capsys):
         assert out[0] == 0.0                       # the plain version itself
 
 
+def test_resident_probe_runs_4x4_patches(capsys):
+    """probe_l4_resident at the TPU script's 4x4 patches, which the resident
+    kernel's plan now takes (5 warps a block for its f32 patch features):
+    both configurations agree with the plain version."""
+    out = _main("probe_l4_resident", DRIVER_RUNS["probe_l4_resident"]
+                + ["--patch", "4"])
+    assert set(out) == {"resident", "banded"}
+    assert "max abs err" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("name,argv,env,match", [
     ("probe_desc_wall", ["tall8"], {}, "393216 bytes"),
     ("probe_desc_wall", ["wide"], {}, "unknown copy mode"),
     ("bench_banded_tune", ["--depth", "5"], {}, "depth must be 2 to 4"),
-    ("probe_l4_resident", ["--patch", "4"], {}, "251904 bytes"),
+    ("probe_l4_resident", ["--patch", "5"], {}, "16 pixels"),
     ("profile_step", [], {"BENCH_CORR_WR1": "16"}, "BENCH_CORR_WR1"),
     ("profile_step", ["--hlo"], {}, "HLO"),
     ("bench_eval_path", [], {"BENCH_CORR_KERNEL": "mono9"}, "mono9"),
