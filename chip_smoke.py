@@ -64,34 +64,48 @@
    interface) and through its wrapper, and the wrapper's sort and search
    timed apart from the kernel.
    With --parent DIR, a directory holding the parent commit's files of
-   PARENT_SOURCES (the kernels on the edge pipeline, K6' corr_level.cu and
-   K11' corr_level_resident.cu, and the headers corr_pipe.cuh,
+   PARENT_SOURCES (K13' corr_band_ablate.cu and K15' corr_frame_probe.cu
+   with their header window_probe.cuh, the kernels that include
+   corr_mma.cuh beside them, and the headers corr_pipe.cuh,
    corr_common.cuh, corr_mma.cuh, from `git archive` of the parent), those
-   are built into a library of their own and timed against this tree's at
-   E = 12288 in turns (parent, this tree, this tree, parent), each by its C
-   interface (parent_ab): corr_level at both levels on int8 and bf16 rings
-   and at level 1 on f32 rings, and corr_level_resident at level 4 on int8
-   rings, redesigned since, each at its own plan and held to each other
-   within TOL; corr_pyramid, corr_pair, corr_group, corr_level_pipe and
-   (bf16 rings) corr_group8 and corr_level_full at both levels (and
-   corr_level_full at level 1 on f32 rings), corr_mono2 gathered and in
-   place, corr_mono3 and corr_pair2, which share the edge pipeline, at this
-   tree's plans on int8 and bf16 rings, whose output must be the parent's
-   bit for bit.
+   are built into a library of their own and timed against this tree's in
+   turns (parent, this tree, this tree, parent), each by its C interface
+   (parent_ab): at E = 12288 corr_pyramid, corr_pair, corr_group,
+   corr_level_pipe, corr_level and (bf16 rings) corr_group8 and
+   corr_level_full at both levels (and corr_level, corr_level_full at
+   level 1 on f32 rings), corr_mono2 gathered and in place, corr_mono3 and
+   corr_pair2 on int8 and bf16 rings, and corr_level_resident at level 4
+   on int8 rings, at this tree's plans, whose output must be the parent's
+   bit for bit; in the probe phase, on its inputs, corr_band_ablate in
+   every mode on the `random` layout and corr_frame_probe with and without
+   extraction, redesigned since, each at its own plan and held to each
+   other within TOL.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
-   its bound: the banded window ablation (corr_band_ablate, E = 15360 of
-   which 6144 live, a 623 MB bf16 band ring) in its four modes and six index
-   layouts within TOL on the live blocks, the copy probe (copy_probe, 9600
-   window copies of an int8 band ring) in seven modes on both copy routes,
-   on one block and one block an SM, exactly, and its refusal of tall8, and
-   the one-frame window product (corr_frame_probe, E = 15360) with and
-   without extraction within TOL. Then every driver of
-   devo_tpu_torch/scripts/ but profile_step runs once through its main(),
+   its bound. First the window kernels' plan (ops/probe_cuda.window_plan)
+   against their own shared-memory and occupancy queries in every mode,
+   then their bits at two grids of persistent blocks (the wrapper's and 7:
+   the same; corr_frame_probe also on the edges in their own order instead
+   of the wrapper's sort by window origin), the ablation's ragged live gate
+   (E = 1000 with nlive = 100, 0 and 1000 in every mode: the gate's rows
+   within TOL, no other row written; E = 0: no launch), and with --parent
+   their A/B (corr_frame_probe through its wrapper, sort included). Then the
+   banded window ablation (corr_band_ablate, E = 15360 of which 6144 live,
+   a 623 MB bf16 band ring) in its four modes and six index layouts within
+   TOL on the live blocks, the copy probe (copy_probe, 9600 window copies
+   of an int8 band ring) in seven modes on both copy routes, on one block
+   and one block an SM, exactly, and its refusal of tall8, and the
+   one-frame window product (corr_frame_probe, E = 15360) with and without
+   extraction within TOL, with the windows it stages from L2 (the kernel's
+   own count, which must be the grouping rule's worked out on the host), its
+   wrapper's sort and the kernel alone timed apart (the sort's launches are
+   counted under torch.profiler at the very end). Then every driver of
+   devo_tpu_torch/scripts/ but profile_step and bench_window_variants (which
+   builds variants of the window kernels' sources) runs once through its main(),
    at its full repeat counts or fewer where those would not fit, its output
-   under chiprun_out/probes/; each must launch the kernels it names and no
-   other, and its launches are those the JSON record counts for the probe
-   kernels.
+   under chiprun_out/probes/;
+   each must launch the kernels it names and no other, and its launches
+   are those the JSON record counts for the probe kernels.
 4. Reference phase: the port's DEVO on the card against the same engine on
    the CPU (plain correlation; the CPU tests hold that path against the JAX
    package) at a small f32 size, for unquantised rings on every kernel
@@ -839,28 +853,20 @@ def level_structures(case, gpu: str, record):
 def c_resident(lib, gmap, fmap, coords, kk, scale, sorted_, plan):
     """One launch of devo_corr_level_resident of `lib` (this tree's library
     where None) by its C interface on edges already sorted by slot
-    (`sorted_`: ops/corr_cuda.resident_order's (order, slots, offsets)):
-    this tree's interface with `plan` = (cap, warps, blocks), or the
-    parent's (a grid of (mem, 8) blocks, no plan) where plan is None."""
+    (`sorted_`: ops/corr_cuda.resident_order's (order, slots, offsets)),
+    with `plan` = (cap, warps, blocks)."""
     from devo_tpu_torch.ops import corr_cuda as cc
     lib = lib or cc._load()
     E, C, PP = coords.shape[0], gmap.shape[-1], gmap.shape[1] ** 2
-    mem, h, w, _ = fmap.shape
+    _, h, w, _ = fmap.shape
     order, slots, offsets = sorted_
     out = torch.empty((E, 49 * PP), dtype=torch.float32, device=gmap.device)
-    head = (gmap.data_ptr(), fmap.data_ptr(), scale.data_ptr(),
-            coords.data_ptr(), kk.data_ptr(), order.data_ptr())
-    bf16 = int(gmap.dtype == torch.bfloat16)
-    stream = torch.cuda.current_stream().cuda_stream
-    if plan is None:
-        code = lib.devo_corr_level_resident(
-            *head, offsets.data_ptr(), out.data_ptr(), E, mem, 8, PP, C, h, w,
-            bf16, stream)
-    else:
-        cap, warps, blocks = plan
-        code = lib.devo_corr_level_resident(
-            *head, slots.data_ptr(), offsets.data_ptr(), out.data_ptr(), E, PP,
-            C, h, w, cap, bf16, warps, blocks, stream)
+    cap, warps, blocks = plan
+    code = lib.devo_corr_level_resident(
+        gmap.data_ptr(), fmap.data_ptr(), scale.data_ptr(), coords.data_ptr(),
+        kk.data_ptr(), order.data_ptr(), slots.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), E, PP, C, h, w, cap, int(gmap.dtype == torch.bfloat16),
+        warps, blocks, torch.cuda.current_stream().cuda_stream)
     if code:
         raise RuntimeError(f"corr_level_resident by its C interface: launch "
                            f"failed ({code})")
@@ -930,23 +936,25 @@ def resident_phase(case, gpu: str, record):
               f"{sort_ms:.4f} ms, bound {b_ms:.4f} ms [{gpu}]", flush=True)
 
 
-# the kernels redesigned since the parent commit (K6', K11'), the kernels on
-# the edge pipeline that K6'' now shares (K1, K5'', K2'', K3'', K4'', K8'',
-# K9'', K7'', K10''), and the sources a build of the parent's versions takes
-# from the directory given by --parent
+# the kernels redesigned since the parent commit (K13', K15'), the kernels
+# that include csrc/corr_mma.cuh beside them (K1, K5'', K2'', K3'', K4'',
+# K8'', K9'', K7'', K10'', K6'' on the edge pipeline, and K11''), and the
+# sources a build of the parent's versions takes from the directory given by
+# --parent
 PARENT_SOURCES = ("corr.cu", "corr_pair.cu", "corr_pair2.cu", "corr_mono2.cu",
                   "corr_mono3.cu", "corr_group.cu", "corr_group8.cu",
                   "corr_level_pipe.cu", "corr_level_full.cu", "corr_level.cu",
-                  "corr_level_resident.cu", "corr_pipe.cuh", "corr_common.cuh",
-                  "corr_mma.cuh")
+                  "corr_level_resident.cu", "corr_band_ablate.cu",
+                  "corr_frame_probe.cu", "corr_pipe.cuh", "corr_common.cuh",
+                  "corr_mma.cuh", "window_probe.cuh")
 
 
 def parent_library(parent_dir: str):
     """The parent commit's kernels of PARENT_SOURCES built from parent_dir (a
     copy of them and their headers) into a library of their own, with the
-    parent's C interfaces: those of this tree but corr_level (no plan
-    arguments after its type flags) and corr_level_resident (the edges'
-    order and slot offsets, a grid of ring slots x shares, no plan)."""
+    parent's C interfaces: those of this tree, where corr_band_ablate and
+    corr_frame_probe take the edges a block walks and the stages of its
+    window ring in place of the grid and the stages."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -966,25 +974,18 @@ def parent_library(parent_dir: str):
     lib.devo_corr_group8.argtypes = [ptr] * 6 + [i] * 9 + [ptr]
     lib.devo_corr_level_pipe.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
     lib.devo_corr_level_full.argtypes = [ptr] * 6 + [i] * 10 + [ptr]
-    lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 8 + [ptr]
-    lib.devo_corr_level_resident.argtypes = [ptr] * 8 + [i] * 8 + [ptr]
+    lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
+    lib.devo_corr_level_resident.argtypes = [ptr] * 9 + [i] * 9 + [ptr]
+    lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
+    lib.devo_corr_frame_probe.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
     for fn in (lib.devo_corr_pyramid, lib.devo_corr_pair, lib.devo_corr_group,
                lib.devo_corr_mono2, lib.devo_corr_mono3, lib.devo_corr_pair2,
                lib.devo_corr_group8, lib.devo_corr_level_pipe,
                lib.devo_corr_level_full, lib.devo_corr_level,
-               lib.devo_corr_level_resident):
+               lib.devo_corr_level_resident, lib.devo_corr_band_ablate,
+               lib.devo_corr_frame_probe):
         fn.restype = ctypes.c_int
     return lib
-
-
-def parent_plan(name, gmap, fmap, E):
-    """(cap, integers after the type flags) of the parent's corr_level as
-    the parent's wrapper launched it: windows of LEVEL_WINDOW_CAP vectors
-    where a ring's vector is a whole number of 16-byte copies (else 0, every
-    tap from the ring), and no plan arguments."""
-    from devo_tpu_torch.ops import corr_cuda as cc
-    return (cc.LEVEL_WINDOW_CAP
-            if gmap.shape[-1] * fmap.element_size() % 16 == 0 else 0), ()
 
 
 def level_plan(name, gmap, fmap, E):
@@ -1033,36 +1034,61 @@ def parent_ab():
     """What the A/B against the parent compares: (kernel, label, rule), rule
     "tol" for a kernel redesigned since the parent (each version at its own
     plan, held to each other within TOL) and "bits" for one that must give
-    the parent's bits at this tree's plan. K6' / K6'' at levels 1 and 4 on
-    int8 and bf16 rings and at level 1 on f32 rings; K11' / K11'' at level 4
-    on int8 rings; the kernels on the edge pipeline on int8 and bf16 rings
-    (K9'', K10'' on bf16 rings alone, K10'' also at level 1 on f32)."""
+    the parent's bits at this tree's plan. K13' / K13'' in every mode on the
+    `random` layout and K15' / K15'' with and without extraction, within
+    TOL; K6'' at levels 1 and 4 on int8 and bf16 rings and at level 1 on
+    f32 rings, K11'' at level 4 on int8 rings and the other kernels on the
+    edge pipeline on int8 and bf16 rings (K9'', K10'' on bf16 rings alone,
+    K10'' also at level 1 on f32), to the parent's bits."""
+    from devo_tpu_torch.ops.probe import ABLATE_MODES
     out = []
     for ring in ("i8", "bf16"):
         for name in ("corr_level", "corr_level_pipe", "corr_group") + (
                 ("corr_group8", "corr_level_full") if ring == "bf16" else ()):
-            rule = "tol" if name == "corr_level" else "bits"
-            out += [(name, f"level {lvl} {ring}", rule) for lvl in (1, 4)]
+            out += [(name, f"level {lvl} {ring}", "bits") for lvl in (1, 4)]
         out += [(name, f"both levels {ring}", "bits") for name in
                 ("corr_pyramid", "corr_pair", "corr_mono3", "corr_pair2")]
         out += [("corr_mono2", f"both levels {ring} {what}", "bits")
                 for what in ("gathered", "in place")]
-    out += [("corr_level", "level 1 f32", "tol"),
+    out += [("corr_level", "level 1 f32", "bits"),
             ("corr_level_full", "level 1 f32", "bits"),
-            ("corr_level_resident", "level 4 i8", "tol")]
+            ("corr_level_resident", "level 4 i8", "bits")]
+    out += [("corr_band_ablate", f"random {mode}", "tol")
+            for mode in ABLATE_MODES]
+    out += [("corr_frame_probe", f"extract={x}", "tol") for x in (True, False)]
     return out
 
 
-def parent_phase(dev, gpu: str, parent_dir: str, record):
-    """The kernels redesigned since the parent commit against the parent's
-    versions of them, and the kernels that share the edge pipeline with K6''
-    against the parent's bits (parent_ab), on the kernel phase's inputs at
-    E = 12288, each version by its C interface: K6' and K11' at the
-    parent's plans, every other version at this tree's. Each pair is timed
-    in turns, parent, this tree, this tree, parent, in one process on one
-    card."""
+def ab_turns(name, label, rule, old, new, record, gpu, rows=None):
+    """One A/B of parent_ab: the parent's version `old` and this tree's
+    `new` held to each other by `rule` (on their first `rows` rows where
+    given), then timed in turns, parent, this tree, this tree, parent; the
+    times go to record[name]["parent_ab"]."""
+    a, b = old()[:rows], new()[:rows]
+    torch.cuda.synchronize()
+    if rule == "bits":
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name} [{label}]: not the parent's bits")
+    else:
+        torch.testing.assert_close(b, a, **TOL)
+    times = [median_ms(fn) for fn in (old, new, new, old)]
+    record[name].setdefault("parent_ab", []).append(
+        dict(label=label, E=b.shape[0], parent_ms=[times[0], times[3]],
+             ms=[times[1], times[2]], same_bits=bool(torch.equal(a, b))))
+    print(f"A/B {name} [{label}] E={b.shape[0]}: parent {times[0]:.4f}, "
+          f"{times[3]:.4f} ms; this tree {times[1]:.4f}, {times[2]:.4f} ms (in "
+          f"turns parent, tree, tree, parent); max abs diff "
+          f"{(b - a).abs().max().item():.3e}"
+          f"{', bit for bit' if torch.equal(a, b) else ''} [{gpu}]", flush=True)
+
+
+def parent_phase(dev, gpu: str, lib, record):
+    """The correlation kernels against the parent's versions of them
+    (parent_ab, the probe kernels aside, which the probe phase compares on
+    its own inputs), on the kernel phase's inputs at E = 12288, each version
+    by its C interface at this tree's plan, which must give the parent's
+    bits. `lib`: the parent's library (parent_library)."""
     from devo_tpu_torch.ops import corr_cuda as cc
-    lib = parent_library(parent_dir)
     gmap, bf, i8, sc, coords, kk, jj = corr_case(E_MAIN, dev, 0)
     E = coords.shape[0]
     rings = {"i8": (gmap, i8, sc), "bf16": (gmap, bf, None),
@@ -1083,36 +1109,16 @@ def parent_phase(dev, gpu: str, parent_dir: str, record):
             sorted_ = cc.resident_order(jj, fmap.shape[0])
             warps, cap, _ = cc.resident_plan(*fmap.shape[1:], g.shape[1],
                                              g.dtype)
-            return [lambda x=x, plan=plan: c_resident(
-                        x, g, fmap, c, kk, scale, sorted_, plan)
-                    for x, plan in ((lib, None),
-                                    (None, (cap, warps, cc._sms(dev))))]
-        plans = [level_plan(name, g, fmap, E)] * 2
-        if name == "corr_level":
-            plans[0] = parent_plan(name, g, fmap, E)
-        return [lambda x=x, plan=plan: c_level(x, name, g, fmap, c, kk, jj,
-                                               scale, plan)
-                for x, plan in zip((lib, None), plans)]
+            plan = (cap, warps, cc._sms(dev))
+            return [lambda x=x: c_resident(x, g, fmap, c, kk, scale, sorted_,
+                                           plan) for x in (lib, None)]
+        plan = level_plan(name, g, fmap, E)
+        return [lambda x=x: c_level(x, name, g, fmap, c, kk, jj, scale, plan)
+                for x in (lib, None)]
 
     for name, label, rule in parent_ab():
-        old, new = versions(name, label)
-        a, b = old(), new()
-        torch.cuda.synchronize()
-        if rule == "bits":
-            if not torch.equal(a, b):
-                raise RuntimeError(f"{name} [{label}]: not the parent's bits")
-        else:
-            torch.testing.assert_close(b, a, **TOL)
-        times = [median_ms(fn) for fn in (old, new, new, old)]
-        record[name].setdefault("parent_ab", []).append(
-            dict(label=label, E=E, parent_ms=[times[0], times[3]],
-                 ms=[times[1], times[2]], same_bits=bool(torch.equal(a, b))))
-        print(f"A/B {name} [{label}] E={E}: parent {times[0]:.4f}, "
-              f"{times[3]:.4f} ms; this tree {times[1]:.4f}, {times[2]:.4f} "
-              f"ms (in turns parent, tree, tree, parent); max abs diff "
-              f"{(b - a).abs().max().item():.3e}"
-              f"{', bit for bit' if torch.equal(a, b) else ''} [{gpu}]",
-              flush=True)
+        if name not in PROBE_REPORTED:
+            ab_turns(name, label, rule, *versions(name, label), record, gpu)
 
 
 def group_vs_mono(cc, kernel, resident, label, mono, gmap, pyr, coords, kk, jj,
@@ -1971,6 +1977,28 @@ def frame_bound(fmap, inputs, extract: bool):
     return bound_of(nbytes, 2.0 * E * 384 * 16 * 128)
 
 
+def frame_staged(inputs, group: int, grid: int) -> int:
+    """The windows that corr_frame_probe's grouping rule (csrc/
+    window_probe.cuh) stages on `inputs`, worked out on the host: one window
+    for each group of up to `group` consecutive edges of one origin in
+    frame_order, within each block's run of the order. The kernel's own
+    count (c_frame's `staged`) must agree."""
+    from devo_tpu_torch.ops import probe_cuda
+    fmap, _, y0, x08 = inputs[:4]
+    order = probe_cuda.frame_order(y0, x08, fmap.shape[1]).long()
+    key = (y0.reshape(-1).long() * fmap.shape[1]
+           + 8 * x08.reshape(-1).long())[order].cpu().numpy()
+    E, n = key.size, 0
+    for b in range(grid):
+        i, hi = E * b // grid, E * (b + 1) // grid
+        while i < hi:
+            j = i + 1
+            while j < hi and j - i < group and key[j] == key[i]:
+                j += 1
+            n, i = n + 1, j
+    return n
+
+
 def probe_record(record, name, label, err, ms, plain_ms, bound, gpu, extra=""):
     b_ms, b_by = bound
     print(f"{name} [{label}]: max_abs_err {err:.3e}{extra}; median kernel "
@@ -1984,23 +2012,212 @@ def probe_record(record, name, label, err, ms, plain_ms, bound, gpu, extra=""):
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def probe_phase(dev, gpu: str, record):
+PARENT_WINDOW_PLAN = (64, 2)     # K13' / K15': edges a block walks, stages
+SMALL_GRID = 7                   # the second grid of the same-bits check
+
+
+def c_ablate(lib, args, mode: str, plan, out=None):
+    """One launch of devo_corr_band_ablate of `lib` (this tree's library
+    where None) by its C interface into `out` (a new tensor where None):
+    `args` as ops/probe_cuda.band_ablate_cuda takes them, `plan` the two
+    integers after the ring's shape (this tree: persistent blocks and
+    stages; the parent: PARENT_WINDOW_PLAN)."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    from devo_tpu_torch.ops import probe
+    nlive, slot, band, y0, g, ry, rx, ring = args
+    lib = lib or cc._load()
+    E = g.shape[0]
+    if out is None:
+        out = torch.empty((E, 8, 16 * probe.PP), dtype=torch.float32,
+                          device=g.device)
+    code = lib.devo_corr_band_ablate(
+        *(t.data_ptr() for t in (nlive, slot, band, y0, g, ry, rx, ring, out)),
+        E, ring.shape[1], ring.shape[2], *plan, probe.ABLATE_MODES.index(mode),
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"corr_band_ablate by its C interface: launch "
+                           f"failed ({code})")
+    return out
+
+
+def c_frame(lib, inputs, extract: bool, plan, order=None, staged=None):
+    """One launch of devo_corr_frame_probe of `lib` (this tree's library
+    where None) by its C interface, `plan` as c_ablate's: this tree's
+    interface with `order` (the edges' order, ops/probe_cuda.frame_order)
+    and `staged` (None, or a (1,) int64 tensor on the device to which the
+    kernel adds the windows it stages), the parent's where order is None."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    from devo_tpu_torch.ops import probe
+    fmap, gm = inputs[:2]
+    lib = lib or cc._load()
+    E = gm.shape[0]
+    out = torch.empty((E, 8 if extract else probe.WIN, 16 * probe.PP),
+                      dtype=torch.float32, device=gm.device)
+    ptrs = [t.data_ptr() for t in inputs] + ([] if order is None
+                                             else [order.data_ptr()])
+    tail = [] if order is None else [None if staged is None
+                                     else staged.data_ptr()]
+    code = lib.devo_corr_frame_probe(
+        *ptrs, out.data_ptr(), E, fmap.shape[1], *plan, int(extract), *tail,
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"corr_frame_probe by its C interface: launch "
+                           f"failed ({code})")
+    return out
+
+
+def window_plans(gpu: str):
+    """The window kernels' plans (ops/probe_cuda.window_plan: K13'' in
+    groups of one, K15'' in groups of FRAME_GROUP) against their own C
+    queries: the shared memory at the plan's stages, and for every mode of
+    K13'' and both settings of K15'' the blocks an SM by the occupancy
+    query, which must hold WINDOW_BLOCKS."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    from devo_tpu_torch.ops import probe, probe_cuda
+    lib = cc._load()
+    plans = {"corr_band_ablate": probe_cuda.window_plan(),
+             "corr_frame_probe": probe_cuda.window_plan(group=probe_cuda.FRAME_GROUP)}
+    depth, fdepth = plans["corr_band_ablate"][0], plans["corr_frame_probe"][0]
+    queried = {"corr_band_ablate": lib.devo_corr_band_ablate_smem(depth),
+               "corr_frame_probe": lib.devo_corr_frame_probe_smem(fdepth)}
+    blocks = {f"corr_band_ablate {m}": lib.devo_corr_band_ablate_blocks_per_sm(
+        probe.ABLATE_MODES.index(m), depth) for m in probe.ABLATE_MODES}
+    blocks.update({f"corr_frame_probe extract={x}":
+                   lib.devo_corr_frame_probe_blocks_per_sm(int(x), fdepth)
+                   for x in (True, False)})
+    print(f"window plans (stages, bytes a block): {plans}, "
+          f"{probe_cuda.WINDOW_BLOCKS} blocks an SM planned; the kernels' own "
+          f"bytes {queried}; blocks an SM by the occupancy query {blocks} "
+          f"[{gpu}]", flush=True)
+    if (any(queried[k] != plans[k][1] for k in plans)
+            or min(blocks.values()) < probe_cuda.WINDOW_BLOCKS):
+        raise RuntimeError(f"window plans {plans} disagree with the kernels: "
+                           f"{queried}, {blocks}")
+
+
+def window_grids(args, frame_inputs, live: int, gpu: str):
+    """K13'' (every mode) and K15'' (both settings) at this tree's grid and
+    at SMALL_GRID persistent blocks, by their C interfaces: the same bits;
+    and K15'' on the edges in their own order (no two adjacent edges share
+    a window but by chance) against frame_order's: the same bits."""
+    from devo_tpu_torch.ops import probe, probe_cuda
+    depth, _ = probe_cuda.window_plan()
+    dev = args[4].device
+    grid = probe_cuda.window_grid(args[4].shape[0], dev)
+    for mode in probe.ABLATE_MODES:
+        a, b = (c_ablate(None, args, mode, (n, depth))[:live]
+                for n in (grid, SMALL_GRID))
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise RuntimeError(f"corr_band_ablate [{mode}]: {grid} and "
+                               f"{SMALL_GRID} blocks differ")
+    fmap, _, y0, x08 = frame_inputs[:4]
+    E = y0.shape[0]
+    depth, _ = probe_cuda.window_plan(group=probe_cuda.FRAME_GROUP)
+    grid = probe_cuda.window_grid(E, dev)
+    order = probe_cuda.frame_order(y0, x08, fmap.shape[1])
+    mine = torch.arange(E, dtype=torch.int32, device=dev)
+    for extract in (True, False):
+        a, b, c = (c_frame(None, frame_inputs, extract, (n, depth), o)
+                   for n, o in ((grid, order), (SMALL_GRID, order), (grid, mine)))
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise RuntimeError(f"corr_frame_probe [extract={extract}]: {grid} "
+                               f"and {SMALL_GRID} blocks, or the two orders, "
+                               f"differ")
+    print(f"window kernels: corr_band_ablate (every mode, {live} live rows) and "
+          f"corr_frame_probe (both settings; in frame_order and in the edges' "
+          f"own order) give the same bits at {grid} and {SMALL_GRID} blocks "
+          f"[{gpu}]", flush=True)
+
+
+RAGGED_E = 1000
+RAGGED_LIVE = (100, 0, RAGGED_E)     # nlive: no multiple of 64, none, all
+
+
+def ragged_ablate(args, gpu: str):
+    """K13'' on the first RAGGED_E edges with nlive of RAGGED_LIVE in every
+    mode, by its C interface into rows filled with NaN: the rows of the live
+    gate's blocks within TOL of the plain version, every other row still
+    NaN; and E = 0 through the wrapper (an empty result, no launch)."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    from devo_tpu_torch.ops import probe, probe_cuda
+    nlive, slot, band, y0, g, ry, rx, ring = args
+    dev = g.device
+    depth, _ = probe_cuda.window_plan()
+    grid = probe_cuda.window_grid(RAGGED_E, dev)
+    cut = [t[:RAGGED_E] for t in (slot, band, y0, g, ry, rx)]
+    for n in RAGGED_LIVE:
+        nl = torch.tensor([n], dtype=torch.int32, device=dev)
+        live = min(RAGGED_E, -(-n // probe.BE) * probe.BE)
+        for mode in probe.ABLATE_MODES:
+            small = (nl, *cut, ring)
+            out = torch.full((RAGGED_E, 8, 16 * probe.PP), float("nan"),
+                             device=dev)
+            c_ablate(None, small, mode, (grid, depth), out)
+            want = probe.band_ablate(*small, mode)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out[:live], want[:live], **TOL)
+            if not out[live:].isnan().all():
+                raise RuntimeError(f"corr_band_ablate [{mode}, nlive={n}]: "
+                                   f"rows past the live gate were written")
+    before = cc.launches["corr_band_ablate"]
+    empty = probe_cuda.band_ablate_cuda(nlive, *(t[:0] for t in (slot, band, y0, g,
+                                                                 ry, rx)), ring)
+    if empty.shape != (0, 8, 16 * probe.PP) or cc.launches["corr_band_ablate"] != before:
+        raise RuntimeError(f"corr_band_ablate at E = 0: {tuple(empty.shape)}, "
+                           f"{cc.launches['corr_band_ablate'] - before} launches")
+    print(f"corr_band_ablate ragged: E = {RAGGED_E} at nlive {RAGGED_LIVE} in "
+          f"every mode, the live gate's rows within TOL and no other row "
+          f"written; E = 0 empty with no launch [{gpu}]", flush=True)
+
+
+def probe_phase(dev, gpu: str, record, parent=None):
     """The three probe kernels against their plain versions (ops/probe.py) on
     the card at their drivers' shapes, timed beside their bounds: the banded
     ablation in every mode and index layout (TOL, on the live blocks), the
     copy probe in every mode and route on one block and on one block an SM
     (exactly), tall8's refusal, and the one-frame window product with and
-    without extraction (TOL)."""
+    without extraction (TOL). The window kernels' plan against their own
+    queries, their bits at two grids, the ablation's ragged live gate; with
+    `parent` (the parent's library), the A/B of K13' / K13'' and K15' /
+    K15'' (parent_ab) in turns."""
     from devo_tpu_torch.ops import probe, probe_cuda
     from devo_tpu_torch.scripts import bench_banded_ablate as ablate
     from devo_tpu_torch.scripts import bench_gather, probe_desc_wall
     for name in PROBE_REPORTED:
         record[name] = dict(max_abs_err=0.0, variants=[])
+    window_plans(gpu)
 
     ring, g, ry, rx, layouts = ablate.inputs(dev, PROBE_E, PROBE_MEM, PROBE_NBX,
                                              PROBE_HP)
     nlive = torch.tensor([PROBE_LIVE], dtype=torch.int32, device=dev)
     live = -(-PROBE_LIVE // probe.BE) * probe.BE
+    rng = np.random.default_rng(0)
+    frame = bench_gather.frame_inputs(np.random.default_rng(1), dev, PROBE_E)
+    random_args = (nlive, *layouts["random"], g, ry, rx, ring)
+    window_grids(random_args, frame, live, gpu)
+    ragged_ablate(random_args, gpu)
+    if parent is not None:
+        grid = probe_cuda.window_grid(PROBE_E, dev)
+        plans = {"corr_band_ablate": (grid, probe_cuda.window_plan()[0]),
+                 "corr_frame_probe": (grid, probe_cuda.window_plan(
+                     group=probe_cuda.FRAME_GROUP)[0])}
+        for name, label, rule in parent_ab():
+            if name == "corr_band_ablate":
+                mode = label.split()[1]
+                old, new = (lambda x=x, p=p: c_ablate(x, random_args, mode, p)
+                            for x, p in ((parent, PARENT_WINDOW_PLAN),
+                                         (None, plans[name])))
+                ab_turns(name, label, rule, old, new, record, gpu, rows=live)
+            elif name == "corr_frame_probe":
+                extract = label.endswith("True")
+                old = lambda x=extract: c_frame(parent, frame, x,
+                                                PARENT_WINDOW_PLAN)
+                # this tree's wrapper: its sort of the edges included
+                new = lambda x=extract: probe_cuda.frame_probe_cuda(*frame,
+                                                                    extract=x)
+                ab_turns(name, label, rule, old, new, record, gpu)
     for layout, (slot, band, y0) in layouts.items():
         for mode in probe.ABLATE_MODES:
             args = (nlive, slot, band, y0, g, ry, rx, ring, mode)
@@ -2017,14 +2234,13 @@ def probe_phase(dev, gpu: str, record):
                          f" within atol {TOL['atol']} + rtol {TOL['rtol']} on "
                          f"{live} live rows of {PROBE_E}, output scale "
                          f"{want.abs().max().item():.3g}")
-    del ring, g, ry, rx, layouts
+    del ring, g, ry, rx, layouts, random_args
 
     rows = probe.banded_shape(120, 160)[0] * probe.BWIN
     gen = torch.Generator(device=dev).manual_seed(0)
     ring8 = torch.randint(-127, 127, (PROBE_MEM, rows, 128), generator=gen,
                           device=dev, dtype=torch.int8)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rng = np.random.default_rng(0)
     for mode in probe_desc_wall.MODES:
         n = probe.copy_count(mode, COPY_ND)
         slot, row0 = probe_desc_wall.offsets(rng, mode, n, PROBE_MEM, rows, dev)
@@ -2056,13 +2272,39 @@ def probe_phase(dev, gpu: str, record):
         raise RuntimeError("copy_probe [tall8] was not refused")
     del ring8
 
-    inputs = bench_gather.frame_inputs(rng, dev, PROBE_E)
+    inputs = frame
+    fmap, _, y0, x08 = frame[:4]
+    sort_ms = median_ms(lambda: probe_cuda.frame_order(y0, x08, fmap.shape[1]))
+    record["corr_frame_probe"]["sort"] = dict(ms=sort_ms)
+    # the kernel alone: by its C interface on the wrapper's order and plan
+    order = probe_cuda.frame_order(y0, x08, fmap.shape[1])
+    plan = (probe_cuda.window_grid(PROBE_E, dev),
+            probe_cuda.window_plan(group=probe_cuda.FRAME_GROUP)[0])
+    # the windows staged from L2, as the kernel counts them
+    counted = {}
+    for extract in (True, False):
+        n = torch.zeros(1, dtype=torch.int64, device=dev)
+        c_frame(None, inputs, extract, plan, order, staged=n)
+        counted[f"extract={extract}"] = int(n.item())
+    rule = frame_staged(frame, probe_cuda.FRAME_GROUP, plan[0])
+    print(f"corr_frame_probe windows staged a launch, the kernel's own count: "
+          f"{counted}; the grouping rule worked out on the host: {rule}; at "
+          f"one an edge: {PROBE_E}; a window is 384 x 128 bf16 (98,304 bytes) "
+          f"[{gpu}]", flush=True)
+    if set(counted.values()) != {rule}:
+        raise RuntimeError(f"corr_frame_probe staged {counted} windows, the "
+                           f"grouping rule {rule}")
+    windows = counted["extract=True"]
+    record["corr_frame_probe"]["staged"] = dict(windows=counted)
+    alone = record["corr_frame_probe"]["kernel_alone_ms"] = {}
     for extract in (True, False):
         got = probe_cuda.frame_probe_cuda(*inputs, extract=extract)
         want = probe.frame_windows(*inputs, extract=extract)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         torch.testing.assert_close(got, want, **TOL)
+        alone[f"extract={extract}"] = median_ms(
+            lambda: c_frame(None, inputs, extract, plan, order))
         probe_record(record, "corr_frame_probe", f"extract={extract}", err,
                      median_ms(lambda: probe_cuda.frame_probe_cuda(*inputs,
                                                                    extract=extract)),
@@ -2070,7 +2312,10 @@ def probe_phase(dev, gpu: str, record):
                                2, 3),
                      frame_bound(inputs[0], inputs, extract), gpu,
                      f" within atol {TOL['atol']} + rtol {TOL['rtol']}, output "
-                     f"scale {want.abs().max().item():.1f}")
+                     f"scale {want.abs().max().item():.1f}; {windows} windows "
+                     f"staged (the kernel's count), the "
+                     f"wrapper's sort alone {sort_ms:.4f} ms, the kernel alone "
+                     f"{alone[f'extract={extract}']:.4f} ms")
 
 
 # the drivers of devo_tpu_torch/scripts/: arguments (repeats cut where the
@@ -2168,6 +2413,30 @@ def g8c_launch_phase(dev, gpu: str):
         raise RuntimeError(f"g8c launches: {launches}, stage 2 "
                            f"{corr_plain.extract_calls}, plain {corr_plain.calls}")
     return launches
+
+
+def frame_sort_launches(dev, gpu: str, record):
+    """The kernel launches of corr_frame_probe's sort (ops/probe_cuda.
+    frame_order) at the driver's E, counted under torch.profiler, into
+    record["corr_frame_probe"]["sort"]. Runs after the profiled phases
+    (nothing is timed after a profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    from devo_tpu_torch.ops import probe_cuda
+    from devo_tpu_torch.scripts import bench_gather
+    fmap, _, y0, x08 = bench_gather.frame_inputs(np.random.default_rng(1), dev,
+                                                 PROBE_E)[:4]
+    probe_cuda.frame_order(y0, x08, fmap.shape[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        probe_cuda.frame_order(y0, x08, fmap.shape[1])
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    record["corr_frame_probe"]["sort"]["launches"] = n
+    print(f"corr_frame_probe's sort (frame_order, E = {PROBE_E}): {n} kernel "
+          f"launches a call, {record['corr_frame_probe']['sort']['ms']:.4f} ms "
+          f"alone (probe phase) [{gpu}]", flush=True)
 
 
 # the kernels that take one level a launch, once for each level of an update
@@ -2278,10 +2547,11 @@ def main(argv=None):
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
     record = kernel_phase(dev, gpu)
-    if args.parent:
-        parent_phase(dev, gpu, args.parent, record)
+    parent = parent_library(args.parent) if args.parent else None
+    if parent is not None:
+        parent_phase(dev, gpu, parent, record)
     by_path = {}
-    probe_phase(dev, gpu, record)
+    probe_phase(dev, gpu, record, parent)
     for label in DRIVERS:
         if label != PROFILED_DRIVER:
             by_path[label] = driver_phase(dev, gpu, label)
@@ -2313,6 +2583,7 @@ def main(argv=None):
     run_slice(PROFILED)              # last: nothing is timed after a profile
     by_path[G8C_LAUNCHES] = g8c_launch_phase(dev, gpu)
     by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)
+    frame_sort_launches(dev, gpu, record)
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -2335,7 +2606,9 @@ def main(argv=None):
                                  else f"{REPORTED[name]}, E={E_MAIN}"),
             "variants": rec["variants"],
             **{key: rec[key] for key in ("stages", "parent_ab", "structures",
-                                         "surface_instance") if key in rec}})
+                                         "surface_instance", "sort", "staged",
+                                         "kernel_alone_ms")
+               if key in rec}})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
     # the order of the port's kernel work: a kernel slower than a PyTorch call

@@ -41,10 +41,11 @@
 // corr_pair.cu, corr_pair2.cu, corr_mono2.cu, corr_mono3.cu, corr_group.cu,
 // corr_group8.cu, corr_level_pipe.cu, corr_level_full.cu, corr_level.cu:
 // covering windows, bf16 and int8 rings), csrc/corr_fixed.cu (the fixed
-// 16x24 window, bf16 rings) and csrc/corr_level_resident.cu (windows read
-// in place from a swizzled int8 frame, tile_chunk_rows). The window
-// products of csrc/corr_band_ablate.cu and corr_frame_probe.cu are the same
-// operation on the CUDA cores.
+// 16x24 window, bf16 rings), csrc/corr_level_resident.cu (windows read
+// in place from a swizzled int8 frame, tile_chunk_rows) and the probes'
+// csrc/window_probe.cuh (csrc/corr_band_ablate.cu, corr_frame_probe.cu:
+// the fixed 16x24 window of bf16 vectors against 16 patch rows, staged in
+// chunks of 32 channels).
 #pragma once
 
 #include "corr_common.cuh"

@@ -244,7 +244,13 @@ def _load():
         lib.devo_corr_level_full_smem.restype = ctypes.c_longlong
         lib.devo_corr_level_full_blocks_per_sm.argtypes = [i] * 6
         lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
-        lib.devo_corr_frame_probe.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+        lib.devo_corr_band_ablate_smem.argtypes = [i]
+        lib.devo_corr_band_ablate_smem.restype = ctypes.c_longlong
+        lib.devo_corr_band_ablate_blocks_per_sm.argtypes = [i] * 2
+        lib.devo_corr_frame_probe.argtypes = [ptr] * 8 + [i] * 5 + [ptr] * 2
+        lib.devo_corr_frame_probe_smem.argtypes = [i]
+        lib.devo_corr_frame_probe_smem.restype = ctypes.c_longlong
+        lib.devo_corr_frame_probe_blocks_per_sm.argtypes = [i] * 2
         lib.devo_copy_probe.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
                                         + [i] * 9 + [ptr])
         for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
@@ -264,7 +270,9 @@ def _load():
                    lib.devo_corr_mono2_blocks_per_sm,
                    lib.devo_corr_mono3, lib.devo_corr_mono3_blocks_per_sm,
                    lib.devo_corr_band_ablate,
-                   lib.devo_corr_frame_probe, lib.devo_copy_probe):
+                   lib.devo_corr_band_ablate_blocks_per_sm,
+                   lib.devo_corr_frame_probe,
+                   lib.devo_corr_frame_probe_blocks_per_sm, lib.devo_copy_probe):
             fn.restype = ctypes.c_int
         lib.devo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.devo_cuda_error_string.restype = ctypes.c_char_p

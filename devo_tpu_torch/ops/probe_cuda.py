@@ -10,11 +10,14 @@ library and counted in its `launches` registry:
 
 Each takes the plain version (ops/probe.py) for tensors on the CPU and
 launches its kernel for tensors on a CUDA device; there is no fallback from
-one to the other. The shared memory plans (ring depth, copies in flight)
-are checked on either device, so that a mode the card cannot hold is
-refused everywhere.
+one to the other. The shared memory plans (window_plan: the window kernels'
+ring depth at WINDOW_BLOCKS blocks an SM; copy_depth: the copy probe's
+stages) are worked out on either device, so that a mode the card cannot
+hold is refused everywhere.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,6 +26,9 @@ from . import probe as plain
 
 _C = 128                      # channels (bytes of an int8 row) of the probes
 WINDOW_MAX_DEPTH = 4          # stages of the window kernels' ring
+WINDOW_BLOCKS = 2             # window-kernel blocks an SM
+FRAME_GROUP = 3               # edges of one window corr_frame_probe
+                              #   multiplies with one staged chunk
 COPY_MAX_DEPTH = 4            # stages of the copy probe's ring
 _COPY_STATIC = 64             # the copy probe's static shared memory (barriers)
 _check = cc._check
@@ -41,18 +47,45 @@ def _typed(t, name: str, dtype, shape):
            f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def window_smem_bytes(depth: int) -> int:
-    """Dynamic shared memory of a window-kernel block: `depth` stages of a
-    (384, 128) bf16 window, the edge's 16 patch rows and its (384, 16)
-    product surface as f32 (csrc/window_probe.cuh)."""
-    return depth * plain.WR * _C * 2 + (plain.ROWS * _C + plain.WR * plain.ROWS) * 4
+_CHUNK = 32                   # channels of a staged window chunk
+_G_STRIDE = 160               # elements of a staged patch row (mma_stride)
+_SURFACE_STRIDE = plain.WR + 4  # floats of a surface column
 
 
-def window_depth() -> int:
-    """Stages of the window kernels' ring: as many as a block's shared
-    memory holds, at most WINDOW_MAX_DEPTH (two at C = 128)."""
-    return max(d for d in range(2, WINDOW_MAX_DEPTH + 1)
-               if window_smem_bytes(d) <= cc.SMEM_MAX)
+def window_smem_bytes(depth: int, group: int = 1) -> int:
+    """Dynamic shared memory of a window-kernel block (csrc/window_probe.cuh,
+    every mode alike): `depth` stages of a (384, 32) bf16 chunk of the
+    window, two groups of `group` edges' 16 patch rows as bf16 (rows of 160
+    elements, the tensor-core loaders' stride) and 16 + 16 int32 strip
+    offsets (ry, rx), and the (16, 388) f32 product surface, stored by
+    column."""
+    return ((depth * plain.WR * _CHUNK + 2 * group * plain.ROWS * _G_STRIDE) * 2
+            + 2 * group * 2 * plain.ROWS * 4 + plain.ROWS * _SURFACE_STRIDE * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def window_plan(group: int = 1):
+    """(depth, bytes) of a window kernel whose groups hold up to `group`
+    edges: the deepest ring of chunk stages, at most WINDOW_MAX_DEPTH, whose
+    block shares an SM WINDOW_BLOCKS times (each block also takes the SM's
+    reserved 1 KB), within the SMEM_MAX a block can have. Three stages
+    (109,056 bytes) for the ablation (groups of one, every mode alike), two
+    (105,472 bytes) for the frame product's groups of FRAME_GROUP, with or
+    without extraction. Raises ValueError where not even two stages fit."""
+    _check(group >= 1, f"group must be at least 1, got {group}")
+    fits = [d for d in range(2, WINDOW_MAX_DEPTH + 1)
+            if window_smem_bytes(d, group) <= cc.SMEM_MAX and WINDOW_BLOCKS * (
+                window_smem_bytes(d, group) + cc._SMEM_RESERVED) <= cc._SMEM_SM]
+    _check(bool(fits), f"{WINDOW_BLOCKS} blocks of {window_smem_bytes(2, group)} "
+                       f"bytes (two stages, groups of {group}) exceed the "
+                       f"{cc._SMEM_SM} bytes of an SM")
+    return max(fits), window_smem_bytes(max(fits), group)
+
+
+def window_grid(E: int, device) -> int:
+    """Persistent blocks of a window kernel over E edges: WINDOW_BLOCKS on
+    every SM of `device`, at most one an edge."""
+    return max(1, min(E, cc._sms(device) * WINDOW_BLOCKS))
 
 
 def _stream(t):
@@ -64,10 +97,12 @@ def band_ablate_cuda(nlive, slot, band, y0, g, ry, rx, ring,
     """Launch csrc/corr_band_ablate.cu: nlive (1,) int32 on the device;
     slot, band, y0 (E,) int32; g (E, 16, 128) bf16; ry, rx (E, 16) int32;
     ring (MEM, NBX, Hp, 24, 128) bf16. Returns (E, 8, 144) f32; the rows of
-    blocks of BE edges at or past nlive are left unwritten. The plain
+    blocks of BE edges at or past nlive are left unwritten. window_grid
+    persistent blocks at window_plan's depth walk the live edges. The plain
     version is ops/probe.band_ablate."""
     if mode not in plain.ABLATE_MODES:
         raise ValueError(f"mode must be one of {plain.ABLATE_MODES}, got {mode!r}")
+    depth, _ = window_plan()
     if g.device.type == "cpu":
         return plain.band_ablate(nlive, slot, band, y0, g, ry, rx, ring, mode)
     E = g.shape[0]
@@ -84,7 +119,7 @@ def band_ablate_cuda(nlive, slot, band, y0, g, ry, rx, ring,
            f"ring must be (MEM, NBX, Hp, {plain.BWIN}, {_C}) bf16, got "
            f"{tuple(ring.shape)} {ring.dtype}")
     _check(ring.shape[2] >= plain.WIN, "a band is shorter than a window")
-    for name, t in (("ring", ring), ("g", g)):
+    for name, t in (("ring", ring), ("g", g), ("ry", ry), ("rx", rx)):
         _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
     out = torch.empty((E, 8, 16 * plain.PP), dtype=torch.float32, device=g.device)
     if E == 0:
@@ -92,21 +127,30 @@ def band_ablate_cuda(nlive, slot, band, y0, g, ry, rx, ring,
     code = cc._load().devo_corr_band_ablate(
         nlive.data_ptr(), slot.data_ptr(), band.data_ptr(), y0.data_ptr(),
         g.data_ptr(), ry.data_ptr(), rx.data_ptr(), ring.data_ptr(),
-        out.data_ptr(), E, ring.shape[1], ring.shape[2], plain.BE, window_depth(),
-        plain.ABLATE_MODES.index(mode), _stream(g))
+        out.data_ptr(), E, ring.shape[1], ring.shape[2],
+        window_grid(E, g.device), depth, plain.ABLATE_MODES.index(mode),
+        _stream(g))
     cc._launched("corr_band_ablate", code)
     return out
 
 
-FRAME_RUN = 64                # edges a corr_frame_probe block walks
+def frame_order(y0, x08, wp: int) -> torch.Tensor:
+    """(E,) int32: the edges stably sorted by their window's origin (y0,
+    8 x08) in a frame of width wp, so that the edges of one window are
+    adjacent for corr_frame_probe's groups."""
+    key = torch.add(y0.reshape(-1) * wp, x08.reshape(-1), alpha=8)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
 
 
 def frame_probe_cuda(fmap, gm, y0, x08, ry, rx8,
                      extract: bool = True) -> torch.Tensor:
     """Launch csrc/corr_frame_probe.cu: fmap (Hp, Wp, 128) bf16; gm
     (E, 16, 128) bf16; y0, x08 (E, 1) int32; ry, rx8 (E, 16) int32. Returns
-    (E, 8, 144) f32 with `extract`, else (E, 16, 144) f32. The plain version
-    is ops/probe.frame_windows."""
+    (E, 8, 144) f32 with `extract`, else (E, 16, 144) f32, by window_grid
+    persistent blocks at window_plan's depth for groups of FRAME_GROUP, over
+    the edges in frame_order (one sort, made here at every call). The plain
+    version is ops/probe.frame_windows."""
+    depth, _ = window_plan(group=FRAME_GROUP)
     if gm.device.type == "cpu":
         return plain.frame_windows(fmap, gm, y0, x08, ry, rx8, extract)
     E = gm.shape[0]
@@ -120,16 +164,18 @@ def frame_probe_cuda(fmap, gm, y0, x08, ry, rx8,
         _typed(t, name, torch.int32, (E, 1))
     for name, t in (("ry", ry), ("rx8", rx8)):
         _typed(t, name, torch.int32, (E, plain.ROWS))
-    for name, t in (("fmap", fmap), ("gm", gm)):
+    for name, t in (("fmap", fmap), ("gm", gm), ("ry", ry), ("rx8", rx8)):
         _check(t.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
     out = torch.empty((E, 8 if extract else plain.WIN, 16 * plain.PP),
                       dtype=torch.float32, device=gm.device)
     if E == 0:
         return out
+    order = frame_order(y0, x08, fmap.shape[1])
     code = cc._load().devo_corr_frame_probe(
         fmap.data_ptr(), gm.data_ptr(), y0.data_ptr(), x08.data_ptr(),
-        ry.data_ptr(), rx8.data_ptr(), out.data_ptr(), E, fmap.shape[1],
-        FRAME_RUN, window_depth(), int(extract), _stream(gm))
+        ry.data_ptr(), rx8.data_ptr(), order.data_ptr(), out.data_ptr(), E,
+        fmap.shape[1], window_grid(E, gm.device), depth, int(extract), None,
+        _stream(gm))
     cc._launched("corr_frame_probe", code)
     return out
 

@@ -93,9 +93,10 @@ def main(argv=None):
     E, live, hp, nbx = args.edges, args.live, args.hp, args.nbx
     ring, g, ry, rx, lay = inputs(dev, E, args.mem, nbx, hp)
     nlive = torch.tensor([live], dtype=torch.int32, device=dev)
+    depth, smem = probe_cuda.window_plan()
     print(f"E={E} live={live} ring {tuple(ring.shape)} bf16 "
-          f"({ring.numel() * 2 / 1e6:.0f} MB), window ring of "
-          f"{probe_cuda.window_depth()} stages, "
+          f"({ring.numel() * 2 / 1e6:.0f} MB), window ring of {depth} stages "
+          f"({smem} bytes a block, {probe_cuda.WINDOW_BLOCKS} blocks an SM), "
           f"drift={int(args.drift)} [{gpu}]", flush=True)
     results = {}
     for layout in args.layouts:

@@ -193,25 +193,28 @@ def test_split_resident_path_charges_level_1_and_the_resident_level_4():
 
 
 def test_parent_sources_and_what_the_ab_compares():
-    """--parent builds the parent's K6' and K11' beside the pipeline
-    kernels and their headers; the A/B holds K6' / K6'' (levels 1 and 4 on
-    int8 and bf16 rings, level 1 on f32) and K11' / K11'' (level 4, int8)
-    within TOL, and every other pipeline kernel, K7'' and K10'' now among
-    them, to the parent's bits."""
-    for name in ("corr_level.cu", "corr_level_resident.cu", "corr_pipe.cuh",
-                 "corr_mma.cuh", "corr_common.cuh", "corr_level_pipe.cu",
-                 "corr_level_full.cu"):
+    """--parent builds the parent's K13' and K15' with their header beside
+    the kernels that include corr_mma.cuh; the A/B holds K13' / K13'' in
+    every mode on the random layout and K15' / K15'' with and without
+    extraction within TOL, and every kernel on the edge pipeline, K6'' and
+    K11'' among them, to the parent's bits."""
+    for name in ("corr_band_ablate.cu", "corr_frame_probe.cu",
+                 "window_probe.cuh", "corr_level.cu", "corr_level_resident.cu",
+                 "corr_pipe.cuh", "corr_mma.cuh", "corr_common.cuh",
+                 "corr_level_pipe.cu", "corr_level_full.cu"):
         assert name in chip_smoke.PARENT_SOURCES
     ab = chip_smoke.parent_ab()
     assert len(set(ab)) == len(ab)
     tol = {(name, label) for name, label, rule in ab if rule == "tol"}
-    assert tol == {("corr_level", f"level {lvl} {ring}")
-                   for lvl in (1, 4) for ring in ("i8", "bf16")} | {
-        ("corr_level", "level 1 f32"), ("corr_level_resident", "level 4 i8")}
+    assert tol == {("corr_band_ablate", f"random {mode}")
+                   for mode in ("full", "noext", "nomm", "noDMA")} | {
+        ("corr_frame_probe", "extract=True"), ("corr_frame_probe", "extract=False")}
     bits = {name for name, _, rule in ab if rule == "bits"}
     assert bits == {"corr_pyramid", "corr_pair", "corr_pair2", "corr_mono2",
                     "corr_mono3", "corr_group", "corr_group8",
-                    "corr_level_pipe", "corr_level_full"}
+                    "corr_level_pipe", "corr_level_full", "corr_level",
+                    "corr_level_resident"}
+    assert {name for name, _ in tol} == set(chip_smoke.PROBE_REPORTED) - {"copy_probe"}
 
 
 def test_level_structures_put_k6_beside_k7():
@@ -225,3 +228,18 @@ def test_level_structures_put_k6_beside_k7():
         assert set(names[ring]) <= set(chip_smoke.KERNELS)
     assert len(chip_smoke.KERNELS) == 15
     assert chip_smoke.COUNTERS["split"] == ("corr_level",)
+
+
+def test_frame_staged_counts_groups_within_block_runs():
+    """corr_frame_probe's grouping rule, worked out on the host (the card
+    run holds the kernel's own count to it): groups of up to 3
+    consecutive edges of one origin in the sorted order, never across a
+    block's run. Origins (by edge) 5, 5, 5, 5, 2, 9, 9: sorted 2 | 5 5 5 5 |
+    9 9, so one block stages 2, (5 5 5), (5), (9 9): 4 windows; two blocks
+    (runs of 3 and 4: 2 5 5 | 5 5 9 9) stage 2, (5 5), (5 5), (9 9): 4; seven
+    blocks stage 7."""
+    y0 = torch.tensor([[5], [5], [5], [5], [2], [9], [9]], dtype=torch.int32)
+    x08 = torch.zeros_like(y0)
+    inputs = (torch.zeros(16, 24, 1), None, y0, x08)
+    for grid, windows in ((1, 4), (2, 4), (7, 7)):
+        assert chip_smoke.frame_staged(inputs, 3, grid) == windows

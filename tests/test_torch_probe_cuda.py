@@ -5,6 +5,12 @@ block (atol 1e-3 + rtol 1e-4: f32 sums of the same products in another
 order), the copy probe in every mode the card holds, on both copy routes
 and on 1, 3 and 200 blocks, exactly (integer sums below 2^24), and the
 one-frame window product with and without extraction (the same tolerance).
+Then the window kernels' plan (ops/probe_cuda.window_plan) against their
+own shared-memory and occupancy queries in every mode, their bits at two
+grids of persistent blocks, the frame product's own count of the windows
+it stages, and the ablation's ragged live gate (nlive no
+multiple of 64, 0, all edges; E = 0), by their C interfaces
+(chip_smoke.c_ablate, c_frame).
 
 Marked `cuda`: they skip without a GPU. On the H100 (no jax there):
 `python -m pytest --noconftest -q tests/test_torch_probe_cuda.py`.
@@ -72,3 +78,116 @@ def test_frame_probe_kernel(dev, extract):
     inputs = bench_gather.frame_inputs(np.random.default_rng(0), dev, 1000)
     torch.testing.assert_close(probe_cuda.frame_probe_cuda(*inputs, extract=extract),
                                probe.frame_windows(*inputs, extract=extract), **TOL)
+
+
+@pytest.mark.cuda
+def test_window_plan_matches_the_kernels(dev):
+    """The plan's bytes are each kernel's own at the plan's stages, and the
+    occupancy query holds WINDOW_BLOCKS blocks an SM in every mode of the
+    ablation and for the frame product with and without extraction."""
+    from devo_tpu_torch.ops import corr_cuda
+    lib = corr_cuda._load()
+    depth, smem = probe_cuda.window_plan()
+    assert lib.devo_corr_band_ablate_smem(depth) == smem
+    for m in range(len(probe.ABLATE_MODES)):
+        assert lib.devo_corr_band_ablate_blocks_per_sm(m, depth) >= probe_cuda.WINDOW_BLOCKS
+    depth, smem = probe_cuda.window_plan(group=probe_cuda.FRAME_GROUP)
+    assert lib.devo_corr_frame_probe_smem(depth) == smem
+    for extract in (0, 1):
+        assert lib.devo_corr_frame_probe_blocks_per_sm(extract, depth) >= probe_cuda.WINDOW_BLOCKS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", probe.ABLATE_MODES)
+def test_band_ablate_same_bits_at_two_grids(dev, mode):
+    """Each live row is written by one block with its sums in a fixed order:
+    the wrapper's grid, 3 blocks and 1 block give the same bits."""
+    import chip_smoke
+    args = _ablate_args(dev, E=300)
+    args = (torch.tensor([200], dtype=torch.int32, device=dev),) + args[1:]
+    depth, _ = probe_cuda.window_plan()
+    want = probe_cuda.band_ablate_cuda(*args, mode)[:256]
+    for grid in (3, 1):
+        assert torch.equal(chip_smoke.c_ablate(None, args, mode, (grid, depth))[:256],
+                           want)
+    torch.testing.assert_close(want, probe.band_ablate(*args, mode)[:256], **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extract", [True, False])
+def test_frame_probe_same_bits_at_two_grids(dev, extract):
+    """Groups of edges that share a window change no bits: 5 blocks and 1,
+    on the sorted order and on the edges' own and reversed orders, give the
+    wrapper's bits, with windows drawn from 40 origins so that most groups
+    hold FRAME_GROUP edges."""
+    import chip_smoke
+    from devo_tpu_torch.scripts import bench_gather
+    inputs = list(bench_gather.frame_inputs(np.random.default_rng(2), dev, 333))
+    inputs[2] = inputs[2] % 4                     # y0: 4 x 10 origins
+    inputs[3] = inputs[3] % 10
+    depth, _ = probe_cuda.window_plan(group=probe_cuda.FRAME_GROUP)
+    want = probe_cuda.frame_probe_cuda(*inputs, extract=extract)
+    torch.testing.assert_close(want, probe.frame_windows(*inputs, extract=extract),
+                               **TOL)
+    order = probe_cuda.frame_order(inputs[2], inputs[3], inputs[0].shape[1])
+    mine = torch.arange(333, dtype=torch.int32, device=dev)
+    for grid, o in ((5, order), (1, order), (7, mine), (7, mine.flip(0))):
+        assert torch.equal(chip_smoke.c_frame(None, inputs, extract, (grid, depth), o),
+                           want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extract", [True, False])
+def test_frame_probe_counts_the_windows_it_stages(dev, extract):
+    """The kernel's own count of the windows it stages is the grouping
+    rule's (chip_smoke.frame_staged) at 5 blocks and 1, on windows drawn
+    from 40 origins; without a counter the bits are the same."""
+    import chip_smoke
+    from devo_tpu_torch.scripts import bench_gather
+    inputs = list(bench_gather.frame_inputs(np.random.default_rng(2), dev, 333))
+    inputs[2] = inputs[2] % 4
+    inputs[3] = inputs[3] % 10
+    depth, _ = probe_cuda.window_plan(group=probe_cuda.FRAME_GROUP)
+    order = probe_cuda.frame_order(inputs[2], inputs[3], inputs[0].shape[1])
+    for grid in (5, 1):
+        n = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = chip_smoke.c_frame(None, inputs, extract, (grid, depth), order, n)
+        assert int(n.item()) == chip_smoke.frame_staged(inputs, probe_cuda.FRAME_GROUP,
+                                                        grid)
+        assert torch.equal(got, chip_smoke.c_frame(None, inputs, extract,
+                                                   (grid, depth), order))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlive", [100, 0, 128, 1000])
+def test_band_ablate_ragged_live_gate(dev, nlive):
+    """nlive no multiple of 64 (rows up to the next multiple computed), none,
+    and beyond E = 150: the live gate's rows within TOL of the plain
+    version in every mode, the rows past it never written (still NaN)."""
+    import chip_smoke
+    args = _ablate_args(dev, E=150)
+    args = (torch.tensor([nlive], dtype=torch.int32, device=dev),) + args[1:]
+    live = min(150, -(-nlive // probe.BE) * probe.BE)
+    depth, _ = probe_cuda.window_plan()
+    for mode in probe.ABLATE_MODES:
+        out = torch.full((150, 8, 16 * probe.PP), float("nan"), device=dev)
+        chip_smoke.c_ablate(None, args, mode, (probe_cuda.window_grid(150, dev), depth),
+                            out)
+        torch.testing.assert_close(out[:live], probe.band_ablate(*args, mode)[:live],
+                                   **TOL)
+        assert out[live:].isnan().all()
+
+
+@pytest.mark.cuda
+def test_window_kernels_at_no_edges(dev):
+    """E = 0: empty results and no launch."""
+    from devo_tpu_torch.ops import corr_cuda
+    from devo_tpu_torch.scripts import bench_gather
+    args = tuple(t[:0] if t.ndim and t.shape[0] == 128 else t
+                 for t in _ablate_args(dev))
+    inputs = tuple(t[:0] if i else t for i, t in
+                   enumerate(bench_gather.frame_inputs(np.random.default_rng(0), dev, 4)))
+    before = dict(corr_cuda.launches)
+    assert probe_cuda.band_ablate_cuda(*args).shape == (0, 8, 144)
+    assert probe_cuda.frame_probe_cuda(*inputs, extract=False).shape == (0, 16, 144)
+    assert corr_cuda.launches == before

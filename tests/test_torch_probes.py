@@ -42,7 +42,8 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from devo_tpu_torch.ops import probe, probe_cuda
+from devo_tpu_torch.ops import corr_cuda, probe, probe_cuda
+from devo_tpu_torch.scripts import bench_window_variants
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(atol=2e-4, rtol=1e-4)
@@ -171,7 +172,40 @@ def test_band_ablate_wrapper_on_the_cpu(ablate_case):
                                   probe.band_ablate(*pt, "noext").numpy())
     with pytest.raises(ValueError, match="mode"):
         probe_cuda.band_ablate_cuda(*pt, "nodma")
-    assert probe_cuda.window_depth() == 2
+    assert probe_cuda.window_plan() == (3, 109_056)
+
+
+@pytest.mark.parametrize("group,depth", [(1, 3), (2, 2), (3, 2)])
+def test_window_plan(group, depth):
+    """window_plan worked out by hand, the same for every mode of the
+    ablation (groups of one) and for the frame product with and without
+    extraction (groups of FRAME_GROUP = 3): a stage of 384 positions x 32
+    channels of bf16 (24,576 bytes), two groups of 16 patch rows of 160
+    bf16 and 32 int32 strip offsets an edge (10,496 bytes a group edge),
+    the (16, 388) f32 surface (24,832); the deepest ring, at most 4 stages,
+    of which WINDOW_BLOCKS = 2 blocks, each with the SM's reserved 1,024
+    bytes, fit the 233,472 bytes of an SM, within the 232,448 a block can
+    have."""
+    smem = depth * 24_576 + group * 10_496 + 24_832
+    assert probe_cuda.WINDOW_BLOCKS == 2
+    assert probe_cuda.window_smem_bytes(depth, group) == smem
+    assert probe_cuda.window_plan(group) == (depth, smem)
+    assert smem <= corr_cuda.SMEM_MAX and 2 * (smem + 1024) <= 233_472
+    if depth < probe_cuda.WINDOW_MAX_DEPTH:
+        assert 2 * (probe_cuda.window_smem_bytes(depth + 1, group) + 1024) > 233_472
+    assert probe_cuda.window_plan() == probe_cuda.window_plan(1)
+    assert probe_cuda.FRAME_GROUP == 3
+
+
+@pytest.mark.parametrize("group,match", [(4, "exceed the 233472 bytes"),
+                                         (6, "exceed the 233472 bytes"),
+                                         (0, "at least 1")])
+def test_window_plan_refusals(group, match):
+    """Two blocks an SM do not hold even two stages in groups of four
+    (2 x 116,992 bytes) or six (2 x 137,984); a group of no edge is refused
+    too."""
+    with pytest.raises(ValueError, match=match):
+        probe_cuda.window_plan(group)
 
 
 # ---------------------------------------------------------------- K15
@@ -210,6 +244,18 @@ def _gather_inputs(E, T):
     ry = rng.integers(0, 9, (E, 16))
     rx8 = rng.integers(0, 2, (E, 16))
     return fmap, gm, y0, x08, ry, rx8
+
+
+def test_frame_order():
+    """The wrapper's order of corr_frame_probe's edges: a permutation that
+    sorts them by window origin (y0, 8 x08), ties in their own order."""
+    rng = np.random.default_rng(3)
+    y0 = rng.integers(0, 3, (50, 1)).astype(np.int32)
+    x08 = rng.integers(0, 4, (50, 1)).astype(np.int32)
+    order = probe_cuda.frame_order(torch.from_numpy(y0), torch.from_numpy(x08), 184)
+    assert order.dtype == torch.int32
+    want = np.argsort(y0[:, 0] * 184 + 8 * x08[:, 0], kind="stable")
+    np.testing.assert_array_equal(order.numpy(), want)
 
 
 @pytest.mark.parametrize("extract,nsc", [(True, 1), (True, 4), (False, 1)])
@@ -400,3 +446,34 @@ def test_driver_refusals(name, argv, env, match, monkeypatch):
     with pytest.raises(SystemExit) as exc:
         _main(name, argv)
     assert exc.value.code not in (0, None) and match in str(exc.value.code)
+
+
+# ---------------------------------------------------------------- variants
+
+@pytest.mark.parametrize("name", sorted(bench_window_variants.VARIANTS))
+def test_window_variant_sources(name, tmp_path):
+    """Each variant of bench_window_variants is this tree's window-kernel
+    sources with its one edit: the edited file differs by the replacement
+    alone, the others are copies; the group of corr_frame_probe in the C++
+    source is FRAME_GROUP, and g1 / g2 set the group they are timed at."""
+    file, old, new, group, kernels = bench_window_variants.VARIANTS[name]
+    dst = bench_window_variants.variant_sources(name, tmp_path)
+    for src in bench_window_variants.SOURCES:
+        tree = (corr_cuda.CSRC / src).read_text()
+        got = (dst / src).read_text()
+        assert got == (tree.replace(old, new) if src == file else tree)
+    assert (dst / file).read_text() != (corr_cuda.CSRC / file).read_text()
+    frame = (corr_cuda.CSRC / "corr_frame_probe.cu").read_text()
+    assert f"constexpr int kGroup = {probe_cuda.FRAME_GROUP};" in frame
+    if name in ("g1", "g2"):
+        assert new == f"constexpr int kGroup = {group};"
+    assert set(kernels) <= {"corr_band_ablate", "corr_frame_probe"}
+
+
+def test_window_variants_need_the_card():
+    """The variants are built by nvcc and timed on the card: on the CPU the
+    script exits with a message, and an unknown variant is refused."""
+    with pytest.raises(SystemExit, match="needs the card"):
+        bench_window_variants.main(["--device", "cpu"])
+    with pytest.raises(SystemExit):
+        bench_window_variants.main(["--device", "cpu", "--variants", "g4"])
