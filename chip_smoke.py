@@ -64,9 +64,9 @@
    interface) and through its wrapper, and the wrapper's sort and search
    timed apart from the kernel.
    With --parent DIR, a directory holding the parent commit's files of
-   PARENT_SOURCES (K13' corr_band_ablate.cu and K15' corr_frame_probe.cu
-   with their header window_probe.cuh, the kernels that include
-   corr_mma.cuh beside them, and the headers corr_pipe.cuh,
+   PARENT_SOURCES (K14' copy_probe.cu, K13'' corr_band_ablate.cu and K15''
+   corr_frame_probe.cu with their header window_probe.cuh, the kernels that
+   include corr_mma.cuh beside them, and the headers corr_pipe.cuh,
    corr_common.cuh, corr_mma.cuh, from `git archive` of the parent), those
    are built into a library of their own and timed against this tree's in
    turns (parent, this tree, this tree, parent), each by its C interface
@@ -78,8 +78,10 @@
    on int8 rings, at this tree's plans, whose output must be the parent's
    bit for bit; in the probe phase, on its inputs, corr_band_ablate in
    every mode on the `random` layout and corr_frame_probe with and without
-   extraction, redesigned since, each at its own plan and held to each
-   other within TOL.
+   extraction, at this tree's plan and edge order, to the parent's bits,
+   and copy_probe (K14', redesigned since) in five modes on both copy
+   routes at one block an SM and in `single` on one block, whose output
+   must be the parent's exactly.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound. First the window kernels' plan (ops/probe_cuda.window_plan)
@@ -93,15 +95,20 @@
    banded window ablation (corr_band_ablate, E = 15360 of which 6144 live,
    a 623 MB bf16 band ring) in its four modes and six index layouts within
    TOL on the live blocks, the copy probe (copy_probe, 9600 window copies
-   of an int8 band ring) in seven modes on both copy routes, on one block
-   and one block an SM, exactly, and its refusal of tall8, and the
+   of an int8 band ring) in seven modes on both copy routes, exactly at 1,
+   7, 200 blocks and one an SM and timed at one block and one an SM, its
+   order of the copies on the device (a counting sort by slot) against the
+   plain version's exactly and timed alone, and its refusal of tall8, and
+   the
    one-frame window product (corr_frame_probe, E = 15360) with and without
    extraction within TOL, with the windows it stages from L2 (the kernel's
    own count, which must be the grouping rule's worked out on the host), its
    wrapper's sort and the kernel alone timed apart (the sort's launches are
-   counted under torch.profiler at the very end). Then every driver of
-   devo_tpu_torch/scripts/ but profile_step and bench_window_variants (which
-   builds variants of the window kernels' sources) runs once through its main(),
+   counted under torch.profiler at the very end, and so is the device time
+   of each of copy_probe's three kernels). Then every driver of
+   devo_tpu_torch/scripts/ but profile_step, bench_window_variants and
+   bench_copy_variants (which build variants of the probe kernels' sources)
+   runs once through its main(),
    at its full repeat counts or fewer where those would not fit, its output
    under chiprun_out/probes/;
    each must launch the kernels it names and no other, and its launches
@@ -945,16 +952,15 @@ PARENT_SOURCES = ("corr.cu", "corr_pair.cu", "corr_pair2.cu", "corr_mono2.cu",
                   "corr_mono3.cu", "corr_group.cu", "corr_group8.cu",
                   "corr_level_pipe.cu", "corr_level_full.cu", "corr_level.cu",
                   "corr_level_resident.cu", "corr_band_ablate.cu",
-                  "corr_frame_probe.cu", "corr_pipe.cuh", "corr_common.cuh",
-                  "corr_mma.cuh", "window_probe.cuh")
+                  "corr_frame_probe.cu", "copy_probe.cu", "corr_pipe.cuh",
+                  "corr_common.cuh", "corr_mma.cuh", "window_probe.cuh")
 
 
 def parent_library(parent_dir: str):
     """The parent commit's kernels of PARENT_SOURCES built from parent_dir (a
     copy of them and their headers) into a library of their own, with the
-    parent's C interfaces: those of this tree, where corr_band_ablate and
-    corr_frame_probe take the edges a block walks and the stages of its
-    window ring in place of the grid and the stages."""
+    parent's C interfaces: those of this tree, but copy_probe's, which
+    takes no order scratch and no ring slots (c_copy)."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -977,13 +983,14 @@ def parent_library(parent_dir: str):
     lib.devo_corr_level.argtypes = [ptr] * 7 + [i] * 10 + [ptr]
     lib.devo_corr_level_resident.argtypes = [ptr] * 9 + [i] * 9 + [ptr]
     lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
-    lib.devo_corr_frame_probe.argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+    lib.devo_corr_frame_probe.argtypes = [ptr] * 8 + [i] * 5 + [ptr] * 2
+    lib.devo_copy_probe.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i] * 9 + [ptr]
     for fn in (lib.devo_corr_pyramid, lib.devo_corr_pair, lib.devo_corr_group,
                lib.devo_corr_mono2, lib.devo_corr_mono3, lib.devo_corr_pair2,
                lib.devo_corr_group8, lib.devo_corr_level_pipe,
                lib.devo_corr_level_full, lib.devo_corr_level,
                lib.devo_corr_level_resident, lib.devo_corr_band_ablate,
-               lib.devo_corr_frame_probe):
+               lib.devo_corr_frame_probe, lib.devo_copy_probe):
         fn.restype = ctypes.c_int
     return lib
 
@@ -1034,13 +1041,17 @@ def parent_ab():
     """What the A/B against the parent compares: (kernel, label, rule), rule
     "tol" for a kernel redesigned since the parent (each version at its own
     plan, held to each other within TOL) and "bits" for one that must give
-    the parent's bits at this tree's plan. K13' / K13'' in every mode on the
-    `random` layout and K15' / K15'' with and without extraction, within
-    TOL; K6'' at levels 1 and 4 on int8 and bf16 rings and at level 1 on
-    f32 rings, K11'' at level 4 on int8 rings and the other kernels on the
-    edge pipeline on int8 and bf16 rings (K9'', K10'' on bf16 rings alone,
-    K10'' also at level 1 on f32), to the parent's bits."""
+    the parent's bits (or, for the copy probe, its exact output) at this
+    tree's plan. K6'' at levels 1 and 4 on int8 and bf16 rings and at level
+    1 on f32 rings, K11'' at level 4 on int8 rings and the other kernels on
+    the edge pipeline on int8 and bf16 rings (K9'', K10'' on bf16 rings
+    alone, K10'' also at level 1 on f32), K13'' in every mode on the
+    `random` layout and K15'' with and without extraction, to the parent's
+    bits; and K14' / K14'' (the copy probe, redesigned since) in
+    COPY_AB_MODES on both copy routes at one block an SM, and `single` on
+    one block, to the parent's exact output."""
     from devo_tpu_torch.ops.probe import ABLATE_MODES
+    from devo_tpu_torch.ops.probe_cuda import ROUTES
     out = []
     for ring in ("i8", "bf16"):
         for name in ("corr_level", "corr_level_pipe", "corr_group") + (
@@ -1053,9 +1064,12 @@ def parent_ab():
     out += [("corr_level", "level 1 f32", "bits"),
             ("corr_level_full", "level 1 f32", "bits"),
             ("corr_level_resident", "level 4 i8", "bits")]
-    out += [("corr_band_ablate", f"random {mode}", "tol")
+    out += [("corr_band_ablate", f"random {mode}", "bits")
             for mode in ABLATE_MODES]
-    out += [("corr_frame_probe", f"extract={x}", "tol") for x in (True, False)]
+    out += [("corr_frame_probe", f"extract={x}", "bits") for x in (True, False)]
+    out += [("copy_probe", f"{mode} {route}", "bits") for mode in COPY_AB_MODES
+            for route in ROUTES]
+    out += [("copy_probe", f"single {route}, one block", "bits") for route in ROUTES]
     return out
 
 
@@ -1915,6 +1929,8 @@ def determinism_phase(dev, gpu: str):
 PROBE_E, PROBE_LIVE = 15360, 6144        # the ablation's and the gather's E
 PROBE_MEM, PROBE_NBX, PROBE_HP = 32, 22, 144
 COPY_ND = 9600
+COPY_AB_MODES = ("single", "pair", "tall4", "dual", "local")   # K14' / K14'' in turns
+COPY_GRIDS = (1, 7, None, 200)    # the copy probe's exactness; None: one an SM
 # the variant whose numbers stand for a probe kernel in the JSON record
 PROBE_REPORTED = {"corr_band_ablate": "random full",
                   "copy_probe": "single cp.async, one block an SM",
@@ -2012,7 +2028,6 @@ def probe_record(record, name, label, err, ms, plain_ms, bound, gpu, extra=""):
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-PARENT_WINDOW_PLAN = (64, 2)     # K13' / K15': edges a block walks, stages
 SMALL_GRID = 7                   # the second grid of the same-bits check
 
 
@@ -2020,8 +2035,7 @@ def c_ablate(lib, args, mode: str, plan, out=None):
     """One launch of devo_corr_band_ablate of `lib` (this tree's library
     where None) by its C interface into `out` (a new tensor where None):
     `args` as ops/probe_cuda.band_ablate_cuda takes them, `plan` the two
-    integers after the ring's shape (this tree: persistent blocks and
-    stages; the parent: PARENT_WINDOW_PLAN)."""
+    integers after the ring's shape: persistent blocks and stages."""
     from devo_tpu_torch.ops import corr_cuda as cc
     from devo_tpu_torch.ops import probe
     nlive, slot, band, y0, g, ry, rx, ring = args
@@ -2040,12 +2054,12 @@ def c_ablate(lib, args, mode: str, plan, out=None):
     return out
 
 
-def c_frame(lib, inputs, extract: bool, plan, order=None, staged=None):
+def c_frame(lib, inputs, extract: bool, plan, order, staged=None):
     """One launch of devo_corr_frame_probe of `lib` (this tree's library
-    where None) by its C interface, `plan` as c_ablate's: this tree's
-    interface with `order` (the edges' order, ops/probe_cuda.frame_order)
-    and `staged` (None, or a (1,) int64 tensor on the device to which the
-    kernel adds the windows it stages), the parent's where order is None."""
+    where None) by its C interface, `plan` as c_ablate's, on the edges in
+    `order` (ops/probe_cuda.frame_order or another permutation), with
+    `staged` None or a (1,) int64 tensor on the device to which the kernel
+    adds the windows it stages."""
     from devo_tpu_torch.ops import corr_cuda as cc
     from devo_tpu_torch.ops import probe
     fmap, gm = inputs[:2]
@@ -2053,17 +2067,57 @@ def c_frame(lib, inputs, extract: bool, plan, order=None, staged=None):
     E = gm.shape[0]
     out = torch.empty((E, 8 if extract else probe.WIN, 16 * probe.PP),
                       dtype=torch.float32, device=gm.device)
-    ptrs = [t.data_ptr() for t in inputs] + ([] if order is None
-                                             else [order.data_ptr()])
-    tail = [] if order is None else [None if staged is None
-                                     else staged.data_ptr()]
     code = lib.devo_corr_frame_probe(
-        *ptrs, out.data_ptr(), E, fmap.shape[1], *plan, int(extract), *tail,
+        *(t.data_ptr() for t in inputs), order.data_ptr(), out.data_ptr(), E,
+        fmap.shape[1], *plan, int(extract),
+        None if staged is None else staged.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if code:
         raise RuntimeError(f"corr_frame_probe by its C interface: launch "
                            f"failed ({code})")
     return out
+
+
+def c_copy(lib, ring, slot, row0, mode: str, route: str, blocks: int):
+    """One launch of devo_copy_probe by its C interface, uncounted: this
+    tree's K14'' (its order scratch included, ops/probe_cuda.copy_launch)
+    where `lib` is None, else the parent's K14' of `lib` (contiguous runs
+    of the copies in their own order) at the same ring depth."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    from devo_tpu_torch.ops import probe, probe_cuda
+    if lib is None:
+        code, out = probe_cuda.copy_launch(cc._load(), ring, slot, row0, mode,
+                                           route, blocks)
+    else:
+        S, M, _ = probe.copy_plan(mode)
+        depth, ns = probe_cuda.copy_depth(mode)
+        partial = torch.empty((blocks, 128), dtype=torch.float32,
+                              device=ring.device)
+        out = torch.empty((1, 128), dtype=torch.float32, device=ring.device)
+        code = lib.devo_copy_probe(
+            ring.data_ptr(), slot.data_ptr(), row0.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), ring.shape[1] * 128,
+            slot.shape[0], blocks, S, M, ns, depth, int(mode == "local"),
+            probe.COLR, int(route == "bulk"),
+            torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"copy_probe by its C interface: launch failed "
+                           f"({code})")
+    return out
+
+
+def c_copy_order(slot, mem: int):
+    """The copy probe's order alone (devo_copy_order of this tree): (n,)
+    int32, the copies stably sorted by slot."""
+    from devo_tpu_torch.ops import corr_cuda as cc
+    order = torch.empty(slot.shape[0], dtype=torch.int32, device=slot.device)
+    code = cc._load().devo_copy_order(slot.data_ptr(), order.data_ptr(),
+                                      slot.shape[0], mem,
+                                      torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"copy_order by its C interface: launch failed "
+                           f"({code})")
+    return order
 
 
 def window_plans(gpu: str):
@@ -2176,12 +2230,14 @@ def probe_phase(dev, gpu: str, record, parent=None):
     """The three probe kernels against their plain versions (ops/probe.py) on
     the card at their drivers' shapes, timed beside their bounds: the banded
     ablation in every mode and index layout (TOL, on the live blocks), the
-    copy probe in every mode and route on one block and on one block an SM
-    (exactly), tall8's refusal, and the one-frame window product with and
-    without extraction (TOL). The window kernels' plan against their own
-    queries, their bits at two grids, the ablation's ragged live gate; with
-    `parent` (the parent's library), the A/B of K13' / K13'' and K15' /
-    K15'' (parent_ab) in turns."""
+    copy probe in every mode and route exactly at COPY_GRIDS and timed on one
+    block and on one block an SM, its order alone against the plain
+    version's (exactly) and timed, tall8's refusal, and the one-frame window
+    product with and without extraction (TOL). The window kernels' plan
+    against their own queries, their bits at two grids, the ablation's
+    ragged live gate; with `parent` (the parent's library), the A/B of K13''
+    and K15'' (the parent's bits) and of K14' / K14'' (parent_ab) in
+    turns."""
     from devo_tpu_torch.ops import probe, probe_cuda
     from devo_tpu_torch.scripts import bench_banded_ablate as ablate
     from devo_tpu_torch.scripts import bench_gather, probe_desc_wall
@@ -2199,24 +2255,25 @@ def probe_phase(dev, gpu: str, record, parent=None):
     window_grids(random_args, frame, live, gpu)
     ragged_ablate(random_args, gpu)
     if parent is not None:
+        # K13'' and K15'' by their C interfaces at this tree's plans (K15''
+        # on its wrapper's order of the edges)
         grid = probe_cuda.window_grid(PROBE_E, dev)
         plans = {"corr_band_ablate": (grid, probe_cuda.window_plan()[0]),
                  "corr_frame_probe": (grid, probe_cuda.window_plan(
                      group=probe_cuda.FRAME_GROUP)[0])}
+        order = probe_cuda.frame_order(*frame[2:4], frame[0].shape[1])
         for name, label, rule in parent_ab():
             if name == "corr_band_ablate":
                 mode = label.split()[1]
-                old, new = (lambda x=x, p=p: c_ablate(x, random_args, mode, p)
-                            for x, p in ((parent, PARENT_WINDOW_PLAN),
-                                         (None, plans[name])))
+                old, new = (lambda x=x: c_ablate(x, random_args, mode,
+                                                 plans[name])
+                            for x in (parent, None))
                 ab_turns(name, label, rule, old, new, record, gpu, rows=live)
             elif name == "corr_frame_probe":
                 extract = label.endswith("True")
-                old = lambda x=extract: c_frame(parent, frame, x,
-                                                PARENT_WINDOW_PLAN)
-                # this tree's wrapper: its sort of the edges included
-                new = lambda x=extract: probe_cuda.frame_probe_cuda(*frame,
-                                                                    extract=x)
+                old, new = (lambda x=x: c_frame(x, frame, extract, plans[name],
+                                                order)
+                            for x in (parent, None))
                 ab_turns(name, label, rule, old, new, record, gpu)
     for layout, (slot, band, y0) in layouts.items():
         for mode in probe.ABLATE_MODES:
@@ -2241,6 +2298,9 @@ def probe_phase(dev, gpu: str, record, parent=None):
     ring8 = torch.randint(-127, 127, (PROBE_MEM, rows, 128), generator=gen,
                           device=dev, dtype=torch.int8)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grids = [g or sms for g in COPY_GRIDS]
+    copy_ab = {label: rule for name, label, rule in parent_ab()
+               if name == "copy_probe"} if parent is not None else {}
     for mode in probe_desc_wall.MODES:
         n = probe.copy_count(mode, COPY_ND)
         slot, row0 = probe_desc_wall.offsets(rng, mode, n, PROBE_MEM, rows, dev)
@@ -2248,21 +2308,43 @@ def probe_phase(dev, gpu: str, record, parent=None):
         plain_ms = median_ms(lambda: probe.copy_probe(ring8, slot, row0, mode), 2, 3)
         bound = copy_bound(ring8, slot, row0, mode)
         depth, ns = probe_cuda.copy_depth(mode)
+        if mode != "local":
+            # the order on the device, exactly the plain version's
+            order = c_copy_order(slot, PROBE_MEM)
+            if not torch.equal(order, probe.copy_order(slot, mode)[0]):
+                raise RuntimeError(f"copy_probe [{mode}]: the copies' order is "
+                                   f"not the plain version's")
+        if mode == "single":
+            order_ms = median_ms(lambda: c_copy_order(slot, PROBE_MEM))
+            record["copy_probe"]["order"] = dict(ms=order_ms, n=n)
+            print(f"copy_probe's order alone (one cluster of 8 blocks, a "
+                  f"counting sort of {n} copies over {PROBE_MEM} slots): "
+                  f"{order_ms:.4f} ms, the plain version's bits [{gpu}]",
+                  flush=True)
         for route in probe_cuda.ROUTES:
+            for blocks in grids:
+                got = probe_cuda.copy_probe_cuda(ring8, slot, row0, mode, route,
+                                                 blocks)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"copy_probe [{mode} {route}, {blocks} "
+                                       f"blocks] is not exact: max abs diff "
+                                       f"{(got - want).abs().max().item()}")
             for blocks, what in ((1, "one block"), (sms, "one block an SM")):
                 def fn(route=route, blocks=blocks):
                     return probe_cuda.copy_probe_cuda(ring8, slot, row0, mode,
                                                       route, blocks)
-                got = fn()
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise RuntimeError(f"copy_probe [{mode} {route} {what}] is "
-                                       f"not exact: max abs diff "
-                                       f"{(got - want).abs().max().item()}")
                 probe_record(record, "copy_probe", f"{mode} {route}, {what}",
                              0.0, median_ms(fn), plain_ms, bound, gpu,
-                             f" (exact); {n} copies, ring of {depth} stage(s) "
-                             f"in {ns} ring(s)")
+                             f" (exact at {grids} blocks); {n} copies, ring "
+                             f"of {depth} stage(s) in {ns} ring(s)")
+            for blocks, label in ((sms, f"{mode} {route}"),
+                                  (1, f"{mode} {route}, one block")):
+                if label in copy_ab:
+                    old, new = (lambda x=x, r=route, b=blocks: c_copy(
+                        x, ring8, slot, row0, mode, r, b) for x in (parent, None))
+                    ab_turns("copy_probe", label, copy_ab[label], old, new,
+                             record, gpu)
     try:
         probe_cuda.copy_probe_cuda(ring8, slot[:8], row0[:8], "tall8")
     except ValueError as err:
@@ -2439,6 +2521,39 @@ def frame_sort_launches(dev, gpu: str, record):
           f"alone (probe phase) [{gpu}]", flush=True)
 
 
+def copy_probe_kernels(dev, gpu: str, record):
+    """The device time of each of copy_probe's three kernels (the order, the
+    copies, the blocks' sum) under torch.profiler, over 20 launches by its C
+    interface in `single` at one block an SM on each route, at the driver's
+    point, into record["copy_probe"]["kernels_us"]. Runs after the profiled
+    phases (nothing is timed after a profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    from devo_tpu_torch.ops import probe
+    from devo_tpu_torch.scripts import probe_desc_wall
+    rows = probe.banded_shape(120, 160)[0] * probe.BWIN
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ring8 = torch.randint(-127, 127, (PROBE_MEM, rows, 128), generator=gen,
+                          device=dev, dtype=torch.int8)
+    slot, row0 = probe_desc_wall.offsets(np.random.default_rng(0), "single",
+                                         COPY_ND, PROBE_MEM, rows, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = ("copy_order_kernel", "copy_probe_kernel", "copy_probe_sum")
+    record["copy_probe"]["kernels_us"] = out = {}
+    for route in ("cp.async", "bulk"):
+        for _ in range(3):
+            c_copy(None, ring8, slot, row0, "single", route, sms)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                c_copy(None, ring8, slot, row0, "single", route, sms)
+            torch.cuda.synchronize()
+        out[route] = {name: sum(e.device_time_total for e in prof.key_averages()
+                                if name in e.key) / 20 for name in names}
+        print(f"copy_probe [single {route}, one block an SM], device us a "
+              f"launch by kernel under torch.profiler: {out[route]} [{gpu}]",
+              flush=True)
+
+
 # the kernels that take one level a launch, once for each level of an update
 PER_LEVEL = ("corr_level", "corr_level_pipe", "corr_group", "corr_fixed",
              "corr_group8", "corr_level_full")
@@ -2584,6 +2699,7 @@ def main(argv=None):
     by_path[G8C_LAUNCHES] = g8c_launch_phase(dev, gpu)
     by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)
     frame_sort_launches(dev, gpu, record)
+    copy_probe_kernels(dev, gpu, record)
 
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
@@ -2607,7 +2723,8 @@ def main(argv=None):
             "variants": rec["variants"],
             **{key: rec[key] for key in ("stages", "parent_ab", "structures",
                                          "surface_instance", "sort", "staged",
-                                         "kernel_alone_ms")
+                                         "kernel_alone_ms", "order",
+                                         "kernels_us")
                if key in rec}})
         if kernels[-1]["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")

@@ -251,8 +251,9 @@ def _load():
         lib.devo_corr_frame_probe_smem.argtypes = [i]
         lib.devo_corr_frame_probe_smem.restype = ctypes.c_longlong
         lib.devo_corr_frame_probe_blocks_per_sm.argtypes = [i] * 2
-        lib.devo_copy_probe.argtypes = ([ptr] * 5 + [ctypes.c_longlong]
-                                        + [i] * 9 + [ptr])
+        lib.devo_copy_probe.argtypes = ([ptr] * 6 + [ctypes.c_longlong]
+                                        + [i] * 10 + [ptr])
+        lib.devo_copy_order.argtypes = [ptr] * 2 + [i] * 2 + [ptr]
         for fn in (lib.devo_corr_fixed, lib.devo_corr_group8,
                    lib.devo_corr_group8_blocks_per_sm,
                    lib.devo_corr_pair_blocks_per_sm,
@@ -272,7 +273,8 @@ def _load():
                    lib.devo_corr_band_ablate,
                    lib.devo_corr_band_ablate_blocks_per_sm,
                    lib.devo_corr_frame_probe,
-                   lib.devo_corr_frame_probe_blocks_per_sm, lib.devo_copy_probe):
+                   lib.devo_corr_frame_probe_blocks_per_sm, lib.devo_copy_probe,
+                   lib.devo_copy_order):
             fn.restype = ctypes.c_int
         lib.devo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.devo_cuda_error_string.restype = ctypes.c_char_p

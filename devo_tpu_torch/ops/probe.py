@@ -162,3 +162,23 @@ def copy_probe(ring, slot, row0, mode: str = "single", colr: int = COLR):
         if S == 2:
             rows = torch.cat([rows, ring[sl + 1, r0]])
     return rows.float().sum(0, keepdim=True)
+
+
+def copy_order(slot, mode: str = "single", blocks: int = 1):
+    """The copy probe's walk of its copies (K14'', csrc/copy_probe.cu):
+    (blocks, ceil(n / blocks)) int32 on slot's device, row b the copies
+    block b makes, in its order, then -1. The copies stably sorted by slot
+    (a pair's first) are dealt to the blocks in turn: block b takes the
+    sorted positions b, b + blocks, b + 2 blocks, ...; "local" copies out of
+    shared memory and deals the copies in their own order. The kernel's
+    scratch is the sorted order itself, the rows interleaved."""
+    copy_plan(mode)
+    n = slot.shape[0]
+    if mode == "local":
+        order = torch.arange(n, device=slot.device)
+    else:
+        order = torch.sort(slot.long(), stable=True).indices
+    k = -(-n // blocks)
+    walk = torch.full((k * blocks,), -1, dtype=torch.int32, device=slot.device)
+    walk[:n] = order
+    return walk.reshape(k, blocks).T.contiguous()

@@ -30,6 +30,7 @@ WINDOW_BLOCKS = 2             # window-kernel blocks an SM
 FRAME_GROUP = 3               # edges of one window corr_frame_probe
                               #   multiplies with one staged chunk
 COPY_MAX_DEPTH = 4            # stages of the copy probe's ring
+COPY_ORDER_MEM = 128          # ring slots the copy probe's order counts
 _COPY_STATIC = 64             # the copy probe's static shared memory (barriers)
 _check = cc._check
 
@@ -213,16 +214,42 @@ def copy_depth(mode: str, colr: int = plain.COLR):
     return depth, ns
 
 
+def copy_launch(lib, ring, slot, row0, mode: str, route: str, blocks: int,
+                colr: int = plain.COLR):
+    """One call of devo_copy_probe of `lib` (csrc/copy_probe.cu or a variant
+    of it built by scripts/bench_copy_variants.py) on checked arguments, at
+    copy_depth's plan, with its scratch: the copies' order (n,) int32 (none
+    for "local") and the blocks' sums. Returns (cudaError_t, out)."""
+    S, M, _ = plain.copy_plan(mode)
+    depth, ns = copy_depth(mode, colr)
+    n, dev = slot.shape[0], ring.device
+    local = mode == "local"
+    order = None if local else torch.empty(n, dtype=torch.int32, device=dev)
+    partial = torch.empty((blocks, _C), dtype=torch.float32, device=dev)
+    out = torch.empty((1, _C), dtype=torch.float32, device=dev)
+    code = lib.devo_copy_probe(
+        ring.data_ptr(), slot.data_ptr(), row0.data_ptr(),
+        None if local else order.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), ring.shape[1] * _C, ring.shape[0], n, blocks, S, M, ns,
+        depth, int(local), colr, int(route == "bulk"), _stream(ring))
+    return code, out
+
+
 def copy_probe_cuda(ring, slot, row0, mode: str = "single",
                     route: str = "cp.async", blocks: int = 1,
                     colr: int = plain.COLR) -> torch.Tensor:
     """Launch csrc/copy_probe.cu: ring (MEM, rows, 128) int8; slot, row0
-    (n,) int32, one entry a copy (row0 a multiple of 8); `blocks` blocks
-    take contiguous runs of the copies. Returns (1, 128) f32, exactly the
-    plain version's (ops/probe.copy_probe)."""
+    (n,) int32, one entry a copy (slot in [0, MEM), row0 a multiple of 8).
+    The copies are sorted by slot on the device (but for "local") and block
+    b of `blocks` makes those at sorted positions b, b + blocks, ...
+    (ops/probe.copy_order). Returns (1, 128) f32, exactly the plain
+    version's (ops/probe.copy_probe)."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     depth, ns = copy_depth(mode, colr)
+    _check(mode == "local" or ring.shape[0] <= COPY_ORDER_MEM,
+           f"the copies' order counts at most {COPY_ORDER_MEM} ring slots, "
+           f"the ring has {ring.shape[0]}")
     if ring.device.type == "cpu":
         return plain.copy_probe(ring, slot, row0, mode, colr)
     S, M, _ = plain.copy_plan(mode)
@@ -239,11 +266,7 @@ def copy_probe_cuda(ring, slot, row0, mode: str = "single",
         _typed(t, name, torch.int32, (n,))
     _check(ring.data_ptr() % 16 == 0, "ring is not 16-byte aligned")
     _check(blocks >= 1, "blocks must be at least 1")
-    partial = torch.empty((blocks, _C), dtype=torch.float32, device=ring.device)
-    out = torch.empty((1, _C), dtype=torch.float32, device=ring.device)
-    code = cc._load().devo_copy_probe(
-        ring.data_ptr(), slot.data_ptr(), row0.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), ring.shape[1] * _C, n, blocks, S, M, ns, depth,
-        int(mode == "local"), colr, int(route == "bulk"), _stream(ring))
+    code, out = copy_launch(cc._load(), ring, slot, row0, mode, route, blocks,
+                            colr)
     cc._launched("copy_probe", code)
     return out

@@ -49,18 +49,24 @@ VARIANTS = {
 }
 
 
-def variant_sources(name: str, dst: Path) -> Path:
-    """Copies SOURCES of this tree into dst with the edit of variant `name`,
-    which must find its text exactly once. Returns dst."""
-    file, old, new, _, _ = VARIANTS[name]
+def variant_sources(name: str, dst: Path, sources=SOURCES,
+                    variants=VARIANTS) -> Path:
+    """Copies `sources` of this tree into dst with the edit of variant
+    `name` of `variants` ({name: (file, text, its replacement, ...)}, or a
+    tuple of texts and one of their replacements for an edit in several
+    places), each text found exactly once in the tree's file. Returns dst."""
+    file, old, new = variants[name][:3]
     dst.mkdir(parents=True, exist_ok=True)
-    for src in SOURCES:
+    for src in sources:
         shutil.copy(corr_cuda.CSRC / src, dst / src)
-    text = (dst / file).read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"variant {name}: {old!r} occurs {text.count(old)} "
-                           f"times in {file}, not once")
-    (dst / file).write_text(text.replace(old, new))
+    tree = text = (dst / file).read_text()
+    edits = (old, new) if isinstance(old, tuple) else ((old,), (new,))
+    for o, w in zip(*edits, strict=True):
+        if tree.count(o) != 1:
+            raise RuntimeError(f"variant {name}: {o!r} occurs {tree.count(o)} "
+                               f"times in {file}, not once")
+        text = text.replace(o, w)
+    (dst / file).write_text(text)
     return dst
 
 

@@ -13,7 +13,9 @@ Modes (default: single pair tall2 tall4 dual quad local):
   dual/quad  single, the copies dealt in turn to 2 / 4 rings of stages
 Each on both copy routes (cp.async: 16 bytes a thread; bulk: one
 cp.async.bulk a contiguous run, waited on an mbarrier), and on one block
-and on one block an SM (contiguous runs of the copies). A run prints the
+and on one block an SM: the kernel sorts the copies by slot and block b of
+G makes those at sorted positions b, b + G, ... ("local" strides over the
+copies in their own order). A run prints the
 mode's ring depth and copies in flight, then per route and block count the
 best and median time of a launch over repeats, each with fresh random
 offsets, and us a copy and GB/s.

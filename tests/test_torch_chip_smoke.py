@@ -193,28 +193,36 @@ def test_split_resident_path_charges_level_1_and_the_resident_level_4():
 
 
 def test_parent_sources_and_what_the_ab_compares():
-    """--parent builds the parent's K13' and K15' with their header beside
-    the kernels that include corr_mma.cuh; the A/B holds K13' / K13'' in
-    every mode on the random layout and K15' / K15'' with and without
-    extraction within TOL, and every kernel on the edge pipeline, K6'' and
-    K11'' among them, to the parent's bits."""
-    for name in ("corr_band_ablate.cu", "corr_frame_probe.cu",
+    """--parent builds the parent's K13'', K15'' and K14' with their headers
+    beside the kernels that include corr_mma.cuh; the A/B holds every kernel
+    on the edge pipeline, K6'' and K11'' among them, and K13'' in every mode
+    on the random layout and K15'' with and without extraction (unchanged
+    since the parent) to the parent's bits, and K14' / K14'' in five modes
+    on both copy routes (and `single` on one block) to the parent's exact
+    output."""
+    for name in ("corr_band_ablate.cu", "corr_frame_probe.cu", "copy_probe.cu",
                  "window_probe.cuh", "corr_level.cu", "corr_level_resident.cu",
                  "corr_pipe.cuh", "corr_mma.cuh", "corr_common.cuh",
                  "corr_level_pipe.cu", "corr_level_full.cu"):
         assert name in chip_smoke.PARENT_SOURCES
     ab = chip_smoke.parent_ab()
     assert len(set(ab)) == len(ab)
-    tol = {(name, label) for name, label, rule in ab if rule == "tol"}
-    assert tol == {("corr_band_ablate", f"random {mode}")
-                   for mode in ("full", "noext", "nomm", "noDMA")} | {
-        ("corr_frame_probe", "extract=True"), ("corr_frame_probe", "extract=False")}
+    assert {rule for _, _, rule in ab} == {"bits"}
     bits = {name for name, _, rule in ab if rule == "bits"}
     assert bits == {"corr_pyramid", "corr_pair", "corr_pair2", "corr_mono2",
                     "corr_mono3", "corr_group", "corr_group8",
                     "corr_level_pipe", "corr_level_full", "corr_level",
-                    "corr_level_resident"}
-    assert {name for name, _ in tol} == set(chip_smoke.PROBE_REPORTED) - {"copy_probe"}
+                    "corr_level_resident", "copy_probe", "corr_band_ablate",
+                    "corr_frame_probe"}
+    assert {label for name, label, _ in ab if name == "corr_band_ablate"} == {
+        f"random {mode}" for mode in ("full", "noext", "nomm", "noDMA")}
+    assert {label for name, label, _ in ab if name == "corr_frame_probe"} == {
+        "extract=True", "extract=False"}
+    assert {label for name, label, _ in ab if name == "copy_probe"} == {
+        f"{mode} {route}" for mode in ("single", "pair", "tall4", "dual", "local")
+        for route in ("cp.async", "bulk")} | {
+        f"single {route}, one block" for route in ("cp.async", "bulk")}
+    assert {name for name, _, _ in ab} >= set(chip_smoke.PROBE_REPORTED)
 
 
 def test_level_structures_put_k6_beside_k7():

@@ -3,7 +3,8 @@ csrc/corr_frame_probe.cu) against their plain versions (ops/probe.py) on
 the card, at small sizes: the banded ablation in every mode on its live
 block (atol 1e-3 + rtol 1e-4: f32 sums of the same products in another
 order), the copy probe in every mode the card holds, on both copy routes
-and on 1, 3 and 200 blocks, exactly (integer sums below 2^24), and the
+and on 1, 7, 132 and 200 blocks, exactly (integer sums below 2^24), with
+its order of the copies against the plain version's bit for bit, and the
 one-frame window product with and without extraction (the same tolerance).
 Then the window kernels' plan (ops/probe_cuda.window_plan) against their
 own shared-memory and occupancy queries in every mode, their bits at two
@@ -54,21 +55,55 @@ def test_band_ablate_kernel(dev, mode):
     torch.testing.assert_close(got, probe.band_ablate(*args, mode)[:64], **TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("route", probe_cuda.ROUTES)
-@pytest.mark.parametrize("mode", [m for m in probe.COPY_MODES if m != "tall8"])
-def test_copy_probe_kernel(dev, mode, route):
+def _copy_case(dev, mode, slots, mem=4):
+    """A ring of `mem` slots and the (slot, row0) of copy_count(mode, 101)
+    copies, a number no grid of the tests divides: random slots, all in slot
+    0, or all in the last slot that holds the mode's copy."""
     rng = np.random.default_rng(1)
     S, M, _ = probe.copy_plan(mode)
-    n = probe.copy_count(mode, 96)
-    ring = torch.from_numpy(rng.integers(-127, 127, (4, 4200, 128)).astype(np.int8)).to(dev)
-    slot = torch.from_numpy(rng.integers(0, 4 - (S - 1), n).astype(np.int32)).to(dev)
-    row0 = torch.from_numpy((rng.integers(0, (4200 - M * 384 - 8) // 8, n) * 8)
-                            .astype(np.int32)).to(dev)
+    n = probe.copy_count(mode, 101)
+    ring = torch.from_numpy(rng.integers(-127, 127, (mem, 4200, 128)).astype(np.int8)).to(dev)
+    slot = {"random": rng.integers(0, mem - (S - 1), n),
+            "one slot": np.zeros(n, np.int64),
+            "last slot": np.full(n, mem - S)}[slots].astype(np.int32)
+    row0 = (rng.integers(0, (4200 - M * 384 - 8) // 8, n) * 8).astype(np.int32)
+    return ring, torch.from_numpy(slot).to(dev), torch.from_numpy(row0).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", ["random", "one slot", "last slot"])
+@pytest.mark.parametrize("route", probe_cuda.ROUTES)
+@pytest.mark.parametrize("mode", [m for m in probe.COPY_MODES if m != "tall8"])
+def test_copy_probe_kernel(dev, mode, route, slots):
+    """K14'' exactly the plain version's at 1, 7, 132 and 200 blocks (more
+    blocks than copies at 132 and 200)."""
+    ring, slot, row0 = _copy_case(dev, mode, slots)
     want = probe.copy_probe(ring, slot, row0, mode)
-    for blocks in (1, 3, 200):
+    for blocks in (1, 7, 132, 200):
         assert torch.equal(probe_cuda.copy_probe_cuda(ring, slot, row0, mode, route,
                                                       blocks), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", ["random", "one slot", "last slot"])
+@pytest.mark.parametrize("n,mem", [(101, 4), (9600, 32), (5000, 128), (0, 32),
+                                   (200000, 32), (150000, 128)])
+def test_copy_order_kernel(dev, n, mem, slots):
+    """The order's scratch (devo_copy_order) is the plain copy_order's sorted
+    order bit for bit, and the C interface refuses more ring slots than it
+    counts. At 150,000 and 200,000 copies a warp of the order has more
+    tiles than it holds in registers, and its second pass reloads them."""
+    import chip_smoke
+    from devo_tpu_torch.ops import corr_cuda
+    rng = np.random.default_rng(n)
+    slot = {"random": rng.integers(0, mem, n), "one slot": np.zeros(n, np.int64),
+            "last slot": np.full(n, mem - 1)}[slots]
+    slot = torch.from_numpy(slot.astype(np.int32)).to(dev)
+    got = chip_smoke.c_copy_order(slot, mem)
+    assert torch.equal(got, probe.copy_order(slot, "single")[0])
+    code = corr_cuda._load().devo_copy_order(slot.data_ptr(), got.data_ptr(), n,
+                                             probe_cuda.COPY_ORDER_MEM + 1, None)
+    assert code != 0
 
 
 @pytest.mark.cuda

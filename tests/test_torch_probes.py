@@ -43,7 +43,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from devo_tpu_torch.ops import corr_cuda, probe, probe_cuda
-from devo_tpu_torch.scripts import bench_window_variants
+from devo_tpu_torch.scripts import bench_copy_variants, bench_window_variants
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(atol=2e-4, rtol=1e-4)
@@ -373,6 +373,81 @@ def test_copy_probe_plan():
     assert probe_cuda.copy_probe_cuda(ring, idx, idx, "pair").shape == (1, 128)
 
 
+def _slots(n, mem, seed=4):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, mem, n)
+                            .astype(np.int32))
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 132, 200])
+@pytest.mark.parametrize("mode", ["single", "pair", "local"])
+def test_copy_order_walks_each_copy_once(mode, blocks):
+    """K14''s walk: every copy appears exactly once over the blocks' rows,
+    -1 pads the rows past their last copy (101 copies: no multiple of any
+    grid), and every block but the last ones has ceil(n / blocks)."""
+    slot = _slots(101, 32)
+    walk = probe.copy_order(slot, mode, blocks)
+    assert walk.dtype == torch.int32 and walk.shape == (blocks, -(-101 // blocks))
+    made = walk[walk >= 0]
+    np.testing.assert_array_equal(np.sort(made.numpy()), np.arange(101))
+    counts = (walk >= 0).sum(1).numpy()
+    assert counts.sum() == 101 and counts.max() - counts.min() <= 1
+    assert (np.diff(counts) <= 0).all()
+
+
+@pytest.mark.parametrize("slots", ["random", "one slot", "last slot"])
+def test_copy_order_is_slot_major_and_stable(slots):
+    """The positions in order (the blocks' rows interleaved, the kernel's
+    scratch) sort the copies by slot, ties in their own order: all in slot
+    0, all in the last slot, and random slots."""
+    slot = {"random": _slots(300, 32), "one slot": torch.zeros(300, dtype=torch.int32),
+            "last slot": torch.full((300,), 31, dtype=torch.int32)}[slots]
+    order = probe.copy_order(slot, "single", 1)[0].numpy()
+    np.testing.assert_array_equal(order, np.argsort(slot.numpy(), kind="stable"))
+    key = slot.numpy()[order]
+    assert (np.diff(key) >= 0).all()
+    ties = np.diff(key) == 0
+    assert (np.diff(order)[ties] > 0).all()
+
+
+@pytest.mark.parametrize("blocks", [7, 132, 200])
+def test_copy_order_deals_sorted_positions_to_blocks(blocks):
+    """Block b takes the sorted positions b, b + G, b + 2G, ... (G blocks):
+    its row is the sorted order's entries at the positions = b (mod G)."""
+    slot = _slots(1000, 32)
+    order = np.argsort(slot.numpy(), kind="stable")
+    walk = probe.copy_order(slot, "dual", blocks).numpy()
+    for b in range(blocks):
+        mine = order[b::blocks]
+        np.testing.assert_array_equal(walk[b, :mine.size], mine)
+        assert (walk[b, mine.size:] == -1).all()
+
+
+def test_copy_order_keys_a_pair_on_its_first_slot():
+    """A pair's copy spans slots s and s + 1 and is sorted by s; "local"
+    keeps the copies' own order (it reads shared memory, no sort)."""
+    slot = _slots(64, 31)
+    want = np.argsort(slot.numpy(), kind="stable")
+    np.testing.assert_array_equal(probe.copy_order(slot, "pair")[0].numpy(), want)
+    np.testing.assert_array_equal(probe.copy_order(slot + 1, "pair")[0].numpy(), want)
+    np.testing.assert_array_equal(probe.copy_order(slot, "local")[0].numpy(),
+                                  np.arange(64))
+    with pytest.raises(ValueError, match="unknown copy mode"):
+        probe.copy_order(slot, "wide")
+
+
+def test_copy_probe_refuses_a_ring_its_order_cannot_count():
+    """The order counts at most COPY_ORDER_MEM ring slots: a ring of more is
+    refused on either device, but for "local", which sorts nothing."""
+    mem = probe_cuda.COPY_ORDER_MEM + 1
+    ring = torch.zeros((mem, 1100, 128), dtype=torch.int8)
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"at most {probe_cuda.COPY_ORDER_MEM}"):
+        probe_cuda.copy_probe_cuda(ring, idx, idx, "single")
+    assert probe_cuda.copy_probe_cuda(ring, idx, idx, "local", colr=1024).shape == (1, 128)
+    small = ring[:probe_cuda.COPY_ORDER_MEM]
+    assert probe_cuda.copy_probe_cuda(small, idx, idx, "single").shape == (1, 128)
+
+
 # ---------------------------------------------------------------- drivers
 
 def _main(name, argv):
@@ -477,3 +552,34 @@ def test_window_variants_need_the_card():
         bench_window_variants.main(["--device", "cpu"])
     with pytest.raises(SystemExit):
         bench_window_variants.main(["--device", "cpu", "--variants", "g4"])
+
+
+@pytest.mark.parametrize("name", sorted(bench_copy_variants.VARIANTS))
+def test_copy_variant_sources(name, tmp_path):
+    """Each variant of bench_copy_variants is this tree's copy-probe sources
+    with its edits (the edited file differs by the replacements alone, each
+    text found once in the tree), and changes a copy route the probe has."""
+    file, old, new, routes = bench_copy_variants.VARIANTS[name]
+    edits = (zip(old, new, strict=True) if isinstance(old, tuple)
+             else [(old, new)])
+    dst = bench_copy_variants.variant_sources(name, tmp_path)
+    for src in bench_copy_variants.SOURCES:
+        tree = want = (corr_cuda.CSRC / src).read_text()
+        if src == file:
+            for o, w in edits:
+                assert tree.count(o) == 1
+                want = want.replace(o, w)
+        assert (dst / src).read_text() == want
+    assert (dst / file).read_text() != (corr_cuda.CSRC / file).read_text()
+    assert routes and set(routes) <= set(probe_cuda.ROUTES)
+
+
+def test_copy_variants_need_the_card():
+    """The variants are built by nvcc and timed on the card: on the CPU the
+    script exits with a message; an unknown variant or "local" (which the
+    variants do not change) is refused."""
+    with pytest.raises(SystemExit, match="needs the card"):
+        bench_copy_variants.main(["--device", "cpu"])
+    for argv in (["--variants", "ticket2"], ["--modes", "local"]):
+        with pytest.raises(SystemExit):
+            bench_copy_variants.main(["--device", "cpu"] + argv)
