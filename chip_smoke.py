@@ -1,6 +1,10 @@
 """Smoke run of devo_tpu_torch on one CUDA GPU.
 
     python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py --reference LABEL[:KEY=VALUE,...] [--reference ...]
+
+The second form builds the kernels and runs the reference phase (4 below)
+alone, on the named entries of REFERENCE with VOConfig overrides.
 
 1. Prints the card (`nvidia-smi` name and power limit) and the torch / CUDA
    versions.
@@ -64,7 +68,7 @@
    interface) and through its wrapper, and the wrapper's sort and search
    timed apart from the kernel.
    With --parent DIR, a directory holding the parent commit's files of
-   PARENT_SOURCES (K14' copy_probe.cu, K13'' corr_band_ablate.cu and K15''
+   PARENT_SOURCES (K14'' copy_probe.cu, K13'' corr_band_ablate.cu and K15''
    corr_frame_probe.cu with their header window_probe.cuh, the kernels that
    include corr_mma.cuh beside them, and the headers corr_pipe.cuh,
    corr_common.cuh, corr_mma.cuh, from `git archive` of the parent), those
@@ -79,9 +83,8 @@
    bit for bit; in the probe phase, on its inputs, corr_band_ablate in
    every mode on the `random` layout and corr_frame_probe with and without
    extraction, at this tree's plan and edge order, to the parent's bits,
-   and copy_probe (K14', redesigned since) in five modes on both copy
-   routes at one block an SM and in `single` on one block, whose output
-   must be the parent's exactly.
+   and copy_probe in five modes on both copy routes at one block an SM and
+   in `single` on one block, whose output must be the parent's exactly.
    Probe phase: the three probe kernels (ops/probe_cuda.py) against their
    plain versions (ops/probe.py) at their drivers' shapes, each timed beside
    its bound. First the window kernels' plan (ops/probe_cuda.window_plan)
@@ -117,8 +120,16 @@
    the CPU (plain correlation; the CPU tests hold that path against the JAX
    package) at a small f32 size, for unquantised rings on every kernel
    choice and family (CORR_IMPL "pallas", "window", "gather") and for the
-   int8 configurations: the same keyframes, culls and edge sets per frame,
-   and poses and terminate() output within the stated tolerance.
+   int8 configurations, and for the frame input with the random selector
+   (3-channel 0-255 frames, the selector's coordinates handed to both
+   engines) and the gradient selector (top-k): the same keyframes, culls,
+   edge sets and new patch coordinates per frame, and poses and
+   terminate() output (before and after the 12 extra updates) within one
+   bound for every configuration: the stated tolerance, or twice the
+   CPU's own spread where that is larger. The spread is the largest gap of
+   the CPU port from itself with one input moved by one ulp (frames up,
+   frames down, weights, depth draws): under random weights the frame and
+   gradient trajectories amplify rounding that far on the CPU alone.
    Determinism phase: BA's system (ops/ba.assemble) at E = 12288 on the
    card assembled twice from the same inputs, bitwise equal, and timed
    beside the index_add_ sums it replaced; then the i8-mono and bf16-gather
@@ -149,10 +160,16 @@
    devo_tpu_torch.eval.harness.evaluate_sequence with EVAL_CONFIGS["eds"]
    (bf16 rings) and CORR_KERNEL="pair", then with int8 rings and
    CORR_KERNEL="pair2", then with CORR_IMPL="pallas" (bf16 rings,
-   corr_fixed): random weights from seed 0, an in-memory iterator
+   corr_fixed), then with the gradient selector (bf16 rings, K1, one
+   trial): random weights from seed 0 (a network without the scorer where
+   the selector is not the scorer), an in-memory iterator
    of 48 frames of the same texture with intrinsics and timestamps, a
    straight-line ground truth, two trials on one cached engine, TUM dumps
-   and a results JSON under chiprun_out/. It must hold one engine per
+   and a results JSON under OUT_DIR. Then the frame-input path
+   (frames-rgb-random): the frame drivers' configuration
+   (eval/frames.frame_config: EVS=False, 3 channels, the random selector,
+   bf16 rings, K1) over 48 frames of the texture's first three bins mapped
+   onto 0-255, from memory (the card's machine has no cv2), one trial. It must hold one engine per
    configuration, as many poses from trial 0 as from a fresh engine, finite
    ATE / MPE / R_rmse that the independent ATE cross-check confirms, the
    artifacts on disk, one launch of the configuration's kernel per
@@ -167,7 +184,12 @@
    the same warm-up rule, then the no-cull maximum-load point with the
    default kernel. Each prints the bench's JSON line and must reach its
    operating point, end with a finite pose per frame, and show launches > 0
-   of the kernel it names, of no other, and no plain-correlation call. The
+   of the kernel it names, of no other, and no plain-correlation call.
+   Train pieces phase (train_pieces_phase), no timing and no kernel of its
+   own: ops/corr.corr_pyramid_train's forward at E = 12288 is the plain
+   corr_pyramid's bits and within TOL of K1; its backward with the keep
+   mask passed in, and the differentiable BA step's outputs and gradients
+   (ops/ba.gauss_newton_step_diff), on the card against the CPU. The
    profiled path of phase 5 runs after this one, then the g8c launch count
    (the int8 g8c configuration, 8 frames under torch.profiler after 24:
    kernel launches a frame, corr_group once a level and update, no
@@ -185,6 +207,7 @@ launch or check raises and exits non-zero.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -272,15 +295,22 @@ PATHS = {
 # card: the tensor paths their own, every kernel none
 TENSOR_PATH = {"window": "window_calls", "gather": "gather_calls"}
 PROFILED = "i8-split-resident"
-# the two configurations of the eval phase, on EVAL_CONFIGS["eds"]: VOConfig
-# overrides and the kernel each must launch
+# the configurations of the eval phase, on EVAL_CONFIGS["eds"]: VOConfig
+# overrides, the kernel each must launch, and its trials (a second trial
+# resets the cached engine)
 EVAL_PATHS = {
-    "eval-eds-bf16-pair": (dict(CORR_KERNEL="pair"), "corr_pair"),
+    "eval-eds-bf16-pair": (dict(CORR_KERNEL="pair"), "corr_pair", 2),
     "eval-eds-i8-pair2": (dict(CORR_KERNEL="pair2", CORR_RING_I8=True),
-                          "corr_pair2"),
-    "eval-eds-bf16-pallas": (dict(CORR_IMPL="pallas"), "corr_fixed"),
+                          "corr_pair2", 2),
+    "eval-eds-bf16-pallas": (dict(CORR_IMPL="pallas"), "corr_fixed", 2),
+    "eval-eds-bf16-gradient": (dict(PATCH_SELECTOR="gradient"),
+                               "corr_pyramid", 1),
 }
-EVAL_TRIALS = 2
+# the frame-input path: evaluate_sequence in the frame drivers' configuration
+# (eval/frames.frame_config: EVS=False, 3 channels, the random selector, the
+# eval base's bf16 rings) over 3-channel 0-255 frames; overrides, kernel and
+# trials as above
+FRAME_PATHS = {"frames-rgb-random": (dict(), "corr_pyramid", 1)}
 OUT_DIR = "chiprun_out/eval_smoke"
 # the runs of the bench phase: VOConfig overrides, whether the run has the
 # bench's full length (else 4 windows of 28 frames), the kernel it must
@@ -959,8 +989,7 @@ PARENT_SOURCES = ("corr.cu", "corr_pair.cu", "corr_pair2.cu", "corr_mono2.cu",
 def parent_library(parent_dir: str):
     """The parent commit's kernels of PARENT_SOURCES built from parent_dir (a
     copy of them and their headers) into a library of their own, with the
-    parent's C interfaces: those of this tree, but copy_probe's, which
-    takes no order scratch and no ring slots (c_copy)."""
+    parent's C interfaces, which are this tree's."""
     import ctypes
     from pathlib import Path
     from devo_tpu_torch.ops import corr_cuda
@@ -984,7 +1013,7 @@ def parent_library(parent_dir: str):
     lib.devo_corr_level_resident.argtypes = [ptr] * 9 + [i] * 9 + [ptr]
     lib.devo_corr_band_ablate.argtypes = [ptr] * 9 + [i] * 6 + [ptr]
     lib.devo_corr_frame_probe.argtypes = [ptr] * 8 + [i] * 5 + [ptr] * 2
-    lib.devo_copy_probe.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i] * 9 + [ptr]
+    lib.devo_copy_probe.argtypes = [ptr] * 6 + [ctypes.c_longlong] + [i] * 10 + [ptr]
     for fn in (lib.devo_corr_pyramid, lib.devo_corr_pair, lib.devo_corr_group,
                lib.devo_corr_mono2, lib.devo_corr_mono3, lib.devo_corr_pair2,
                lib.devo_corr_group8, lib.devo_corr_level_pipe,
@@ -1047,9 +1076,9 @@ def parent_ab():
     the edge pipeline on int8 and bf16 rings (K9'', K10'' on bf16 rings
     alone, K10'' also at level 1 on f32), K13'' in every mode on the
     `random` layout and K15'' with and without extraction, to the parent's
-    bits; and K14' / K14'' (the copy probe, redesigned since) in
-    COPY_AB_MODES on both copy routes at one block an SM, and `single` on
-    one block, to the parent's exact output."""
+    bits; and K14'' (the copy probe) in COPY_AB_MODES on both copy routes
+    at one block an SM, and `single` on one block, to the parent's exact
+    output."""
     from devo_tpu_torch.ops.probe import ABLATE_MODES
     from devo_tpu_torch.ops.probe_cuda import ROUTES
     out = []
@@ -1403,6 +1432,11 @@ def profile_frames(slam, stream, intr, gpu: str):
 
 
 REF_HT, REF_WD, REF_FRAMES = 64, 64, 18
+# the reference phase's small configuration, under each entry of REFERENCE
+REF_BASE = dict(BUFFER_SIZE=32, HT=REF_HT, WD=REF_WD, PATCHES_PER_FRAME=4,
+                PATCH_LIFETIME=5, REMOVAL_WINDOW=9, OPTIMIZATION_WINDOW=4,
+                MOTION_PROBE_THRESH=-1.0, MEM=16, DIM_INET=32, DIM_FNET=16,
+                DIM=8, MIXED_PRECISION=False, SCORER_EVAL_MODE="topk")
 # the configurations of the reference phase: unquantised rings and int8
 # rings, on every kernel choice
 REFERENCE = {
@@ -1432,11 +1466,51 @@ REFERENCE = {
     "f32 rings gather": dict(CORR_IMPL="gather"),
     "f32 rings g8": dict(CORR_RING_I8=False, CORR_KERNEL="g8"),
     "f32 rings full": dict(CORR_RING_I8=False, CORR_KERNEL="full"),
+    # the frame input (3-channel 0-255 frames) with the random selector,
+    # whose coordinates both engines are handed, as the frame drivers
+    # configure it (eval/frames.frame_config); the gradient selector
+    "f32 rings frames random": dict(
+        CORR_RING_I8=False, EVS=False, BINS=3, PATCH_SELECTOR="random",
+        NORM="none", SCORER_EVAL_USE_GRID=False, OPTIMIZATION_WINDOW=15,
+        KEYFRAME_THRESH=15.0),
+    "f32 rings gradient topk": dict(CORR_RING_I8=False,
+                                    PATCH_SELECTOR="gradient"),
 }
 # pose atol: float noise compounds over the 12-update initialization and the
 # per-frame BA; with int8 rings a feature that rounds the other way on the
 # card moves a tap by one step of the ring's scale
 REF_TOL = {False: 5e-2, True: 0.1}
+# the CPU's own spread: the CPU port run again with one of its inputs moved
+# by one ulp (every nonzero frame value, every weight, or every depth draw).
+# Where a trajectory amplifies rounding, the card cannot be held closer to
+# the CPU than the CPU is to itself: at every point compared the card's
+# poses lie within max(REF_TOL, REF_SPREAD x the largest of these gaps)
+REF_MOVES = {"frames +1 ulp": ("frames", np.inf),
+             "frames -1 ulp": ("frames", -np.inf),
+             "weights +1 ulp": ("weights", np.inf),
+             "depths +1 ulp": ("depths", np.inf)}
+REF_SPREAD = 2.0
+# the spreads measured in this run, by the bits of the CPU run (reference_phase)
+REF_SPREADS = {}
+
+
+def ulp_move(a: np.ndarray, toward: float) -> np.ndarray:
+    """Every nonzero entry of a float32 array moved one ulp toward `toward`
+    (+-inf); zeros stay, so sparse voxels keep their events."""
+    return np.where(a != 0, np.nextafter(a, np.float32(toward)), a).astype(
+        np.float32)
+
+
+def reference_knobs(spec: str) -> dict:
+    """'LABEL[:KEY=VALUE,...]' -> REFERENCE[LABEL] with the overrides, the
+    values read as Python literals (chip_smoke.py --reference)."""
+    import ast
+    label, _, sets = spec.partition(":")
+    knobs = dict(REFERENCE[label])
+    for item in filter(None, sets.split(",")):
+        key, value = item.split("=")
+        knobs[key.strip()] = ast.literal_eval(value.strip())
+    return knobs
 
 
 def reference_phase(dev, gpu: str, label: str, knobs: dict):
@@ -1444,8 +1518,14 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     CPU convolutions and sums), which the repo's CPU tests hold against the
     JAX package: a small f32 configuration with deterministic top-k patch
     selection and the same injected depth draws, over frames of a sliding
-    texture. Per frame the same keyframe count, cull decision and (kk, jj)
-    edge set, poses within REF_TOL; then the same terminate() output."""
+    texture. Per frame the same keyframe count, cull decision, (kk, jj)
+    edge set and new patch coordinates, poses within the bound; then the
+    same terminate() timestamps and poses within the bound, before and
+    after N_UPDATES extra updates. The bound at each point: max(REF_TOL,
+    REF_SPREAD x the CPU's own spread there, REF_MOVES). With EVS=False the
+    frames are 3-channel 0-255 images of a sliding texture, and the random
+    selector's coordinates are drawn once and handed to every engine, as
+    the depths are."""
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
@@ -1453,58 +1533,119 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     from devo_tpu_torch.runtime.engine import DEVO, ring_i8
     from devo_tpu_torch.utils.params import random_state_dict
 
-    cfg = VOConfig(BUFFER_SIZE=32, HT=REF_HT, WD=REF_WD, PATCHES_PER_FRAME=4,
-                   PATCH_LIFETIME=5, REMOVAL_WINDOW=9, OPTIMIZATION_WINDOW=4,
-                   MOTION_PROBE_THRESH=-1.0, MEM=16, DIM_INET=32, DIM_FNET=16,
-                   DIM=8, MIXED_PRECISION=False, SCORER_EVAL_MODE="topk",
-                   **knobs)
+    cfg = VOConfig(**{**REF_BASE, **knobs})
     tol = REF_TOL[ring_i8(cfg)]
     weights = random_state_dict(
-        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=1)
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS,
+               patch_selector=cfg.PATCH_SELECTOR), seed=1)
     rng = np.random.default_rng(1)
-    base = rng.standard_normal((REF_HT, 2 * REF_WD, 5)).astype(np.float32)
-    base *= rng.random(base.shape) < 0.15
+    if cfg.EVS:
+        base = rng.standard_normal((REF_HT, 2 * REF_WD, 5)).astype(np.float32)
+        base *= rng.random(base.shape) < 0.15
+    else:
+        base = (rng.random((REF_HT, 2 * REF_WD, 3)) * 255).astype(np.float32)
     depths = rng.random((REF_FRAMES, cfg.M, 1)).astype(np.float32)
     intr = np.asarray([80.0, 80.0, REF_WD / 2, REF_HT / 2], np.float32)
+    # the random selector's patch centres, inside [1, w-2] x [1, h-2]
+    pick = np.random.default_rng(2)
+    centres = [(pick.integers(1, REF_WD // 4 - 1, (1, cfg.M)),
+                pick.integers(1, REF_HT // 4 - 1, (1, cfg.M)))
+               for _ in range(REF_FRAMES)]
 
-    engines = {d.type: DEVO(cfg, weights, ht=REF_HT, wd=REF_WD, device=d)
-               for d in (torch.device("cpu"), dev)}
-    corr_cuda.reset_launches()
-    corr_plain.window_calls = corr_plain.gather_calls = 0
-    culls = 0
-    for i in range(REF_FRAMES):
-        vox = base[:, 3 * i:3 * i + REF_WD]
-        for d, slam in engines.items():
-            slam._draw_depth = lambda i=i, d=d: torch.from_numpy(depths[i]).to(d)
-            slam(i / 30.0, vox, intr)
-        ref, got = engines["cpu"], engines[dev.type]
-        if (got.n != ref.n or got.aux_log[-1][1].kf_removed
-                != ref.aux_log[-1][1].kf_removed):
-            raise RuntimeError(f"reference {label} frame {i}: n {got.n} vs "
-                               f"{ref.n}, cull {got.aux_log[-1][1].kf_removed} "
-                               f"vs {ref.aux_log[-1][1].kf_removed}")
-        edges = [set(zip(s.kk.tolist(), s.jj.tolist())) for s in (got, ref)]
-        if edges[0] != edges[1]:
-            raise RuntimeError(f"reference {label} frame {i}: edge tables differ")
-        err = (got.poses[:got.n].cpu() - ref.poses[:ref.n]).abs().max().item()
-        if not err <= tol:
-            raise RuntimeError(f"reference {label} frame {i}: poses differ by {err}")
-        culls += ref.aux_log[-1][1].kf_removed
-    for slam in engines.values():
+    cpu = torch.device("cpu")
+
+    def drive(d, w, b, dp):
+        """One engine over the frames: per frame (n, cull, edge set, new
+        patch coordinates, poses), then terminate() before and after
+        N_UPDATES updates, and whether it kept level 4 resident."""
+        slam = DEVO(cfg, w, ht=REF_HT, wd=REF_WD, device=d)
+        seen, patchify = [], slam.net.run_patchify
+
+        def record(*args, **kw):
+            out = patchify(*args, **kw)
+            seen.append(out["coords"].cpu().clone())
+            return out
+        slam.net.run_patchify = record
+        frames = []
+        for i in range(REF_FRAMES):
+            slam._draw_depth = lambda i=i: torch.from_numpy(dp[i]).to(d)
+            slam._draw_coords = lambda i=i: tuple(
+                torch.from_numpy(c).to(d) for c in centres[i])
+            slam(i / 30.0, b[:, 3 * i:3 * i + REF_WD], intr)
+            frames.append((slam.n, slam.aux_log[-1][1].kf_removed,
+                           set(zip(slam.kk.tolist(), slam.jj.tolist())),
+                           seen[-1], slam.poses[:slam.n].cpu().numpy().copy()))
+        ends = [slam.terminate()]
         for _ in range(N_UPDATES):
             slam.update()
-    (p_got, t_got), (p_ref, t_ref) = (engines[dev.type].terminate(),
-                                      engines["cpu"].terminate())
-    err = float(np.abs(p_got - p_ref).max())
+        ends.append(slam.terminate())
+        return frames, ends, slam.l4_resident
+
+    def points(run):
+        """The poses compared: at every frame, at terminate() before and
+        after the updates."""
+        frames, ends, _ = run
+        return [f[4] for f in frames] + [p for p, _ in ends]
+
+    def gap(a, b):                   # over the frames both hold
+        k = min(len(a), len(b))
+        return float(np.abs(a[:k] - b[:k]).max())
+
+    t0 = time.perf_counter()
+    corr_cuda.reset_launches()
+    corr_plain.window_calls = corr_plain.gather_calls = 0
+    got = drive(dev, weights, base, depths)
+    ref = drive(cpu, weights, base, depths)
+    for i, (g, r) in enumerate(zip(got[0], ref[0])):
+        if g[:2] != r[:2]:
+            raise RuntimeError(f"reference {label} frame {i}: n {g[0]} vs "
+                               f"{r[0]}, cull {g[1]} vs {r[1]}")
+        if g[2] != r[2]:
+            raise RuntimeError(f"reference {label} frame {i}: edge tables differ")
+        if not torch.equal(g[3], r[3]):
+            raise RuntimeError(f"reference {label} frame {i}: the new patches' "
+                               f"coordinates differ")
+    culls = sum(r[1] for r in ref[0])
+    # the CPU's own spread; a configuration whose CPU run gives an earlier
+    # one's bits from the same inputs runs the same CPU computation (the
+    # kernel choices differ on the card alone) and has its spread
+    key = hashlib.sha256(b"".join(a.tobytes() for a in points(ref))).digest()
+    if key not in REF_SPREADS:
+        moved = []
+        for what, toward in REF_MOVES.values():
+            w, b, dp = weights, base, depths
+            if what == "weights":
+                w = {k: torch.from_numpy(ulp_move(v.numpy(), toward))
+                     if v.is_floating_point() else v for k, v in weights.items()}
+            elif what == "frames":
+                b = ulp_move(base, toward)
+            else:
+                dp = ulp_move(depths, toward)
+            moved.append(points(drive(cpu, w, b, dp)))
+        REF_SPREADS[key] = [max(gap(m[j], r) for m in moved)
+                            for j, r in enumerate(points(ref))]
+    spreads = REF_SPREADS[key]
+    gaps = [gap(g, r) for g, r in zip(points(got), points(ref))]
+    for j, (err, spread) in enumerate(zip(gaps, spreads)):
+        if not err <= max(tol, REF_SPREAD * spread):
+            where = (f"frame {j}" if j < REF_FRAMES else "terminate() "
+                     + ("before" if j == REF_FRAMES else "after") + " the updates")
+            raise RuntimeError(f"reference {label} {where}: poses differ by "
+                               f"{err} (CPU spread {spread})")
+    for (p_got, t_got), (_, t_ref) in zip(got[1], ref[1]):
+        if not (np.array_equal(t_got, t_ref) and np.isfinite(p_got).all()):
+            raise RuntimeError(f"reference {label}: terminate() outputs differ")
+    worst = max(range(REF_FRAMES), key=lambda j: gaps[j])
     print(f"reference [{label}]: port on {dev.type} vs port on cpu, "
           f"{REF_HT}x{REF_WD}, {REF_FRAMES} frames + {N_UPDATES} updates: same "
-          f"keyframes, culls ({culls}) and edge sets; terminate() poses max abs "
-          f"diff {err:.3e} (atol {tol}); kernel launches "
-          f"{corr_cuda.launches}; resident level 4: "
-          f"{engines[dev.type].l4_resident} [{gpu}]", flush=True)
-    if not (err <= tol and np.array_equal(t_got, t_ref)
-            and np.isfinite(p_got).all()):
-        raise RuntimeError(f"reference {label}: terminate() outputs differ")
+          f"keyframes, culls ({culls}), edge sets and patch coordinates; poses "
+          f"max abs diff (CPU spread under {len(REF_MOVES)} one-ulp moves): "
+          f"frames {gaps[worst]:.3e} ({max(spreads[:REF_FRAMES]):.3e}), "
+          f"terminate() before the updates {gaps[-2]:.3e} ({spreads[-2]:.3e}), "
+          f"after {gaps[-1]:.3e} ({spreads[-1]:.3e}); bound max({tol}, "
+          f"{REF_SPREAD:g} x spread); kernel launches {corr_cuda.launches}; "
+          f"resident level 4: {got[2]}; {time.perf_counter() - t0:.1f} s "
+          f"[{gpu}]", flush=True)
     if culls < 1:
         raise RuntimeError(f"reference {label}: no keyframe cull happened")
     path = TENSOR_PATH.get(cfg.CORR_IMPL)
@@ -1677,26 +1818,38 @@ def bench_phase(dev, gpu: str, label: str):
     return launches, engine_state_check(slam, label, gpu)
 
 
+def rgb_stream(n: int):
+    """n frames of the bench's sliding texture as 3-channel intensity
+    frames, (3, H, W) f32 in 0-255: its first three bins mapped linearly
+    from their range onto 0-255. Read from memory: the card's machine has
+    no cv2 to read image files."""
+    from devo_tpu_torch.bench import frame, texture
+    base = texture(HT, WD)[..., :3]
+    lo, hi = float(base.min()), float(base.max())
+    base = np.clip((base - lo) * (255.0 / (hi - lo)), 0, 255).astype(np.float32)
+    return [np.ascontiguousarray(frame(base, i).transpose(2, 0, 1))
+            for i in range(n)]
+
+
 def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
-    """One configuration of EVAL_PATHS through evaluate_sequence at full
-    width. `stream`: the frames as (bins, H, W) arrays. Returns (launches of
-    each kernel during evaluate_sequence, max error of the configuration's
-    kernel on the engine's final state)."""
+    """One configuration of EVAL_PATHS or FRAME_PATHS through
+    evaluate_sequence at full width. `stream`: the frames as (bins, H, W)
+    arrays. Returns (launches of each kernel during evaluate_sequence, max
+    error of the configuration's kernel on the engine's final state)."""
     import os
 
-    from devo_tpu_torch.bench import frames
     from devo_tpu_torch.eval import harness
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
-    from devo_tpu_torch.runtime.config import EVAL_CONFIGS
     from devo_tpu_torch.utils.params import random_state_dict
 
-    knobs, kernel = EVAL_PATHS[label]
+    _, kernel, trials = {**EVAL_PATHS, **FRAME_PATHS}[label]
     # random weights reject every frame at the learned motion probe
-    cfg = EVAL_CONFIGS["eds"].replace(MOTION_PROBE_THRESH=-1.0, **knobs)
+    cfg = path_config(label).replace(MOTION_PROBE_THRESH=-1.0)
     weights = random_state_dict(
-        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=0)
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS,
+               patch_selector=cfg.PATCH_SELECTOR), seed=0)
     n = len(stream)
     intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
     tss = np.arange(n, dtype=np.float64) / 30.0
@@ -1722,7 +1875,7 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     corr_plain.calls = 0
     med, results, fps = harness.evaluate_sequence(
         cfg, weights, make_iterator, traj_gt=gt, tss_gt=tss,
-        trials=EVAL_TRIALS, ht=HT, wd=WD, max_diff_s=0.01, outdir=OUT_DIR,
+        trials=trials, ht=HT, wd=WD, max_diff_s=0.01, outdir=OUT_DIR,
         name=label, engine_cache=engine_cache)
     torch.cuda.synchronize()
     launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
@@ -1736,7 +1889,7 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     # initialization (frame 8), one per later frame, 12 final updates; a
     # kernel that takes one level a launch is launched twice for each
     per_trial = 7 + 12 + (n - 8) + N_UPDATES
-    want = EVAL_TRIALS * per_trial * (2 if kernel in FLOAT_LEVEL else 1)
+    want = trials * per_trial * (2 if kernel in FLOAT_LEVEL else 1)
     others = [k for k, v in launches.items() if v and k != kernel]
     if launches[kernel] != want or others or plain_calls != 0:
         raise RuntimeError(f"{label}: expected {want} launches of {kernel} "
@@ -1744,14 +1897,14 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
                            f"calls")
     if not all(np.isfinite([r.ate, r.mpe, r.r_rmse]).all() for r in results):
         raise RuntimeError(f"{label}: metrics are not finite: {results}")
-    for trial in range(EVAL_TRIALS):
+    for trial in range(trials):
         dump = np.loadtxt(os.path.join(OUT_DIR, f"{label}_trial{trial}.txt"))
         if dump.shape != (n, 8) or not np.isfinite(dump).all():
             raise RuntimeError(f"{label}: TUM dump of trial {trial} is "
                                f"{dump.shape}")
     with open(os.path.join(OUT_DIR, f"{label}_results.json")) as f:
         blob = json.load(f)
-    if (len(blob["trials"]) != EVAL_TRIALS or len(blob["fps"]) != EVAL_TRIALS
+    if (len(blob["trials"]) != trials or len(blob["fps"]) != trials
             or blob["median"]["ate"] != med.ate):
         raise RuntimeError(f"{label}: results JSON does not match the run")
     edges = slam.n_edges
@@ -1762,9 +1915,9 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     from devo_tpu_torch.runtime.engine import DEVO
     bare = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
     bare_s = []
-    for vox, t in zip(frames(n), tss):
+    for vox, t in zip(stream, tss):
         t0 = time.perf_counter()
-        bare(float(t), vox, intr)
+        bare(float(t), vox.transpose(1, 2, 0), intr)
         torch.cuda.synchronize()
         bare_s.append(time.perf_counter() - t0)
     for _ in range(N_UPDATES):
@@ -1776,13 +1929,15 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
 
     # per trial, from the host clock at every frame the iterator hands out
     tail_fps = [round((n - 1 - SKIP) / (ts[-1] - ts[SKIP]), 2)
-                for ts in yields[:EVAL_TRIALS]]
+                for ts in yields[:trials]]
     frame_ms = [round(float(1e3 * np.median(np.diff(ts)[SKIP:])), 2)
-                for ts in yields[:EVAL_TRIALS]]
-    print(f"eval [{label}]: evaluate_sequence, {HT}x{WD}, rings "
+                for ts in yields[:trials]]
+    print(f"eval [{label}]: evaluate_sequence, {HT}x{WD}, "
+          f"{stream[0].shape[0]} channels, PATCH_SELECTOR="
+          f"{cfg.PATCH_SELECTOR!r}, EVS={cfg.EVS}, rings "
           f"{slam.fmap1.dtype}, CORR_IMPL={cfg.CORR_IMPL!r}, "
           f"CORR_KERNEL={cfg.CORR_KERNEL!r}, {n} frames + "
-          f"{N_UPDATES} updates x {EVAL_TRIALS} trials on one engine: "
+          f"{N_UPDATES} updates x {trials} trials on one engine: "
           f"run_voxel frames/s per trial {[round(f, 2) for f in fps]} (first "
           f"frame, initialization and final updates included); frames "
           f"{SKIP}-{n - 1} per trial {tail_fps} frames/s, median frame "
@@ -1798,6 +1953,177 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
           f"nothing about accuracy); artifacts in {OUT_DIR} [{gpu}]",
           flush=True)
     return launches, err
+
+
+# ---------------------------------------------------------------------------
+# The differentiable pieces of training on the card against the CPU.
+
+TRAIN_E, TRAIN_MEM = 1024, 4       # the backward's edges and ring slots
+TRAIN_CORR_TOL = 1e-4              # of the largest gradient entry
+TRAIN_BA_TOL = 1e-3                # relative, and of the largest entry: BA's
+                                   # Schur system on this scene is
+                                   # ill-conditioned (the CPU tests' rule)
+
+
+def ba_scene(seed: int = 0, n_frames: int = 8, ppf: int = 24, P: int = 3,
+             H: int = 120, W: int = 160):
+    """tests/test_ba.py's synthetic scene, built with the port on the CPU: a
+    forward-moving trajectory, patches with known depths, every edge within
+    3 frames, targets at the true reprojections; then poses (but the first)
+    and depths perturbed, every 7th edge masked, random weights. Returns
+    (poses (n, 7), patches (M, 3*P*P) flat, intrinsics, ii, jj, kk, target,
+    mask, weight)."""
+    from devo_tpu_torch.geom import projective
+    from devo_tpu_torch.lie import se3
+    rng = np.random.default_rng(seed)
+    xi = np.cumsum(rng.standard_normal((n_frames, 6)) * 0.02, axis=0)
+    xi[:, 2] += np.arange(n_frames) * 0.05
+    poses_gt = se3.exp(torch.from_numpy(xi.astype(np.float32)))
+    M = n_frames * ppf
+    cx = rng.uniform(20, W - 20, (M, 1, 1))
+    cy = rng.uniform(20, H - 20, (M, 1, 1))
+    off = np.arange(P) - P // 2
+    d = np.broadcast_to(rng.uniform(0.5, 1.5, (M, 1, 1)), (M, P, P))
+    patches = torch.from_numpy(np.stack([
+        np.broadcast_to(cx + off[None, None, :], (M, P, P)),
+        np.broadcast_to(cy + off[None, :, None], (M, P, P)), d], 1
+    ).astype(np.float32))
+    intr = torch.tensor([[120.0, 120.0, W / 2, H / 2]]).repeat(n_frames, 1)
+    ix = np.repeat(np.arange(n_frames), ppf)
+    edges = [(ix[k], fj, k) for k in range(M) for fj in range(n_frames)
+             if 0 < abs(ix[k] - fj) <= 3]
+    ii, jj, kk = (torch.tensor(c) for c in zip(*edges))
+    coords, valid = projective.transform(poses_gt, patches, intr, ii, jj, kk,
+                                         valid=True)
+    target = coords[:, P // 2, P // 2, :].contiguous()
+    mask = valid > 0
+    mask[::7] = False
+    noise = rng.standard_normal((n_frames, 6)).astype(np.float32) * 0.01
+    noise[0] = 0.0
+    poses = se3.retr(poses_gt, torch.from_numpy(noise))
+    patches[:, 2] *= torch.from_numpy(
+        rng.uniform(0.8, 1.2, (M, 1, 1)).astype(np.float32))
+    weight = torch.from_numpy(rng.uniform(0.2, 1.0, (ii.shape[0], 2)
+                                          ).astype(np.float32))
+    return (poses, patches.reshape(M, -1), intr, ii, jj, kk, target, mask,
+            weight)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.cpu() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def ba_close(got, want, tol: float) -> bool:
+    """|got - want| <= tol |want| + tol max|want| everywhere: the rule by
+    which tests/test_torch_train_pieces.py holds the step to devo_tpu."""
+    got, want = got.cpu().double(), want.double()
+    return bool(((got - want).abs()
+                 <= tol * want.abs() + tol * want.abs().max()).all())
+
+
+def train_pieces_phase(dev, gpu: str):
+    """The differentiable pieces of training (ops/corr.corr_pyramid_train,
+    ops/ba.gauss_newton_step_diff) on the card against the same on the CPU.
+    No timing and no kernel of its own. corr_pyramid_train's forward at the
+    kernel phase's E = 12288 case must be the plain corr_pyramid's bits and
+    lie within TOL of K1 (corr_pyramid's kernel) on the same bf16 rings;
+    its backward (f32, TRAIN_E edges on TRAIN_MEM ring slots, the keep mask
+    passed in) the CPU's within TRAIN_CORR_TOL, with no gradient to the
+    coordinates; the differentiable BA step's outputs and the gradients of a
+    scalar loss of them with respect to target, weight, poses and patches,
+    on ba_scene in f32, the CPU's within TRAIN_BA_TOL (ba_close), beside
+    both f32 runs' distance from the step in f64. Raises on a mismatch."""
+    from devo_tpu_torch.ops import ba
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+
+    gmap, bf, _, _, coords, kk, jj = corr_case(E_MAIN, dev, 0)
+    with torch.no_grad():
+        train = corr_plain.corr_pyramid_train(gmap, bf, coords, kk, jj,
+                                              dropout=1.0)
+        plain = corr_plain.corr_pyramid(gmap, bf, coords, kk, jj)
+        k1 = corr_cuda.corr_pyramid(gmap, bf, coords, kk, jj, kernel="mono")
+    torch.cuda.synchronize()
+    if not torch.equal(train, plain):
+        raise RuntimeError("corr_pyramid_train's forward is not corr_pyramid's")
+    torch.testing.assert_close(k1, train, **TOL)
+    k1_err = (k1 - train).abs().max().item()
+
+    # the backward on the first TRAIN_E edges, the rings cut to TRAIN_MEM
+    # slots: card and CPU on the same f32 inputs, keep mask and cotangent
+    E = TRAIN_E
+    g = torch.Generator().manual_seed(0)
+    keep = torch.rand(E, generator=g) < 0.2
+    inputs = [gmap.float().cpu()] + [r[:TRAIN_MEM].float().cpu() for r in bf]
+    idx = (coords[:E].cpu(), kk[:E].cpu().long(), (jj[:E] % TRAIN_MEM).cpu().long())
+    ct = torch.randn((E, train.shape[1]), generator=g)
+    grads = {}
+    for d in (torch.device("cpu"), dev):
+        leaves = [t.to(d).requires_grad_(True) for t in inputs]
+        c = idx[0].to(d).requires_grad_(True)
+        out = corr_plain.corr_pyramid_train(
+            leaves[0], leaves[1:], c, idx[1].to(d), idx[2].to(d),
+            keep=keep.to(d))
+        grads[d.type] = torch.autograd.grad(out, leaves + [c], ct.to(d))
+    corr_errs = [rel_err(a, b) for a, b in zip(grads[dev.type][:3],
+                                                grads["cpu"][:3])]
+    if max(corr_errs) > TRAIN_CORR_TOL or grads[dev.type][3].abs().max() != 0:
+        raise RuntimeError(f"corr_pyramid_train's backward on the card: "
+                           f"{corr_errs} of the largest entry (gmap, level 1, "
+                           f"level 4), coords {grads[dev.type][3].abs().max()}")
+
+    # the differentiable BA step
+    scene = ba_scene()
+    poses, patches, intr, ii, jj, kk_b, target, mask, weight = scene
+    n, M = poses.shape[0], patches.shape[0]
+    rng = np.random.default_rng(10)
+    A = torch.from_numpy(rng.standard_normal((n, 7)).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal(patches.shape).astype(np.float32))
+    bounds = torch.tensor([-64.0, -64.0, 160 + 64.0, 120 + 64.0])
+    res = {}
+    # the card and the CPU in f32, and the CPU in f64, which measures how far
+    # f32 itself is from the exact step on this scene
+    for key, d, dt in (("cpu", torch.device("cpu"), torch.float32),
+                       (dev.type, dev, torch.float32),
+                       ("f64", torch.device("cpu"), torch.float64)):
+        leaves = [t.to(d, dt).requires_grad_(True)
+                  for t in (target, weight, poses, patches)]
+        p, q, ok = ba.gauss_newton_step_diff(
+            leaves[2], leaves[3], intr.to(d, dt), leaves[0], leaves[1], 1e-4,
+            ii.to(d), jj.to(d), kk_b.to(d), mask.to(d), t0=1, t1=n, kbase=0,
+            window=n - 1, patch_slots=M, bounds=bounds.to(d, dt))
+        loss = (p * A.to(d, dt)).sum() + (q * B.to(d, dt)).sum()
+        if not bool(ok):
+            raise RuntimeError(f"the differentiable BA step's Cholesky failed "
+                               f"({key})")
+        res[key] = (p.detach(), q.detach(),
+                    *torch.autograd.grad(loss, leaves))
+    names = ("poses", "patches", "d/d target", "d/d weight", "d/d poses",
+             "d/d patches")
+    ba_errs = {name: rel_err(a, b) for name, a, b in zip(
+        names, res[dev.type], res["cpu"])}
+    f64_errs = {name: max(rel_err(res[k][i].double(), res["f64"][i])
+                          for k in ("cpu", dev.type))
+                for i, name in enumerate(names)}
+    if not all(ba_close(a, b, TRAIN_BA_TOL)
+               for a, b in zip(res[dev.type], res["cpu"])):
+        raise RuntimeError(f"the differentiable BA step on the card: {ba_errs} "
+                           f"of the largest entry, tolerance {TRAIN_BA_TOL} "
+                           f"relative and of the largest entry")
+    print(f"train pieces: corr_pyramid_train forward at E={E_MAIN} on bf16 "
+          f"rings = the plain corr_pyramid bit for bit, K1 within "
+          f"{k1_err:.3e} (atol {TOL['atol']} + rtol {TOL['rtol']}); its "
+          f"backward at E={E} on {TRAIN_MEM} ring slots, {int(keep.sum())} "
+          f"edges kept: card vs cpu {max(corr_errs):.3e} of the largest "
+          f"gradient entry (tolerance {TRAIN_CORR_TOL}), coords 0; the "
+          f"differentiable BA step on a {n}-frame scene of {M} patches and "
+          f"{ii.shape[0]} edges: card vs cpu, of the largest entry, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ba_errs.items())
+          + f" (tolerance {TRAIN_BA_TOL} relative and of the largest entry); "
+          f"f32 (either) vs f64 on the CPU "
+          + ", ".join(f"{k} {v:.3e}" for k, v in f64_errs.items())
+          + f" [{gpu}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1929,7 +2255,7 @@ def determinism_phase(dev, gpu: str):
 PROBE_E, PROBE_LIVE = 15360, 6144        # the ablation's and the gather's E
 PROBE_MEM, PROBE_NBX, PROBE_HP = 32, 22, 144
 COPY_ND = 9600
-COPY_AB_MODES = ("single", "pair", "tall4", "dual", "local")   # K14' / K14'' in turns
+COPY_AB_MODES = ("single", "pair", "tall4", "dual", "local")   # K14'' in turns
 COPY_GRIDS = (1, 7, None, 200)    # the copy probe's exactness; None: one an SM
 # the variant whose numbers stand for a probe kernel in the JSON record
 PROBE_REPORTED = {"corr_band_ablate": "random full",
@@ -2079,27 +2405,13 @@ def c_frame(lib, inputs, extract: bool, plan, order, staged=None):
 
 
 def c_copy(lib, ring, slot, row0, mode: str, route: str, blocks: int):
-    """One launch of devo_copy_probe by its C interface, uncounted: this
-    tree's K14'' (its order scratch included, ops/probe_cuda.copy_launch)
-    where `lib` is None, else the parent's K14' of `lib` (contiguous runs
-    of the copies in their own order) at the same ring depth."""
+    """One launch of devo_copy_probe (K14'') of `lib` (this tree's library
+    where None) by its C interface, uncounted, its order scratch included
+    (ops/probe_cuda.copy_launch)."""
     from devo_tpu_torch.ops import corr_cuda as cc
-    from devo_tpu_torch.ops import probe, probe_cuda
-    if lib is None:
-        code, out = probe_cuda.copy_launch(cc._load(), ring, slot, row0, mode,
-                                           route, blocks)
-    else:
-        S, M, _ = probe.copy_plan(mode)
-        depth, ns = probe_cuda.copy_depth(mode)
-        partial = torch.empty((blocks, 128), dtype=torch.float32,
-                              device=ring.device)
-        out = torch.empty((1, 128), dtype=torch.float32, device=ring.device)
-        code = lib.devo_copy_probe(
-            ring.data_ptr(), slot.data_ptr(), row0.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), ring.shape[1] * 128,
-            slot.shape[0], blocks, S, M, ns, depth, int(mode == "local"),
-            probe.COLR, int(route == "bulk"),
-            torch.cuda.current_stream().cuda_stream)
+    from devo_tpu_torch.ops import probe_cuda
+    code, out = probe_cuda.copy_launch(lib or cc._load(), ring, slot, row0,
+                                       mode, route, blocks)
     if code:
         raise RuntimeError(f"copy_probe by its C interface: launch failed "
                            f"({code})")
@@ -2236,8 +2548,8 @@ def probe_phase(dev, gpu: str, record, parent=None):
     product with and without extraction (TOL). The window kernels' plan
     against their own queries, their bits at two grids, the ablation's
     ragged live gate; with `parent` (the parent's library), the A/B of K13''
-    and K15'' (the parent's bits) and of K14' / K14'' (parent_ab) in
-    turns."""
+    and K15'' (the parent's bits) and of K14'' (parent_ab, its exact
+    output) in turns."""
     from devo_tpu_torch.ops import probe, probe_cuda
     from devo_tpu_torch.scripts import bench_banded_ablate as ablate
     from devo_tpu_torch.scripts import bench_gather, probe_desc_wall
@@ -2561,13 +2873,17 @@ PER_LEVEL = ("corr_level", "corr_level_pipe", "corr_group", "corr_fixed",
 
 def path_config(label):
     """The VOConfig that tracking path `label` runs: its overrides of PATHS,
-    EVAL_PATHS (over EVAL_CONFIGS["eds"]) or BENCH_PATHS, or the g8c launch
-    count's. Raises KeyError on a label of no tracking path."""
+    EVAL_PATHS (over EVAL_CONFIGS["eds"]), FRAME_PATHS (over the frame
+    drivers' configuration) or BENCH_PATHS, or the g8c launch count's.
+    Raises KeyError on a label of no tracking path."""
     from devo_tpu_torch.runtime.config import EVAL_CONFIGS, VOConfig
     if label in PATHS:
         return VOConfig(**PATHS[label][0])
     if label in EVAL_PATHS:
         return EVAL_CONFIGS["eds"].replace(**EVAL_PATHS[label][0])
+    if label in FRAME_PATHS:
+        from devo_tpu_torch.eval.frames import frame_config
+        return frame_config().replace(**FRAME_PATHS[label][0])
     if label in BENCH_PATHS:
         return VOConfig(**BENCH_PATHS[label][0])
     if label == G8C_LAUNCHES:
@@ -2641,6 +2957,12 @@ def main(argv=None):
                     help="a directory holding the parent commit's "
                     f"{', '.join(PARENT_SOURCES)}: time the redesigned kernels "
                     "against them after the kernel phase")
+    ap.add_argument("--reference", metavar="LABEL[:KEY=VALUE,...]",
+                    action="append",
+                    help="run the reference phase alone on this entry of "
+                    "REFERENCE, with VOConfig overrides (values as Python "
+                    "literals); may be repeated. Prints each entry's line, "
+                    "no ok line, and exits non-zero if any entry failed")
     args = ap.parse_args(argv)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
@@ -2661,6 +2983,15 @@ def main(argv=None):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
 
+    if args.reference:
+        failed = []
+        for spec in args.reference:
+            try:
+                reference_phase(dev, gpu, spec, reference_knobs(spec))
+            except RuntimeError as e:
+                print(f"reference [{spec}] failed: {e}", flush=True)
+                failed.append(spec)
+        sys.exit(f"failed: {failed}" if failed else 0)
     record = kernel_phase(dev, gpu)
     parent = parent_library(args.parent) if args.parent else None
     if parent is not None:
@@ -2688,13 +3019,18 @@ def main(argv=None):
     engine_cache = {}
     from devo_tpu_torch.bench import frames
     stream = [np.ascontiguousarray(v.transpose(2, 0, 1)) for v in frames(N_FRAMES)]
-    for label, (_, name) in EVAL_PATHS.items():
+    for label, (_, name, _) in EVAL_PATHS.items():
+        by_path[label], err = eval_phase(dev, gpu, label, engine_cache, stream)
+        record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+    stream = rgb_stream(N_FRAMES)
+    for label, (_, name, _) in FRAME_PATHS.items():
         by_path[label], err = eval_phase(dev, gpu, label, engine_cache, stream)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     del engine_cache, stream
     for label, (_, _, name) in BENCH_PATHS.items():
         by_path[label], err = bench_phase(dev, gpu, label)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
+    train_pieces_phase(dev, gpu)
     run_slice(PROFILED)              # last: nothing is timed after a profile
     by_path[G8C_LAUNCHES] = g8c_launch_phase(dev, gpu)
     by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)

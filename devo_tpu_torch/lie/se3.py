@@ -18,13 +18,26 @@ from . import so3
 from .quaternion import qconj, qmul, qnormalize, qrot
 
 __all__ = ["exp", "log", "inv", "mul", "act", "act4", "adj", "adjT", "retr",
-           "identity"]
+           "matrix", "from_matrix", "identity", "translation", "rotation",
+           "make", "scale"]
 
 
 def identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
     g = torch.zeros(tuple(shape) + (7,), dtype=dtype, device=device)
     g[..., 6] = 1.0
     return g
+
+
+def translation(g: torch.Tensor) -> torch.Tensor:
+    return g[..., :3]
+
+
+def rotation(g: torch.Tensor) -> torch.Tensor:
+    return g[..., 3:7]
+
+
+def make(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([t, q], dim=-1)
 
 
 def exp(xi: torch.Tensor) -> torch.Tensor:
@@ -87,3 +100,20 @@ def adjT(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     out_t = qrot(qi, at)
     out_r = qrot(qi, ar) - qrot(qi, torch.linalg.cross(t, at_b, dim=-1))
     return torch.cat([out_t, out_r], dim=-1)
+
+
+def matrix(g: torch.Tensor) -> torch.Tensor:
+    """7-vector -> 4x4 homogeneous transform."""
+    top = torch.cat([so3.matrix(g[..., 3:7]), g[..., :3, None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(T: torch.Tensor) -> torch.Tensor:
+    return make(T[..., :3, 3], so3.from_matrix(T[..., :3, :3]))
+
+
+def scale(g: torch.Tensor, s) -> torch.Tensor:
+    """Scale the translation (Sim3-style trajectory rescaling)."""
+    return make(g[..., :3] * s, g[..., 3:7])

@@ -9,11 +9,13 @@ from __future__ import annotations
 
 import torch
 
-from .quaternion import EPS, qconj, qmul, qnormalize, qrot
+from .quaternion import (EPS, matrix_to_quat, qconj, qmul, qnormalize, qrot,
+                         quat_to_matrix)
 
 __all__ = [
     "exp", "log", "inv", "mul", "act", "act4", "adj", "adjT", "retr",
-    "identity", "hat", "left_jacobian", "left_jacobian_inverse",
+    "matrix", "from_matrix", "identity", "hat", "left_jacobian",
+    "left_jacobian_inverse",
 ]
 
 
@@ -66,6 +68,14 @@ def mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 def act(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return qrot(q, p)
+
+
+def matrix(q: torch.Tensor) -> torch.Tensor:
+    return quat_to_matrix(q)
+
+
+def from_matrix(R: torch.Tensor) -> torch.Tensor:
+    return matrix_to_quat(R)
 
 
 def act4(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

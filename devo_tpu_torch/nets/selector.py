@@ -115,17 +115,26 @@ def _block_max(scores, use_grid):
     return blocks.amax(-1), blocks.argmax(-1), top, left
 
 
+def _top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the k largest entries of each row, in descending
+    order, the lower index first among equal values (lax.top_k's order).
+    torch.topk leaves the order of equal values to the device; a stable
+    sort gives the same picks on every device, as where an event-gradient
+    map has cells of equal (zero) gradient."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def select_topk(scores: torch.Tensor, ppi: int, use_grid: bool = True):
     """Pooled top-k sampling (selector.py:152-192)."""
     n, h, w = scores.shape
     max_scores, max_idx, top, left = _block_max(scores, use_grid)
     h1, w1 = max_scores.shape[1:]
     if use_grid:
-        idx_q = torch.topk(_quads(max_scores), ppi // 4, dim=-1).indices
+        idx_q = _top_indices(_quads(max_scores), ppi // 4)
         cell_x, cell_y = _quad_cells(idx_q, h1, w1, ppi)
         idx_full = cell_y * w1 + cell_x
     else:
-        idx_full = torch.topk(max_scores.reshape(n, -1), ppi, dim=-1).indices
+        idx_full = _top_indices(max_scores.reshape(n, -1), ppi)
         cell_x, cell_y = idx_full % w1, idx_full // w1
     off = max_idx.reshape(n, -1).gather(1, idx_full)
     x = KERNEL * cell_x + off % KERNEL
@@ -164,3 +173,77 @@ def gather_scores(scores: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     n, h, w = scores.shape
     idx = y.clamp(0, h - 1) * w + x.clamp(0, w - 1)
     return scores.reshape(n, -1).gather(1, idx)
+
+
+def select_random(n: int, h: int, w: int, ppi: int,
+                  generator: torch.Generator, device=None):
+    """Uniform random selection in [1, w-2] x [1, h-2] (enet.py:144-147)."""
+    x = torch.randint(1, w - 1, (n, ppi), generator=generator, device=device)
+    y = torch.randint(1, h - 1, (n, ppi), generator=generator, device=device)
+    return x, y
+
+
+def event_gradient(voxels: torch.Tensor) -> torch.Tensor:
+    """Event-gradient selection map (enet.py:115-121): the voxel bins
+    summed, the finite-difference gradient magnitude, a 4x4 average pool
+    with avg_pool2d's floor semantics (trailing rows and columns dropped).
+
+    voxels (n, H, W, bins) -> (n, (H-1)//4, (W-1)//4). Both sums add in a
+    fixed order, bin after bin and a block's pixels row by row, the order
+    of devo_tpu's reductions on the CPU, so that the map is its bit for
+    bit."""
+    v = voxels.float()
+    im = v[..., 0]
+    for b in range(1, v.shape[-1]):
+        im = im + v[..., b]                               # (n, H, W)
+    dx = im[:, :-1, 1:] - im[:, :-1, :-1]
+    dy = im[:, 1:, :-1] - im[:, :-1, :-1]
+    # the square root in f64, rounded once: a correctly rounded f32 root
+    # (torch's vectorised f32 root on the CPU is not)
+    g = torch.sqrt((dx * dx + dy * dy).double()).float()  # (n, H-1, W-1)
+    n, gh, gw = g.shape
+    h4, w4 = gh // 4, gw // 4
+    blocks = g[:, :h4 * 4, :w4 * 4].reshape(n, h4, 4, w4, 4)
+    acc = blocks[:, :, 0, :, 0]
+    for k in range(1, 16):
+        acc = acc + blocks[:, :, k // 4, :, k % 4]
+    return acc / 16.0
+
+
+def _top_candidates(scores, x, y, ppi: int):
+    """The ppi candidates of the largest score, in descending order, the
+    lower candidate index first among equal scores (lax.top_k's order)."""
+    sc = gather_scores(scores, x, y)
+    order = _top_indices(sc, ppi)
+    return x.gather(1, order), y.gather(1, order), sc.gather(1, order)
+
+
+def select_3xrandom(weights: torch.Tensor, ppi: int, generator=None,
+                    candidates=None):
+    """PatchSelector('3xrandom') (selector.py:92-105): 3*ppi uniform
+    candidates over the whole map, the ppi of the largest weight kept, +1 on
+    the returned coords; the gradient selector's training draw
+    (enet.py:135-137). `candidates` = (x, y), each (n, 3*ppi), replaces the
+    draw from `generator`."""
+    n, h, w = weights.shape
+    if candidates is None:
+        candidates = tuple(
+            torch.randint(0, hi, (n, 3 * ppi), generator=generator,
+                          device=weights.device) for hi in (w, h))
+    x, y, _ = _top_candidates(weights, *candidates, ppi)
+    return x + 1, y + 1
+
+
+def select_training_scorer(scores: torch.Tensor, ppi: int, generator=None,
+                           candidates=None):
+    """Training-time scorer selection (enet.py:152-164): 3*ppi candidates
+    in [0, w-3] x [0, h-3], the ppi highest-scoring kept (the reference
+    sorts ascending and takes the tail). Returns the coords (+1) and their
+    scores. `candidates` as for select_3xrandom."""
+    n, h, w = scores.shape
+    if candidates is None:
+        candidates = tuple(
+            torch.randint(0, hi - 2, (n, 3 * ppi), generator=generator,
+                          device=scores.device) for hi in (w, h))
+    x, y, s = _top_candidates(scores, *candidates, ppi)
+    return x + 1, y + 1, s

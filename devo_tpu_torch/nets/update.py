@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .blocks import GatedResidual, SoftAgg
+from .blocks import GatedResidual, GradientClip, SoftAgg
 
 
 class Update(nn.Module):
@@ -33,10 +33,12 @@ class Update(nn.Module):
         self.gru = nn.Sequential(
             nn.LayerNorm(dim, eps=1e-3), GatedResidual(dim),
             nn.LayerNorm(dim, eps=1e-3), GatedResidual(dim))
-        # the reference's heads also hold a GradientClip, an identity in the
-        # forward pass; the Linear keeps its index 1
-        self.d = nn.Sequential(nn.ReLU(), nn.Linear(dim, 2))
-        self.w = nn.Sequential(nn.ReLU(), nn.Linear(dim, 2), nn.Sigmoid())
+        # the heads' GradientClip is an identity in the forward pass; it
+        # clamps the training gradient (enet.py:68-77,
+        # devo_tpu/nets/update.py:100-102)
+        self.d = nn.Sequential(nn.ReLU(), nn.Linear(dim, 2), GradientClip())
+        self.w = nn.Sequential(nn.ReLU(), nn.Linear(dim, 2), GradientClip(),
+                               nn.Sigmoid())
 
     def forward(self, net, ctx, corr_feat, ix, jx, kk_seg, nseg_kk: int,
                 ij_seg, nseg_ij: int, mask):

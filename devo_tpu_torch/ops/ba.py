@@ -6,7 +6,10 @@ The block Hessian is assembled with segment sums in a fixed order
 (ops/segment.py) over the free poses of the window and the active patch
 slots, reduced by the Schur complement onto the poses, and solved by
 Cholesky. Window bounds (t0, t1,
-kbase) are host ints. `run_ba` updates `poses` and `patches` in place.
+kbase) are host ints. `run_ba` updates `poses` and `patches` in place: the
+tracking step. `gauss_newton_step_diff` solves the same system and returns
+new tensors, differentiable end to end (the segment sums carry gradients):
+the training step's.
 """
 from __future__ import annotations
 
@@ -99,14 +102,12 @@ def schur_solve(sys: BASystem, lmbda: float, ep: float, lm: float,
     return dX.reshape(-1, 6), dZ, ok
 
 
-def gauss_newton_step(poses, patches, intrinsics, target, weight, lmbda,
-                      ii, jj, kk, mask, t0: int, t1: int, kbase: int,
-                      window: int, patch_slots: int, bounds,
-                      max_residual: float, ep: float, lm: float,
-                      structure_only: bool = False):
-    """One Gauss-Newton iteration over the free poses [t0, t1) (at most
-    `window` of them) and the patch slots [kbase, kbase + patch_slots).
-    Updates poses and patches in place; returns the solver's ok flag."""
+def _system(poses, patches, intrinsics, target, weight, ii, jj, kk, mask,
+            t0: int, t1: int, kbase: int, window: int, patch_slots: int,
+            bounds, max_residual: float):
+    """The gated residuals and the block system of one iteration. Returns
+    (system, pk_c (E,) local patch slot, clamped, edge_ok (E,) the edges
+    that address a slot)."""
     geo = edgewise.reproject(poses, patches, intrinsics, ii, jj, kk,
                              jacobian=True)
     rx = target[:, 0] - geo.center_x
@@ -127,6 +128,27 @@ def gauss_newton_step(poses, patches, intrinsics, target, weight, lmbda,
     pk_c = pk.clamp(0, patch_slots - 1)
     sys = assemble(geo.Ji, geo.Jj, geo.Jz, torch.stack([rx, ry], -1), w,
                    local(ii), local(jj), pk_c, window, patch_slots)
+    return sys, pk_c, mask & slot_ok
+
+
+def _depth_window(patches, kbase: int, patch_slots: int):
+    """(first slot, PP) of the active patch slots' window in the flat
+    (Mp, 3*P*P) table."""
+    return (min(max(kbase, 0), patches.shape[0] - patch_slots),
+            patches.shape[-1] // 3)
+
+
+def gauss_newton_step(poses, patches, intrinsics, target, weight, lmbda,
+                      ii, jj, kk, mask, t0: int, t1: int, kbase: int,
+                      window: int, patch_slots: int, bounds,
+                      max_residual: float, ep: float, lm: float,
+                      structure_only: bool = False):
+    """One Gauss-Newton iteration over the free poses [t0, t1) (at most
+    `window` of them) and the patch slots [kbase, kbase + patch_slots).
+    Updates poses and patches in place; returns the solver's ok flag."""
+    sys, pk_c, edge_ok = _system(poses, patches, intrinsics, target, weight,
+                                 ii, jj, kk, mask, t0, t1, kbase, window,
+                                 patch_slots, bounds, max_residual)
     dX, dZ, ok = schur_solve(sys, lmbda, ep, lm, structure_only)
 
     # pose retraction (ba_cuda.cu:160-188): poses[t0 + i] <- Exp(dX_i) * pose
@@ -137,17 +159,48 @@ def gauss_newton_step(poses, patches, intrinsics, target, weight, lmbda,
     # depth retraction and the inference clamp (ba_cuda.cu:191-211). The
     # clamp applies to every patch the solve addresses, even one whose edges
     # were all gated.
-    PP = patches.shape[-1] // 3
-    kb = min(max(kbase, 0), patches.shape[0] - patch_slots)
+    kb, PP = _depth_window(patches, kbase, patch_slots)
     d_old = patches[kb:kb + patch_slots, 2 * PP:]
     d_new = d_old + dZ[:, None]
     d_new = torch.where(d_new > 20.0, torch.ones_like(d_new), d_new)
     d_new = d_new.clamp_min(1e-4)
     touched = torch.zeros(patch_slots, dtype=torch.bool, device=dZ.device)
-    touched[pk_c[mask & slot_ok]] = True
+    touched[pk_c[edge_ok]] = True
     patches[kb:kb + patch_slots, 2 * PP:] = torch.where(touched[:, None],
                                                         d_new, d_old)
     return ok
+
+
+def gauss_newton_step_diff(poses, patches, intrinsics, target, weight, lmbda,
+                           ii, jj, kk, mask, t0: int, t1: int, kbase: int,
+                           window: int, patch_slots: int, bounds,
+                           max_residual: float = 250.0, ep: float = 10.0,
+                           lm: float = 1e-4, structure_only: bool = False):
+    """The differentiable Gauss-Newton iteration of training (devo/ba.py:
+    86-182; devo_tpu's gauss_newton_step with depth_clamp="training", as
+    devo_tpu/train/forward.py:213-223 calls it, whose constants are the
+    defaults here). It solves the same system as `gauss_newton_step` and
+    returns new (poses, patches, ok) with no in-place write, so that
+    autograd carries the gradient to target, weight, poses, patches and
+    intrinsics. The depths of the whole window are clamped to [1e-3, 10]
+    (devo/ba.py:176)."""
+    sys, _, _ = _system(poses, patches, intrinsics, target, weight, ii, jj,
+                        kk, mask, t0, t1, kbase, window, patch_slots, bounds,
+                        max_residual)
+    dX, dZ, ok = schur_solve(sys, lmbda, ep, lm, structure_only)
+
+    nfree = min(max(t1 - t0, 0), window)
+    if nfree:
+        poses = torch.cat([poses[:t0],
+                           se3.retr(poses[t0:t0 + nfree], dX[:nfree]),
+                           poses[t0 + nfree:]])
+    kb, PP = _depth_window(patches, kbase, patch_slots)
+    win = patches[kb:kb + patch_slots]
+    d_new = (win[:, 2 * PP:] + dZ[:, None]).clamp(1e-3, 10.0)
+    patches = torch.cat([patches[:kb],
+                         torch.cat([win[:, :2 * PP], d_new], dim=1),
+                         patches[kb + patch_slots:]])
+    return poses, patches, ok
 
 
 def run_ba(poses, patches, intrinsics, target, weight, lmbda, ii, jj, kk,

@@ -29,6 +29,10 @@ apart. The tests hold them against the JAX package, and the kernels are held
 against them on the card. `ops/corr_cuda.corr_pyramid` is the engine's entry
 point; it calls these versions only for tensors on the CPU.
 
+`corr_pyramid_train` is the training correlation: the plain function as an
+autograd.Function whose backward keeps a Bernoulli subset of the edges and
+gives the coordinates no gradient, on either device.
+
 Two implementation families of the engine are tensor code on either device,
 with no kernel: `corr_pyramid_gather` (CORR_IMPL="gather": the coordinates
 and the bilinear weights in the features' type) and `corr_pyramid_window`
@@ -154,6 +158,70 @@ def corr_pyramid(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
         scales = (None,) * len(pyramid)
     return stack_levels([corr(gmap, fm, coords / lvl, kk, jj, radius, sc)
                          for fm, lvl, sc in zip(pyramid, levels, scales)])
+
+
+def _pyramid(gmap, pyramid, coords, kk, jj, radius, levels):
+    """corr_pyramid on float rings, uncounted: the function that
+    corr_pyramid_train's forward and backward compute."""
+    return stack_levels([corr(gmap, fm, coords / lvl, kk, jj, radius)
+                         for fm, lvl in zip(pyramid, levels)])
+
+
+class _CorrPyramidTrain(torch.autograd.Function):
+    """The forward of `_pyramid`; the backward carries the gradient of the
+    kept edges alone to gmap and the pyramid, none to the coordinates."""
+
+    @staticmethod
+    def forward(ctx, gmap, coords, kk, jj, keep, radius, levels, *pyramid):
+        ctx.save_for_backward(gmap, coords, kk, jj, keep, *pyramid)
+        ctx.radius, ctx.levels = radius, levels
+        return _pyramid(gmap, pyramid, coords, kk, jj, radius, levels)
+
+    @staticmethod
+    def backward(ctx, grad):
+        gmap, coords, kk, jj, keep, *pyramid = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (gmap, *pyramid)]
+            out = _pyramid(leaves[0], leaves[1:], coords.detach(), kk, jj,
+                           ctx.radius, ctx.levels)
+            grads = torch.autograd.grad(
+                out, leaves, grad * keep[:, None].to(grad.dtype),
+                allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
+        return (grads[0], torch.zeros_like(coords), None, None, None, None,
+                None, *grads[1:])
+
+
+def corr_pyramid_train(gmap: torch.Tensor, pyramid, coords: torch.Tensor,
+                       kk: torch.Tensor, jj: torch.Tensor,
+                       generator: torch.Generator = None,
+                       dropout: float = 0.2, radius: int = 3, levels=(1, 4),
+                       keep: torch.Tensor = None) -> torch.Tensor:
+    """corr_pyramid with the reference's training backward (counterpart of
+    devo_tpu/ops/corr.py:230-294; upstream DEVO's
+    devo/altcorr/correlation.py:18-30, dropout 0.2 at enet.py:204), on
+    float rings, on either device:
+
+      * the forward is corr_pyramid's plain function;
+      * the backward keeps a Bernoulli(dropout) subset of the edges: a
+        dropped edge adds no gradient to gmap or the pyramid, and the kept
+        ones are not rescaled (the expected gradient is dropout x full);
+      * the coordinates get a zero gradient (the CUDA backward returns
+        None for them).
+
+    The keep mask (E,) bool is drawn as devo_tpu draws it, uniform < dropout,
+    from `generator`, or passed in as `keep` (the tests pass devo_tpu's).
+    dropout >= 1 keeps every edge, and the coordinate path stays severed."""
+    E = coords.shape[0]
+    if keep is None:
+        if dropout is None or dropout >= 1.0:
+            keep = torch.ones(E, dtype=torch.bool, device=coords.device)
+        else:
+            keep = torch.rand(E, generator=generator,
+                              device=coords.device) < dropout
+    return _CorrPyramidTrain.apply(gmap, coords, kk, jj, keep, radius,
+                                   tuple(levels), *pyramid)
 
 
 def _group_index(coords: torch.Tensor, cap: int):

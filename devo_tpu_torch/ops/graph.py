@@ -1,5 +1,6 @@
 """Patch-graph index operations (counterpart of devo_tpu/ops/graph.py):
-temporal neighbors on the (kk, jj)-sorted edge table and the segment
+temporal neighbors on an unsorted edge table (training's) and on the
+(kk, jj)-sorted one (the engine's), and the segment
 softmax-sum of the SoftAgg blocks (devo/blocks.py:31-48), as segment
 reductions: `scatter_reduce` for the maximum, whose result no order
 changes, and ops/segment's sums in a fixed order for the rest."""
@@ -8,6 +9,36 @@ from __future__ import annotations
 import torch
 
 from devo_tpu_torch.ops import segment
+
+
+def neighbors(kk: torch.Tensor, jj: torch.Tensor, mask: torch.Tensor = None):
+    """Predecessor / successor edge of each edge of an unsorted table
+    (ba.cpp:127-136): among the edges of the same patch kk, the previous /
+    next one in ascending jj, by a stable lexicographic sort on (kk, jj),
+    so that duplicates of a pair keep their table order. -1 where there is
+    none and for masked edges, which take part in no chain."""
+    E = kk.shape[0]
+    if mask is None:
+        mask = torch.ones_like(kk, dtype=torch.bool)
+    big = torch.full_like(kk, 0x3FFFFFFF)
+    kk_key = torch.where(mask, kk, big)
+    jj_key = torch.where(mask, jj, big)
+    perm1 = torch.sort(jj_key, stable=True).indices
+    order = perm1[torch.sort(kk_key[perm1], stable=True).indices]
+    kk_s, valid_s = kk_key[order], mask[order]
+    same = kk_s[1:] == kk_s[:-1]
+    no = torch.zeros(1, dtype=torch.bool, device=kk.device)
+    minus1 = torch.full((1,), -1, dtype=order.dtype, device=kk.device)
+    prev = torch.where(torch.cat([no, same]) & valid_s,
+                       torch.cat([minus1, order[:-1]]), -1)
+    nxt = torch.where(torch.cat([same, no]) & valid_s,
+                      torch.cat([order[1:], minus1]), -1)
+    ix = torch.empty(E, dtype=order.dtype, device=kk.device)
+    jx = torch.empty_like(ix)
+    ix[order] = prev
+    jx[order] = nxt
+    return (torch.where(mask, ix, torch.full_like(ix, -1)),
+            torch.where(mask, jx, torch.full_like(jx, -1)))
 
 
 def sorted_neighbors(kk: torch.Tensor, mask: torch.Tensor = None):

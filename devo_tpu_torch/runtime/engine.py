@@ -8,6 +8,10 @@ to the (kk, jj)-sorted edge table and purge old ones, run the update
 operator with two Gauss-Newton BA iterations (twelve updates at
 initialization), then keyframe, which may cull a frame.
 
+cfg.PATCH_SELECTOR chooses the patch selection: the learned scorer, the
+event-gradient map or uniform random draws (the frame-input drivers',
+eval/frames.py, with cfg.EVS=False and 3-channel frames).
+
 Tensors live on `device`; the keyframe count `n`, the frame counter and the
 keyframe bookkeeping are host ints, as in the reference. The host reads the
 device at a few decision points: the empty-voxel gate while n == 0, the
@@ -36,6 +40,7 @@ from torch.profiler import record_function
 from devo_tpu_torch.data.normalize import normalize
 from devo_tpu_torch.geom import edgewise
 from devo_tpu_torch.lie import se3
+from devo_tpu_torch.nets import selector as sel
 from devo_tpu_torch.nets.evonet import EVONet
 from devo_tpu_torch.ops import ba as ba_ops
 from devo_tpu_torch.ops import corr as corr_ops
@@ -144,9 +149,6 @@ class DEVO:
         device = resolve_device(device)
         if (cfg.HT, cfg.WD) != (ht, wd):
             cfg = cfg.replace(HT=ht, WD=wd)
-        if cfg.PATCH_SELECTOR != "scorer":
-            raise NotImplementedError(
-                f"PATCH_SELECTOR={cfg.PATCH_SELECTOR!r}: only the scorer is ported")
         _check_corr_knobs(cfg)
         self.cfg = cfg
         self._ht, self._wd = ht, wd
@@ -154,7 +156,8 @@ class DEVO:
         self.l4_resident = l4_resident(cfg, ht, wd)
         self.device = device
         self.net = EVONet(P=cfg.P, dim_inet=cfg.DIM_INET, dim_fnet=cfg.DIM_FNET,
-                          dim=cfg.DIM, bins=cfg.BINS)
+                          dim=cfg.DIM, bins=cfg.BINS,
+                          patch_selector=cfg.PATCH_SELECTOR)
         self.net.load_state_dict(load_weights(weights), strict=True)
         self.net.to(self.device).eval()
         self.generator = torch.Generator(device=self.device)
@@ -228,6 +231,13 @@ class DEVO:
         initialization (devo.py:514-520): (M, 1) uniform draws."""
         return torch.rand((self.cfg.M, 1), generator=self.generator,
                           device=self.device)
+
+    def _draw_coords(self):
+        """The random selector's patch centres of a new frame (enet.py:
+        144-147): x, y each (1, M), uniform in [1, w-2] x [1, h-2] at
+        feature resolution."""
+        return sel.select_random(1, self._ht // 4, self._wd // 4, self.cfg.M,
+                                 self.generator, self.device)
 
     @property
     def n_edges(self) -> int:
@@ -405,11 +415,13 @@ class DEVO:
         cfg = self.cfg
         M, P, mem, n = cfg.M, cfg.P, cfg.MEM, self.n
         PP = P * P
+        coords = (self._draw_coords() if cfg.PATCH_SELECTOR == "random"
+                  else None)
         with self._amp():
             out = self.net.run_patchify(
                 voxel[None], M, generator=self.generator,
                 scorer_eval_mode=cfg.SCORER_EVAL_MODE,
-                scorer_eval_use_grid=cfg.SCORER_EVAL_USE_GRID)
+                scorer_eval_use_grid=cfg.SCORER_EVAL_USE_GRID, coords=coords)
         patches = out["patches"][0].reshape(M, 3 * PP)
 
         # motion model (devo.py:502-512)

@@ -30,13 +30,16 @@ def _encoder_entries(prefix: str):
     return out
 
 
-def build_mapping() -> Dict[str, tuple]:
-    """torch module path -> (flax module path, kind)."""
+def build_mapping(scorer: bool = True) -> Dict[str, tuple]:
+    """torch module path -> (flax module path, kind). `scorer`: whether the
+    network holds the scorer (patch_selector="scorer" alone does)."""
     m = {}
     m.update(_encoder_entries("patchify.fnet"))
     m.update(_encoder_entries("patchify.inet"))
-    for i in (0, 2, 4, 6):
-        m[f"patchify.scorer.scorer.{i}"] = (f"patchify/scorer/scorer_{i}", "conv")
+    if scorer:
+        for i in (0, 2, 4, 6):
+            m[f"patchify.scorer.scorer.{i}"] = (f"patchify/scorer/scorer_{i}",
+                                                "conv")
     for i in (0, 2, 5):
         m[f"update.corr.{i}"] = (f"update/corr_{i}", "linear")
     m["update.corr.3"] = ("update/corr_3", "norm")
@@ -71,11 +74,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX EVONet params tree (array leaves) -> the port's EVONet state
-    dict. Raises on a missing weight and on any unused leaf."""
+    dict, with the scorer where the tree has one (the "gradient" and
+    "random" selectors' trees have none) and any number of input channels
+    (5 voxel bins, 3 for frames). Raises on a missing weight and on any
+    unused leaf."""
     leaves = _flatten(params)
+    scorer = any(k.startswith("patchify/scorer/") for k in leaves)
     used = set()
     sd = {}
-    for tkey, (fpath, kind) in build_mapping().items():
+    for tkey, (fpath, kind) in build_mapping(scorer).items():
         if kind == "norm":
             names = {"scale": "weight", "bias": "bias"}
         else:

@@ -4,6 +4,7 @@ path runs (path_variants: the ring type of the path's configuration by the
 engine's rule), on a made-up record of the kernel phase and the paths'
 launches.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -148,7 +149,8 @@ def _tracking_paths():
     """(label, kernels it launches) of every tracking path that launches
     one: the slice, eval and bench paths and the g8c launch count."""
     out = [(label, names) for label, (_, names) in chip_smoke.PATHS.items()]
-    out += [(label, (name,)) for label, (_, name) in chip_smoke.EVAL_PATHS.items()]
+    out += [(label, (name,)) for label, (_, name, _) in chip_smoke.EVAL_PATHS.items()]
+    out += [(label, (name,)) for label, (_, name, _) in chip_smoke.FRAME_PATHS.items()]
     out += [(label, (name,))
             for label, (_, _, name) in chip_smoke.BENCH_PATHS.items()]
     out.append((chip_smoke.G8C_LAUNCHES, ("corr_group",)))
@@ -193,13 +195,13 @@ def test_split_resident_path_charges_level_1_and_the_resident_level_4():
 
 
 def test_parent_sources_and_what_the_ab_compares():
-    """--parent builds the parent's K13'', K15'' and K14' with their headers
-    beside the kernels that include corr_mma.cuh; the A/B holds every kernel
-    on the edge pipeline, K6'' and K11'' among them, and K13'' in every mode
-    on the random layout and K15'' with and without extraction (unchanged
-    since the parent) to the parent's bits, and K14' / K14'' in five modes
-    on both copy routes (and `single` on one block) to the parent's exact
-    output."""
+    """--parent builds the parent's K13'', K15'' and K14'' with their
+    headers beside the kernels that include corr_mma.cuh; the A/B holds
+    every kernel on the edge pipeline, K6'' and K11'' among them, and K13''
+    in every mode on the random layout and K15'' with and without
+    extraction (unchanged since the parent) to the parent's bits, and K14''
+    in five modes on both copy routes (and `single` on one block) to the
+    parent's exact output."""
     for name in ("corr_band_ablate.cu", "corr_frame_probe.cu", "copy_probe.cu",
                  "window_probe.cuh", "corr_level.cu", "corr_level_resident.cu",
                  "corr_pipe.cuh", "corr_mma.cuh", "corr_common.cuh",
@@ -251,3 +253,120 @@ def test_frame_staged_counts_groups_within_block_runs():
     inputs = (torch.zeros(16, 24, 1), None, y0, x08)
     for grid, windows in ((1, 4), (2, 4), (7, 7)):
         assert chip_smoke.frame_staged(inputs, 3, grid) == windows
+
+
+def test_frame_and_gradient_paths_charge_k1_at_bf16():
+    """The frame-input path (the frame drivers' configuration on the eval
+    base's bf16 rings) and the gradient-selector eval path run K1 at bf16
+    on both levels; rule2_loss charges their launches there."""
+    for label in ("frames-rgb-random", "eval-eds-bf16-gradient"):
+        assert chip_smoke.path_variants("corr_pyramid", label,
+                                        {"corr_pyramid": 79}) == [
+            ("both levels bf16", 1.0)]
+    cfg = chip_smoke.path_config("frames-rgb-random")
+    assert (cfg.EVS, cfg.BINS, cfg.PATCH_SELECTOR) == (False, 3, "random")
+    assert chip_smoke.path_config("eval-eds-bf16-gradient").PATCH_SELECTOR == \
+        "gradient"
+    loss = _losses({"frames-rgb-random": {"corr_pyramid": 79},
+                    "eval-eds-bf16-gradient": {"corr_pyramid": 79}})
+    assert loss["corr_pyramid"] == pytest.approx(2 * 79 * (0.28 - 0.057))
+    # each runs one trial
+    assert chip_smoke.EVAL_PATHS["eval-eds-bf16-gradient"][2] == 1
+    assert chip_smoke.FRAME_PATHS["frames-rgb-random"][2] == 1
+
+
+def test_reference_phase_lists_the_new_configurations():
+    """The frame input with the random selector and the gradient selector
+    (top-k) are among the reference configurations, and each of them
+    builds a VOConfig over the phase's small base."""
+    from devo_tpu_torch.runtime.config import VOConfig
+    frames = chip_smoke.REFERENCE["f32 rings frames random"]
+    assert (frames["EVS"], frames["BINS"], frames["PATCH_SELECTOR"]) == (
+        False, 3, "random")
+    assert chip_smoke.REFERENCE["f32 rings gradient topk"][
+        "PATCH_SELECTOR"] == "gradient"
+    assert len(chip_smoke.REFERENCE) == 23
+    # one bound for every configuration: the tolerance, or twice the CPU's
+    # own spread under four one-ulp moves of its inputs where that is larger
+    assert chip_smoke.REF_SPREAD == 2.0
+    assert {what for what, _ in chip_smoke.REF_MOVES.values()} == {
+        "frames", "weights", "depths"}
+    for knobs in chip_smoke.REFERENCE.values():
+        cfg = VOConfig(**{**chip_smoke.REF_BASE, **knobs})
+        assert cfg.SCORER_EVAL_MODE == "topk" and not cfg.MIXED_PRECISION
+
+
+def test_ulp_move_moves_each_nonzero_entry_one_step():
+    a = np.asarray([0.0, 1.0, -2.5, 255.0, 1e-30], np.float32)
+    for toward in (np.inf, -np.inf):
+        b = chip_smoke.ulp_move(a, toward)
+        assert b.dtype == np.float32 and b[0] == 0.0
+        np.testing.assert_array_equal(b[1:], np.nextafter(a[1:], np.float32(toward)))
+        assert (b[1:] != a[1:]).all()
+
+
+def test_reference_knobs_take_overrides():
+    """`chip_smoke.py --reference LABEL[:KEY=VALUE,...]`: the entry's knobs
+    with the overrides read as literals; an unknown label raises."""
+    knobs = chip_smoke.reference_knobs(
+        "f32 rings gradient topk:PATCHES_PER_FRAME=16, KEYFRAME_THRESH=15.0")
+    assert knobs == {**chip_smoke.REFERENCE["f32 rings gradient topk"],
+                     "PATCHES_PER_FRAME": 16, "KEYFRAME_THRESH": 15.0}
+    assert chip_smoke.reference_knobs("i8-mono") == chip_smoke.REFERENCE["i8-mono"]
+    with pytest.raises(KeyError):
+        chip_smoke.reference_knobs("f32 rings nothing")
+
+
+def test_reference_phase_holds_the_cpu_to_itself(capsys, monkeypatch):
+    """The reference phase's comparisons, run with the CPU in the card's
+    place on the configuration that needs no kernel ("window"): the same
+    decisions, edge sets and patch coordinates, no gap, and a spread of the
+    moved CPU runs that is nonzero and far inside the tolerance. A second
+    run gives the CPU's bits again and takes the spread measured."""
+    import re
+    monkeypatch.setattr(chip_smoke, "REF_SPREADS", {})
+    # one thread: beside other test processes the small engines' many tiny
+    # parallel regions oversubscribe the cores and take minutes, not seconds
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for _ in range(2):
+            chip_smoke.reference_phase(torch.device("cpu"), "cpu",
+                                       "f32 rings window",
+                                       chip_smoke.REFERENCE["f32 rings window"])
+    finally:
+        torch.set_num_threads(threads)
+    assert len(chip_smoke.REF_SPREADS) == 1
+    line = capsys.readouterr().out.splitlines()[-1]
+    assert "edge sets and patch coordinates" in line
+    # (gap, spread) over the frames and at terminate() before and after
+    pairs = re.findall(r"(\d\.\d+e[-+]\d+) \((\d\.\d+e[-+]\d+)\)", line)
+    assert len(pairs) == 3
+    for gap, spread in pairs:
+        assert float(gap) == 0.0
+        assert 0 < float(spread) < chip_smoke.REF_TOL[False] / 10
+
+
+def test_train_pieces_run_before_the_profiled_slice():
+    """main runs the train_pieces phase after the bench paths and before
+    the profiled slice, after which nothing is timed."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("train_pieces_phase(dev, gpu)") < src.index(
+        "run_slice(PROFILED)")
+    assert src.index("BENCH_PATHS.items()") < src.index("train_pieces_phase")
+    assert src.index("FRAME_PATHS.items()") < src.index("BENCH_PATHS.items()")
+
+
+def test_rgb_stream_and_ba_scene():
+    """The frame path's frames: 3-channel, 0-255, from memory; the
+    train_pieces phase's BA scene: tests/test_ba.py's sizes."""
+    stream = chip_smoke.rgb_stream(2)
+    assert len(stream) == 2 and stream[0].shape == (3, chip_smoke.HT,
+                                                    chip_smoke.WD)
+    assert stream[0].min() >= 0 and stream[0].max() <= 255
+    assert not np.array_equal(stream[0], stream[1])
+    poses, patches, intr, ii, jj, kk, target, mask, weight = chip_smoke.ba_scene()
+    assert poses.shape == (8, 7) and patches.shape == (192, 27)
+    assert ii.shape == jj.shape == kk.shape == mask.shape == (864,)
+    assert target.shape == weight.shape == (864, 2) and not mask.all()

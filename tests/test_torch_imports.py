@@ -75,7 +75,10 @@ def test_new_modules_are_covered():
             "devo_tpu_torch.scripts.probe_level_split",
             "devo_tpu_torch.scripts.probe_l4_resident",
             "devo_tpu_torch.scripts.profile_step",
-            "devo_tpu_torch.scripts.bench_eval_path"} <= names
+            "devo_tpu_torch.scripts.bench_eval_path",
+            "devo_tpu_torch.lie.sim3", "devo_tpu_torch.lie.rxso3",
+            "devo_tpu_torch.geom.projective",
+            "devo_tpu_torch.eval.frames"} <= names
 
 
 OPTIONAL = ("h5py", "cv2", "yaml", "matplotlib")
