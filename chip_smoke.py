@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py [--parent DIR]
     python3 chip_smoke.py --reference LABEL[:KEY=VALUE,...] [--reference ...]
+        [--more-moves]
 
 The second form builds the kernels and runs the reference phase (4 below)
-alone, on the named entries of REFERENCE with VOConfig overrides.
+alone, on the named entries of REFERENCE with VOConfig overrides;
+`--more-moves` measures the CPU's spread under REF_MORE_MOVES too.
 
 1. Prints the card (`nvidia-smi` name and power limit) and the torch / CUDA
    versions.
@@ -189,7 +191,18 @@ alone, on the named entries of REFERENCE with VOConfig overrides.
    own: ops/corr.corr_pyramid_train's forward at E = 12288 is the plain
    corr_pyramid's bits and within TOL of K1; its backward with the keep
    mask passed in, and the differentiable BA step's outputs and gradients
-   (ops/ba.gauss_newton_step_diff), on the card against the CPU. The
+   (ops/ba.gauss_newton_step_diff), on the card against the CPU. Then the
+   train phase (train_phase), no kernel of its own: one train step of
+   devo_tpu_torch.train.trainer at small dims (TRAIN_SMALL) on the card
+   against the CPU from the same weights and draws (loss terms, gradients,
+   parameters, within TRAIN_TOL); the full-width step (TRAIN_FULL: dims
+   384/128/32, 480x640, 15 frames, 18 iterations, 80 patches, batch 1, on
+   synthetic clips of the sliding texture with a straight-line ground
+   truth) three times with remat on and three with it off, each finite with
+   grad_nonfinite 0 and moving parameters, its step ms and peak GiB on
+   lines of their own, and one structure-only step; the stability run (50
+   steps at small dims, PASS); the correlation counters read 0 across it.
+   The
    profiled path of phase 5 runs after this one, then the g8c launch count
    (the int8 g8c configuration, 8 frames under torch.profiler after 24:
    kernel launches a frame, corr_group once a level and update, no
@@ -1489,6 +1502,13 @@ REF_MOVES = {"frames +1 ulp": ("frames", np.inf),
              "frames -1 ulp": ("frames", -np.inf),
              "weights +1 ulp": ("weights", np.inf),
              "depths +1 ulp": ("depths", np.inf)}
+# more moves, for `--reference ... --more-moves` alone (each is one more CPU
+# run of every configuration that measures its spread)
+REF_MORE_MOVES = {"weights -1 ulp": ("weights", -np.inf),
+                  "depths -1 ulp": ("depths", -np.inf),
+                  "intrinsics +1 ulp": ("intrinsics", np.inf),
+                  "intrinsics -1 ulp": ("intrinsics", -np.inf)}
+REF_OUT = "chiprun_out/reference"
 REF_SPREAD = 2.0
 # the spreads measured in this run, by the bits of the CPU run (reference_phase)
 REF_SPREADS = {}
@@ -1513,7 +1533,7 @@ def reference_knobs(spec: str) -> dict:
     return knobs
 
 
-def reference_phase(dev, gpu: str, label: str, knobs: dict):
+def reference_phase(dev, gpu: str, label: str, knobs: dict, moves=None):
     """The port on the card against the port on the CPU (plain correlation,
     CPU convolutions and sums), which the repo's CPU tests hold against the
     JAX package: a small f32 configuration with deterministic top-k patch
@@ -1522,10 +1542,13 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     edge set and new patch coordinates, poses within the bound; then the
     same terminate() timestamps and poses within the bound, before and
     after N_UPDATES extra updates. The bound at each point: max(REF_TOL,
-    REF_SPREAD x the CPU's own spread there, REF_MOVES). With EVS=False the
+    REF_SPREAD x the CPU's own spread there, `moves`). With EVS=False the
     frames are 3-channel 0-255 images of a sliding texture, and the random
     selector's coordinates are drawn once and handed to every engine, as
-    the depths are."""
+    the depths are. `moves`: the moves of the spread (REF_MOVES by
+    default). Where the card leaves both the tolerance and the CPU's own
+    spread at some frame, the first such frame is printed with its new patches' coordinates, the edge
+    set's size and both poses, and written under REF_OUT."""
     from devo_tpu_torch.nets.evonet import EVONet
     from devo_tpu_torch.ops import corr as corr_plain
     from devo_tpu_torch.ops import corr_cuda
@@ -1554,7 +1577,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
 
     cpu = torch.device("cpu")
 
-    def drive(d, w, b, dp):
+    def drive(d, w, b, dp, intr=intr):
         """One engine over the frames: per frame (n, cull, edge set, new
         patch coordinates, poses), then terminate() before and after
         N_UPDATES updates, and whether it kept level 4 resident."""
@@ -1609,23 +1632,50 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     # the CPU's own spread; a configuration whose CPU run gives an earlier
     # one's bits from the same inputs runs the same CPU computation (the
     # kernel choices differ on the card alone) and has its spread
-    key = hashlib.sha256(b"".join(a.tobytes() for a in points(ref))).digest()
+    moves = REF_MOVES if moves is None else moves
+    key = hashlib.sha256(b"".join(a.tobytes() for a in points(ref))
+                         + repr(sorted(moves)).encode()).digest()
     if key not in REF_SPREADS:
         moved = []
-        for what, toward in REF_MOVES.values():
-            w, b, dp = weights, base, depths
+        for what, toward in moves.values():
+            w, b, dp, it = weights, base, depths, intr
             if what == "weights":
                 w = {k: torch.from_numpy(ulp_move(v.numpy(), toward))
                      if v.is_floating_point() else v for k, v in weights.items()}
             elif what == "frames":
                 b = ulp_move(base, toward)
+            elif what == "intrinsics":
+                it = ulp_move(intr, toward)
             else:
                 dp = ulp_move(depths, toward)
-            moved.append(points(drive(cpu, w, b, dp)))
+            moved.append(points(drive(cpu, w, b, dp, it)))
         REF_SPREADS[key] = [max(gap(m[j], r) for m in moved)
                             for j, r in enumerate(points(ref))]
     spreads = REF_SPREADS[key]
     gaps = [gap(g, r) for g, r in zip(points(got), points(ref))]
+    # frames where the card is farther from the CPU than both the tolerance
+    # and the CPU from itself
+    parted = [j for j in range(REF_FRAMES) if gaps[j] > max(tol, spreads[j])]
+    if parted:
+        j = parted[0]
+        g, r = got[0][j], ref[0][j]
+        import os
+        os.makedirs(REF_OUT, exist_ok=True)
+        name = "".join(c if c.isalnum() else "_" for c in label)
+        with open(os.path.join(REF_OUT, f"{name}.json"), "w") as f:
+            json.dump(dict(label=label, moves=list(moves), frame=j,
+                           gap=gaps[j], spread=spreads[j], beyond=parted,
+                           n=g[0], edges=sorted(g[2]),
+                           new_coords=g[3].tolist(), poses_card=g[4].tolist(),
+                           poses_cpu=r[4].tolist(), gaps=gaps,
+                           spreads=spreads), f)
+        print(f"reference [{label}]: the card first leaves the CPU's spread at "
+              f"frame {j} ({gaps[j]:.3e} > {spreads[j]:.3e}; beyond it at "
+              f"frames {parted}), n {g[0]}, {len(g[2])} edges (the CPU's), "
+              f"new patches at {g[3].reshape(-1, 2).tolist()}; the last pose "
+              f"card {np.round(g[4][-1], 5).tolist()} cpu "
+              f"{np.round(r[4][-1], 5).tolist()} (all in {REF_OUT}/{name}.json)",
+              flush=True)
     for j, (err, spread) in enumerate(zip(gaps, spreads)):
         if not err <= max(tol, REF_SPREAD * spread):
             where = (f"frame {j}" if j < REF_FRAMES else "terminate() "
@@ -1639,7 +1689,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict):
     print(f"reference [{label}]: port on {dev.type} vs port on cpu, "
           f"{REF_HT}x{REF_WD}, {REF_FRAMES} frames + {N_UPDATES} updates: same "
           f"keyframes, culls ({culls}), edge sets and patch coordinates; poses "
-          f"max abs diff (CPU spread under {len(REF_MOVES)} one-ulp moves): "
+          f"max abs diff (CPU spread under {len(moves)} one-ulp moves): "
           f"frames {gaps[worst]:.3e} ({max(spreads[:REF_FRAMES]):.3e}), "
           f"terminate() before the updates {gaps[-2]:.3e} ({spreads[-2]:.3e}), "
           f"after {gaps[-1]:.3e} ({spreads[-1]:.3e}); bound max({tol}, "
@@ -2124,6 +2174,171 @@ def train_pieces_phase(dev, gpu: str):
           f"f32 (either) vs f64 on the CPU "
           + ", ".join(f"{k} {v:.3e}" for k, v in f64_errs.items())
           + f" [{gpu}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The trainer (devo_tpu_torch/train/): no kernel of its own. Its correlation is
+# the plain corr_pyramid_train, as devo_tpu's is XLA.
+
+# (a) the card against the CPU: one train step at small dims
+TRAIN_SMALL = dict(dim_inet=32, dim_fnet=16, dim=8, iters=3, ppi=4,
+                   grow_after=2)
+TRAIN_SMALL_CLIP = (5, 64, 96)             # frames, height, width
+# every tensor within TRAIN_TOL relative plus TRAIN_TOL of its largest entry
+# (the CPU tests' rule against devo_tpu, set by the differentiable BA step's
+# f32 distance from f64, which every unrolled step runs twice), plus 1e-6 of
+# the network's largest gradient entry for those that are 0 analytically;
+# the parameters within 2 x lr: AdamW's first step is lr x g / (|g| + eps),
+# whose sign a gradient entry near 0 may take either way
+TRAIN_TOL = 1e-3
+# (b) the full-width step: the reference's training scale
+TRAIN_FULL = dict(dim_inet=384, dim_fnet=128, dim=32, iters=18, ppi=80,
+                  grow_after=8, corr_dropout=0.2)
+TRAIN_FULL_CLIP = (15, 480, 640)
+TRAIN_FULL_STEPS = 3
+# (c) stability at small dims: 50 steps, not train_stability's 100, which take
+# 175 s on the card (1.75 s a step at small dims: launch-bound) and would
+# hold the phase over its 3 minutes
+TRAIN_STABILITY_STEPS = 50
+
+
+def train_clip(n_frames: int, ht: int, wd: int):
+    """One synthetic clip (train/synthetic.py: the bench's sliding texture,
+    a straight-line ground truth, constant disparity) as a batch of 1."""
+    from devo_tpu_torch.train.__main__ import _make_batch
+    from devo_tpu_torch.train.synthetic import SyntheticClips
+    data = SyntheticClips(n_frames, ht, wd)
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in _make_batch(data, [0]).items()}
+
+
+def train_against_cpu(dev) -> dict:
+    """One train step at TRAIN_SMALL on `dev` and on the CPU from the same
+    seeded weights with the same draws (the trainer's default draws come
+    from CPU generators seeded by step and sample): the loss terms, the
+    gradients after the step's rules and the parameters after it. Returns
+    the distances; raises beyond the tolerance."""
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.train.trainer import Trainer
+    from devo_tpu_torch.utils.params import random_state_dict
+
+    batch = train_clip(*TRAIN_SMALL_CLIP)
+    kw = dict(TRAIN_SMALL)
+    dims = {k: kw.pop(k) for k in ("dim_inet", "dim_fnet", "dim")}
+    runs = {}
+    for key, d in (("cpu", torch.device("cpu")), ("dev", dev)):
+        net = EVONet(**dims)
+        net.load_state_dict(random_state_dict(net, 0))
+        tr = Trainer(net=net, total_steps=100, steps_unrolled=kw["iters"],
+                     ppi=kw["ppi"], grow_after=kw["grow_after"], device=d)
+        lr0 = tr.lr()
+        m = tr.train_step(batch)
+        runs[key] = (m, {n: p.grad.detach().cpu().double()
+                         for n, p in tr.net.named_parameters()},
+                     {n: p.detach().cpu().double()
+                      for n, p in tr.net.named_parameters()})
+    (m_cpu, g_cpu, p_cpu), (m_dev, g_dev, p_dev) = runs["cpu"], runs["dev"]
+    loss_err = max(abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+                   for k in ("loss", "flow", "pose", "scores"))
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    grad_err, grad_used = 0.0, 0.0
+    for name, g in g_cpu.items():
+        diff = (g_dev[name] - g).abs()
+        allowed = TRAIN_TOL * g.abs() + TRAIN_TOL * float(g.abs().max()) \
+            + 1e-6 * top
+        # the share of the tolerance used, and the distance relative to the
+        # tensor's largest entry (at least 1e-3 of the network's largest:
+        # the gradients that are 0 analytically are noise)
+        grad_used = max(grad_used, float((diff / allowed).max()))
+        grad_err = max(grad_err, float(diff.max()) / max(float(g.abs().max()),
+                                                          1e-3 * top))
+    grad_ok = grad_used <= 1.0
+    param_err = max(float((p_dev[n] - p).abs().max()) for n, p in p_cpu.items())
+    out = dict(loss_rel=loss_err, grad_rel=grad_err, grad_used=grad_used,
+               param_abs=param_err,
+               param_bound=2 * lr0, loss=m_dev["loss"],
+               nonfinite=(m_cpu["grad_nonfinite"], m_dev["grad_nonfinite"]))
+    if not (loss_err <= TRAIN_TOL and grad_ok and param_err <= 2 * lr0
+            and m_cpu["grad_nonfinite"] == m_dev["grad_nonfinite"] == 0
+            and np.isfinite(m_dev["loss"])):
+        raise RuntimeError(f"train step on {dev.type} against the CPU: {out}")
+    return out
+
+
+def stability_verdict(dev, steps: int = TRAIN_STABILITY_STEPS,
+                      log=None) -> dict:
+    """train_stability's run at its small defaults on synthetic clips."""
+    from devo_tpu_torch.scripts import train_stability
+    from devo_tpu_torch.train.synthetic import SyntheticClips
+    return train_stability.run(SyntheticClips(5, 64, 96), dev, steps=steps,
+                               log=log)
+
+
+def train_phase(dev, gpu: str):
+    """The trainer on the card: (a) one step at small dims against the
+    CPU; (b) the full-width step (TRAIN_FULL on TRAIN_FULL_CLIP, batch 1),
+    TRAIN_FULL_STEPS steps with remat on and with remat off, each finite
+    with grad_nonfinite 0 and parameters that move, its step ms and peak
+    GiB printed, then one structure-only step; (c) the stability run
+    (TRAIN_STABILITY_STEPS). The top device operations of the step come
+    from `python -m devo_tpu_torch.scripts.train_step --profile` (a
+    profile of its 750k kernels takes minutes to read). The
+    correlation counters are set to 0 before and must read 0 after:
+    training takes the plain correlation."""
+    from devo_tpu_torch.ops import corr_cuda
+    from devo_tpu_torch.scripts import train_step
+    from devo_tpu_torch.train.synthetic import SyntheticClips
+
+    t0 = time.perf_counter()
+    corr_cuda.reset_launches()
+    cmp = train_against_cpu(dev)
+    print(f"train (a) [{gpu}]: one step at {TRAIN_SMALL} on "
+          f"{TRAIN_SMALL_CLIP} (frames, H, W), card against cpu from the same "
+          f"weights and draws: loss terms {cmp['loss_rel']:.3e} relative, "
+          f"gradients {cmp['grad_rel']:.3e} of their tensor's largest entry "
+          f"(at least 1e-3 of the network's), {cmp['grad_used']:.3f} of the "
+          f"tolerance ({TRAIN_TOL} relative + {TRAIN_TOL} of the tensor's "
+          f"largest + 1e-6 of the network's), "
+          f"parameters {cmp['param_abs']:.3e} (bound 2 x lr = "
+          f"{cmp['param_bound']:.3e}); loss {cmp['loss']:.6f}", flush=True)
+
+    data = SyntheticClips(*TRAIN_FULL_CLIP)
+    for remat in (True, False):
+        rec = train_step.run(data, dev, remat=remat, steps=TRAIN_FULL_STEPS,
+                             **TRAIN_FULL)
+        if not (rec["finite"] and rec["params_changed"]
+                and not any(rec["grad_nonfinite"])):
+            raise RuntimeError(f"full-width train step, remat {remat}: {rec}")
+        mode = "on" if remat else "off"
+        print(f"train (b) step ms, remat {mode}: {rec['step_ms']:.1f} "
+              f"(steps {rec['steps_ms']})", flush=True)
+        print(f"train (b) peak GiB, remat {mode}: {rec['peak_gib']:.3f}",
+              flush=True)
+        print(f"train (b) remat {mode} [{gpu}]: {rec['shape']}, losses "
+              f"{[round(v, 4) for v in rec['loss']]}, grad_nonfinite "
+              f"{rec['grad_nonfinite']}", flush=True)
+    so = train_step.run(data, dev, remat=True, steps=1, structure_only=True,
+                        **TRAIN_FULL)
+    if not (so["finite"] and so["params_changed"]
+            and not any(so["grad_nonfinite"])):
+        raise RuntimeError(f"full-width structure-only step: {so}")
+    print(f"train (b) structure-only step: {so['step_ms']:.1f} ms, loss "
+          f"{so['loss'][0]:.4f}", flush=True)
+
+    st = stability_verdict(dev)
+    print(f"train (c) stability [{gpu}]: {st['steps']} steps, "
+          f"grad_nonfinite total {st['grad_nonfinite_total']}, full-phase "
+          f"head {st['fullphase_head']:.4f} -> tail {st['fullphase_tail']:.4f}"
+          f": {'PASS' if st['pass'] else 'FAIL'} ({st['wall_s']:.1f} s)",
+          flush=True)
+    if not st["pass"]:
+        raise RuntimeError(f"train stability failed: {st}")
+    if any(corr_cuda.launches.values()):
+        raise RuntimeError(f"training launched a correlation kernel: "
+                           f"{corr_cuda.launches}")
+    print(f"train phase: no correlation kernel launched "
+          f"({sum(corr_cuda.launches.values())}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2957,6 +3172,9 @@ def main(argv=None):
                     help="a directory holding the parent commit's "
                     f"{', '.join(PARENT_SOURCES)}: time the redesigned kernels "
                     "against them after the kernel phase")
+    ap.add_argument("--more-moves", action="store_true",
+                    help="with --reference: the CPU's spread under "
+                    "REF_MORE_MOVES as well as REF_MOVES")
     ap.add_argument("--reference", metavar="LABEL[:KEY=VALUE,...]",
                     action="append",
                     help="run the reference phase alone on this entry of "
@@ -2987,7 +3205,9 @@ def main(argv=None):
         failed = []
         for spec in args.reference:
             try:
-                reference_phase(dev, gpu, spec, reference_knobs(spec))
+                reference_phase(dev, gpu, spec, reference_knobs(spec),
+                                {**REF_MOVES, **REF_MORE_MOVES}
+                                if args.more_moves else None)
             except RuntimeError as e:
                 print(f"reference [{spec}] failed: {e}", flush=True)
                 failed.append(spec)
@@ -3031,6 +3251,7 @@ def main(argv=None):
         by_path[label], err = bench_phase(dev, gpu, label)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     train_pieces_phase(dev, gpu)
+    train_phase(dev, gpu)
     run_slice(PROFILED)              # last: nothing is timed after a profile
     by_path[G8C_LAUNCHES] = g8c_launch_phase(dev, gpu)
     by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)

@@ -27,11 +27,13 @@ import numpy as np
 from devo_tpu_torch.data.benchmarks import (benchmark_evs_iterator,
                                             load_benchmark_gt)
 from devo_tpu_torch.data.loaders import (BENCHMARK_RES, benchmark_iterator,
-                                         load_tum_traj)
+                                         load_tum_traj, voxel_h5_iterator)
+from devo_tpu_torch.data.tartan import TARTAN_INTRINSICS, evs_scene_dir
 from devo_tpu_torch.eval import frames
 from devo_tpu_torch.eval.ate import aggregate_results
 from devo_tpu_torch.eval.harness import evaluate_sequence
 from devo_tpu_torch.runtime.config import EVAL_CONFIGS, VOConfig
+from devo_tpu_torch.train.validate import _load_tartan_gt
 from devo_tpu_torch.utils.params import load_weights
 
 BENCHMARKS = tuple(BENCHMARK_RES)
@@ -106,11 +108,9 @@ def evaluate_benchmark(benchmark: str, args) -> dict:
     """Every scene of the split through evaluate_sequence, one engine
     across scenes and trials, in the input family `args.family`. Returns
     {scene: metrics, "_summary": the benchmark's aggregation}."""
-    if benchmark == "tartanair":
-        raise NotImplementedError(
-            "the tartanair benchmark reads pre-voxelized TartanAir-EVS trees "
-            "through data/tartan.py and train/validate.py, which come with "
-            "the training slice of the port (ROADMAP Queue 1)")
+    if benchmark == "tartanair" and args.family != "evs":
+        raise ValueError("tartanair: the pre-voxelized TartanAir-EVS trees "
+                         "hold event voxels alone (--family evs)")
     if args.family == "evs":
         cfg, load_gt, iterator_for = _evs_family(benchmark, args)
         suffix = ""
@@ -129,6 +129,8 @@ def evaluate_benchmark(benchmark: str, args) -> dict:
         scenes = [""]
     results = {}
     engine_cache = {}   # one engine across scenes and trials
+    if benchmark == "tartanair":
+        return _evaluate_tartanair(cfg, weights, scenes, args, engine_cache)
     for scene in scenes:
         datapath = os.path.join(args.datapath, scene)
         try:
@@ -159,6 +161,39 @@ def evaluate_benchmark(benchmark: str, args) -> dict:
     results["_summary"] = aggregate_results(
         {k: v["ate_trials"] for k, v in results.items() if "ate_trials" in v},
         benchmark + suffix, outfolder=args.outdir)
+    return results
+
+
+def _evaluate_tartanair(cfg, weights, scenes, args, engine_cache) -> dict:
+    """The TartanAir-EVS validation benchmark (evals/common.py:108-142):
+    one pre-voxelized h5 a frame under <env>/<difficulty>/evs_left/<Pxxx>/
+    h5, the ground truth from the parallel image_left/pose_left.txt (NED ->
+    camera permutation, the first pose skipped: voxel t holds the events
+    between frames t - 1 and t; upstream DEVO's
+    evals/eval_evs/eval_tartan_evs.py:38-55), TARTAN_INTRINSICS, 480x640."""
+    results = {}
+    for scene in scenes:
+        scenedir = evs_scene_dir(args.datapath, scene)
+        vdir = os.path.join(scenedir, "h5") \
+            if os.path.isdir(os.path.join(scenedir, "h5")) else scenedir
+        traj_gt = _load_tartan_gt(scenedir)
+        tss_gt = np.arange(len(traj_gt), dtype=np.float64)
+        med, all_res, fps = evaluate_sequence(
+            cfg, weights,
+            make_iterator=lambda vd=vdir, gt=tss_gt: voxel_h5_iterator(
+                vd, TARTAN_INTRINSICS, tss_us=gt * 1e6),
+            traj_gt=traj_gt, tss_gt=tss_gt, trials=args.trials,
+            ht=480, wd=640, outdir=args.outdir,
+            name=scene.replace("/", "_") or "tartanair",
+            engine_cache=engine_cache, max_diff_s=0.5, viz=args.viz,
+            device=args.device)
+        results[scene] = dict(ate_cm=med.ate, mpe=med.mpe, r_rmse=med.r_rmse,
+                              fps=float(np.mean(fps)),
+                              ate_trials=[r.ate for r in all_res])
+        print(f"{scene}: ATE {med.ate:.2f} cm  {np.mean(fps):.1f} FPS")
+    results["_summary"] = aggregate_results(
+        {k: v["ate_trials"] for k, v in results.items()},
+        "tartanair", outfolder=args.outdir)
     return results
 
 

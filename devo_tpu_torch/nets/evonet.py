@@ -65,7 +65,9 @@ class Patchifier(nn.Module):
         """voxels (n, H, W, bins). `generator` feeds the selectors' draws;
         tests inject them instead: `noise` for the "multi" sampler,
         `candidates` (x, y) for the 3x-random draws of training, `coords`
-        (x, y), each (n, ppi), for the random selector. `disps` (n, h, w):
+        (x, y), each (n, ppi), for the random selector; either may be a
+        callable that draws them, `candidates(n, k, x_high, y_high)` and
+        `coords(n, ppi, h, w)` (the trainer's draws). `disps` (n, h, w):
         the inverse depths the patches take (ones when left out).
         `training` takes the training draws (devo_tpu/nets/evonet.py:87-139):
         the scorer's 3x-random candidates by score, the gradient
@@ -74,6 +76,11 @@ class Patchifier(nn.Module):
         P = self.patch_size
         ppi = patches_per_image
         x = voxels.permute(0, 3, 1, 2)
+        if x.device.type == "cpu" and torch.is_grad_enabled():
+            # the CPU's backward of a convolution of this channels-last view
+            # corrupts the heap under several intra-op threads (oneDNN, torch
+            # 2.13 for the CPU); a contiguous copy takes the other path
+            x = x.contiguous()
         fmap = (self.fnet(x) / 4.0).float().permute(0, 2, 3, 1)  # (n,h,w,Df)
         imap = (self.inet(x) / 4.0).float().permute(0, 2, 3, 1)  # (n,h,w,Di)
         h, w = fmap.shape[1:3]
@@ -100,6 +107,8 @@ class Patchifier(nn.Module):
                                       scorer_eval_use_grid, noise)
             xs, ys = xs.clamp(1, w - 2), ys.clamp(1, h - 2)
         elif coords is not None:
+            if callable(coords):
+                coords = coords(n, ppi, h, w)
             xs, ys = (c.to(fmap.device) for c in coords)
         else:
             xs, ys = sel.select_random(n, h, w, ppi, generator, fmap.device)

@@ -210,6 +210,20 @@ def event_gradient(voxels: torch.Tensor) -> torch.Tensor:
     return acc / 16.0
 
 
+def _candidates(candidates, generator, n: int, k: int, x_high: int,
+                y_high: int, device):
+    """k uniform candidates (x, y), each (n, k), in [0, x_high) x [0,
+    y_high): drawn from `generator`, or `candidates` itself, or what the
+    callable `candidates(n, k, x_high, y_high)` returns (the trainer's
+    draws, which know no map shape)."""
+    if candidates is None:
+        return tuple(torch.randint(0, hi, (n, k), generator=generator,
+                                   device=device) for hi in (x_high, y_high))
+    if callable(candidates):
+        return candidates(n, k, x_high, y_high)
+    return candidates
+
+
 def _top_candidates(scores, x, y, ppi: int):
     """The ppi candidates of the largest score, in descending order, the
     lower candidate index first among equal scores (lax.top_k's order)."""
@@ -223,13 +237,12 @@ def select_3xrandom(weights: torch.Tensor, ppi: int, generator=None,
     """PatchSelector('3xrandom') (selector.py:92-105): 3*ppi uniform
     candidates over the whole map, the ppi of the largest weight kept, +1 on
     the returned coords; the gradient selector's training draw
-    (enet.py:135-137). `candidates` = (x, y), each (n, 3*ppi), replaces the
-    draw from `generator`."""
+    (enet.py:135-137). `candidates` = (x, y), each (n, 3*ppi), or a
+    callable that returns them (`_candidates`), replaces the draw from
+    `generator`."""
     n, h, w = weights.shape
-    if candidates is None:
-        candidates = tuple(
-            torch.randint(0, hi, (n, 3 * ppi), generator=generator,
-                          device=weights.device) for hi in (w, h))
+    candidates = _candidates(candidates, generator, n, 3 * ppi, w, h,
+                             weights.device)
     x, y, _ = _top_candidates(weights, *candidates, ppi)
     return x + 1, y + 1
 
@@ -241,9 +254,7 @@ def select_training_scorer(scores: torch.Tensor, ppi: int, generator=None,
     sorts ascending and takes the tail). Returns the coords (+1) and their
     scores. `candidates` as for select_3xrandom."""
     n, h, w = scores.shape
-    if candidates is None:
-        candidates = tuple(
-            torch.randint(0, hi - 2, (n, 3 * ppi), generator=generator,
-                          device=scores.device) for hi in (w, h))
+    candidates = _candidates(candidates, generator, n, 3 * ppi, w - 2, h - 2,
+                             scores.device)
     x, y, s = _top_candidates(scores, *candidates, ppi)
     return x + 1, y + 1, s

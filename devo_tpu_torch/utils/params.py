@@ -129,3 +129,24 @@ def random_state_dict(net: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor
             fan_in = p[0].numel()
             sd[name] = torch.randn(p.shape, generator=g) / fan_in ** 0.5
     return sd
+
+
+def warm_start(state_dict, net: torch.nn.Module, verbose: bool = True):
+    """The RGB -> event warm start (upstream DEVO's train.py:114-138; the
+    counterpart of devo_tpu/utils/torch_import.py:173-203): `net` takes
+    every weight of `state_dict` (or of the checkpoint at that path) whose
+    name and shape match its own, and keeps its initialization for the rest,
+    in practice the two 3-channel input convolutions
+    ('patchify.{fnet,inet}.conv1.weight', (32, 3, 7, 7) against the event
+    network's (32, 5, 7, 7)). Returns the names left at their
+    initialization."""
+    src = load_weights(state_dict)
+    own = net.state_dict()
+    take = {k: v for k, v in src.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    net.load_state_dict(take, strict=False)
+    kept = sorted(k for k in own if k not in take)
+    if verbose and kept:
+        print(f"warm_start: {len(kept)} weights keep their initialization: "
+              f"{kept}")
+    return kept

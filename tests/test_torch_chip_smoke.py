@@ -370,3 +370,93 @@ def test_rgb_stream_and_ba_scene():
     assert poses.shape == (8, 7) and patches.shape == (192, 27)
     assert ii.shape == jj.shape == kk.shape == mask.shape == (864,)
     assert target.shape == weight.shape == (864, 2) and not mask.all()
+
+
+# ------------------------------------------------------------ train phase
+
+@pytest.fixture
+def two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_train_clip_moves_as_its_texture():
+    """The synthetic training clip: the bench's sliding texture, a camera
+    moving along x at constant disparity, so that a point's reprojection
+    from frame 0 into frame i moves it 3 * i pixels left, as the texture
+    moves."""
+    batch = chip_smoke.train_clip(5, 32, 48)
+    vox, poses, disps, intr = (batch[k][0] for k in
+                               ("voxels", "poses", "disps", "intrinsics"))
+    assert vox.shape == (5, 32, 48, 5) and disps.shape == (5, 32, 48)
+    assert torch.equal(vox[1][:, :45], vox[0][:, 3:])      # 3 px a frame
+    fx, d = float(intr[0]), float(disps[0, 0, 0])
+    assert torch.all(disps == d) and torch.all(poses[:, 3:6] == 0)
+    # w2c translation -3 i / (fx d): a point at x in frame 0 lies at
+    # x - fx * d * (3 i / (fx d)) = x - 3 i in frame i
+    np.testing.assert_allclose(poses[:, 0].numpy() * fx * d,
+                               -3.0 * np.arange(5), rtol=1e-6)
+
+
+def test_train_against_cpu_with_the_cpu_in_both_places(two_threads):
+    """The card-against-CPU step with the CPU in the card's place: the
+    same draws and weights give the same bits."""
+    out = chip_smoke.train_against_cpu(torch.device("cpu"))
+    assert out["loss_rel"] == out["grad_rel"] == out["param_abs"] == 0.0
+    assert out["nonfinite"] == (0, 0) and np.isfinite(out["loss"])
+    assert out["param_bound"] == pytest.approx(2 * 8e-5 / 25)
+
+
+def test_stability_verdict_rule():
+    from devo_tpu_torch.scripts.train_stability import verdict
+    falls = [5.0] * 10 + list(np.linspace(4.0, 2.0, 90))
+    assert verdict(falls, [0] * 100, 10)["pass"]
+    assert not verdict(falls, [0] * 99 + [1], 10)["pass"]
+    assert not verdict(falls[:10] + falls[10:][::-1], [0] * 100, 10)["pass"]
+    # the structure-only head is not compared
+    v = verdict([0.1] * 10 + [3.0] * 80 + [2.0] * 10, [0] * 100, 10)
+    assert v["pass"] and v["fullphase_head"] == 3.0
+
+
+def test_train_drivers_run_at_a_tiny_size_on_the_cpu(capsys, two_threads):
+    """scripts/train_step and scripts/train_stability through their main()
+    with --device cpu at a tiny size: one JSON line each."""
+    import json
+    from devo_tpu_torch.scripts import train_stability, train_step
+    rc = train_step.main(["--device", "cpu", "--height", "48", "--width", "64",
+                          "--n_frames", "5", "--iters", "2", "--ppi", "4",
+                          "--grow_after", "1", "--dims", "32", "16", "8",
+                          "--steps", "2", "--remat", "both", "--profile"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert rc == 0 and [r["remat"] for r in lines] == [True, False]
+    for r in lines:
+        assert r["finite"] and r["params_changed"] and r["card"] == "cpu"
+        assert r["grad_nonfinite"] == [0, 0] and len(r["steps_ms"]) == 2
+        assert r["top_ops"][0][0] == "(all)" and len(r["top_ops"]) > 5
+    rc = train_stability.main(["--device", "cpu", "--steps", "6", "--height",
+                               "48", "--width", "64"])
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["grad_nonfinite_total"] == 0 and out["steps"] == 6
+    assert rc == (0 if out["pass"] else 1)
+
+
+def test_train_drivers_refuse_a_machine_without_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from devo_tpu_torch.scripts import train_stability, train_step
+    for mod in (train_step, train_stability):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            mod.main([])
+
+
+def test_more_moves_are_one_ulp_moves_of_the_inputs():
+    """--more-moves adds moves of the same kind (one ulp toward +-inf) to
+    REF_MOVES, of inputs both engines take."""
+    assert not set(chip_smoke.REF_MOVES) & set(chip_smoke.REF_MORE_MOVES)
+    for what, toward in chip_smoke.REF_MORE_MOVES.values():
+        assert what in ("frames", "weights", "depths", "intrinsics")
+        assert toward in (np.inf, -np.inf)
+    assert len({**chip_smoke.REF_MOVES, **chip_smoke.REF_MORE_MOVES}) == 8

@@ -61,8 +61,16 @@ def test_parser_surface(capsys):
 
 
 def test_tartanair_waits_for_the_training_slice():
+    """The training slice brought the tartanair benchmark
+    (tests/test_torch_trainer.py runs it on a fake tree); its trees hold
+    event voxels alone, so a frame family is refused, and a missing tree
+    raises."""
+    args = cli.make_parser().parse_args(["tartanair", "--weights", "none.pth",
+                                         "--family", "rgb"])
+    with pytest.raises(ValueError, match="event voxels alone"):
+        cli.evaluate_benchmark("tartanair", args)
     args = cli.make_parser().parse_args(["tartanair", "--weights", "none.pth"])
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(FileNotFoundError):
         cli.evaluate_benchmark("tartanair", args)
 
 

@@ -78,7 +78,14 @@ def test_new_modules_are_covered():
             "devo_tpu_torch.scripts.bench_eval_path",
             "devo_tpu_torch.lie.sim3", "devo_tpu_torch.lie.rxso3",
             "devo_tpu_torch.geom.projective",
-            "devo_tpu_torch.eval.frames"} <= names
+            "devo_tpu_torch.eval.frames",
+            "devo_tpu_torch.data.tartan", "devo_tpu_torch.data.randaug",
+            "devo_tpu_torch.train", "devo_tpu_torch.train.forward",
+            "devo_tpu_torch.train.loss", "devo_tpu_torch.train.trainer",
+            "devo_tpu_torch.train.validate", "devo_tpu_torch.train.synthetic",
+            "devo_tpu_torch.train.__main__", "devo_tpu_torch.utils.logger",
+            "devo_tpu_torch.scripts.train_step",
+            "devo_tpu_torch.scripts.train_stability"} <= names
 
 
 OPTIONAL = ("h5py", "cv2", "yaml", "matplotlib")
