@@ -124,7 +124,8 @@ alone, on the named entries of REFERENCE with VOConfig overrides;
    choice and family (CORR_IMPL "pallas", "window", "gather") and for the
    int8 configurations, and for the frame input with the random selector
    (3-channel 0-255 frames, the selector's coordinates handed to both
-   engines) and the gradient selector (top-k): the same keyframes, culls,
+   engines), also at TUM-RGBD's aspect (64x88: a level-1 map of 16x22),
+   and the gradient selector (top-k): the same keyframes, culls,
    edge sets and new patch coordinates per frame, and poses and
    terminate() output (before and after the 12 extra updates) within one
    bound for every configuration: the stated tolerance, or twice the
@@ -171,13 +172,27 @@ alone, on the named entries of REFERENCE with VOConfig overrides;
    (frames-rgb-random): the frame drivers' configuration
    (eval/frames.frame_config: EVS=False, 3 channels, the random selector,
    bf16 rings, K1) over 48 frames of the texture's first three bins mapped
-   onto 0-255, from memory (the card's machine has no cv2), one trial. It must hold one engine per
+   onto 0-255, from memory (no image tree is on the card), one trial,
+   and the TUM-RGBD path (tum-rgb-random): the same at 256x352 with the
+   freiburg1 intrinsics scaled as eval/frames.tum_image_iterator scales
+   them; on both frame paths K1 is timed on the engine's final state beside
+   its plain version and its bound (frame_k1_timing). It must hold one engine per
    configuration, as many poses from trial 0 as from a fresh engine, finite
    ATE / MPE / R_rmse that the independent ATE cross-check confirms, the
    artifacts on disk, one launch of the configuration's kernel per
    correlation of the run (two for corr_fixed, one a level) and no
    plain-correlation call. Under random
-   weights the ATE says nothing about accuracy.
+   weights the ATE says nothing about accuracy. Then the viewer phase:
+   harness.run_voxel on the TUM path without and with the live viewer
+   (runtime/viewer.py) snapshotting at every frame end: the same
+   trajectory bit for bit, at least 10 snapshots, no failed render, PNGs
+   where matplotlib is installed, frames/s of both. Then the live phase
+   (LIVE_PATH): the native voxelizer (devo_tpu_torch/native, built with g++
+   here) against data/event_utils.to_voxel_grid within 1e-3, then 48
+   windows of seeded events on the sliding texture voxelized natively in
+   the producer thread of data/stream.buffered and tracked in the default
+   configuration at 480x640 (int8 rings, K1), K1 held against its plain
+   version on the final state.
 7. Bench phase: the bench entry point at full width,
    devo_tpu_torch.bench.run: the saturated 12288-edge point with the default
    kernel at the bench's full length (12 windows of 28 frames after the
@@ -203,7 +218,9 @@ alone, on the named entries of REFERENCE with VOConfig overrides;
    lines of their own, and one structure-only step; the stability run (50
    steps at small dims, PASS); the correlation counters read 0 across it.
    The
-   profiled path of phase 5 runs after this one, then the g8c launch count
+   profiled path of phase 5 runs after this one, then the trace phase
+   (utils/timing.trace over 4 frames of the TUM path: the trace file names
+   devo.update and K1's kernel), the g8c launch count
    (the int8 g8c configuration, 8 frames under torch.profiler after 24:
    kernel launches a frame, corr_group once a level and update, no
    tensor-code stage 2), and the profile_step driver, last.
@@ -323,7 +340,12 @@ EVAL_PATHS = {
 # (eval/frames.frame_config: EVS=False, 3 channels, the random selector, the
 # eval base's bf16 rings) over 3-channel 0-255 frames; overrides, kernel and
 # trials as above
-FRAME_PATHS = {"frames-rgb-random": (dict(), "corr_pyramid", 1)}
+FRAME_PATHS = {"frames-rgb-random": (dict(), "corr_pyramid", 1),
+               "tum-rgb-random": (dict(), "corr_pyramid", 1)}
+# the frame size of each frame path: TUM-RGBD's is the evaluated 352x256
+# (eval/frames.TUM_W x TUM_H, checked when the path runs), with its scaled
+# freiburg1 intrinsics
+FRAME_SIZES = {"frames-rgb-random": (HT, WD), "tum-rgb-random": (256, 352)}
 OUT_DIR = "chiprun_out/eval_smoke"
 # the runs of the bench phase: VOConfig overrides, whether the run has the
 # bench's full length (else 4 windows of 28 frames), the kernel it must
@@ -1489,6 +1511,11 @@ REFERENCE = {
     "f32 rings gradient topk": dict(CORR_RING_I8=False,
                                     PATCH_SELECTOR="gradient"),
 }
+# the frame input at TUM-RGBD's aspect (256x352) at the phase's scale: a
+# level-1 map of 16x22 and a level 4 of 4x5, K1 at a width other than the
+# square frames'
+REFERENCE["f32 rings frames random 64x88"] = dict(
+    REFERENCE["f32 rings frames random"], WD=88)
 # pose atol: float noise compounds over the 12-update initialization and the
 # per-frame BA; with int8 rings a feature that rounds the other way on the
 # card moves a tap by one step of the ring's scale
@@ -1557,22 +1584,23 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict, moves=None):
     from devo_tpu_torch.utils.params import random_state_dict
 
     cfg = VOConfig(**{**REF_BASE, **knobs})
+    ht, wd = cfg.HT, cfg.WD
     tol = REF_TOL[ring_i8(cfg)]
     weights = random_state_dict(
         EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS,
                patch_selector=cfg.PATCH_SELECTOR), seed=1)
     rng = np.random.default_rng(1)
     if cfg.EVS:
-        base = rng.standard_normal((REF_HT, 2 * REF_WD, 5)).astype(np.float32)
+        base = rng.standard_normal((ht, 2 * wd, 5)).astype(np.float32)
         base *= rng.random(base.shape) < 0.15
     else:
-        base = (rng.random((REF_HT, 2 * REF_WD, 3)) * 255).astype(np.float32)
+        base = (rng.random((ht, 2 * wd, 3)) * 255).astype(np.float32)
     depths = rng.random((REF_FRAMES, cfg.M, 1)).astype(np.float32)
-    intr = np.asarray([80.0, 80.0, REF_WD / 2, REF_HT / 2], np.float32)
+    intr = np.asarray([80.0, 80.0, wd / 2, ht / 2], np.float32)
     # the random selector's patch centres, inside [1, w-2] x [1, h-2]
     pick = np.random.default_rng(2)
-    centres = [(pick.integers(1, REF_WD // 4 - 1, (1, cfg.M)),
-                pick.integers(1, REF_HT // 4 - 1, (1, cfg.M)))
+    centres = [(pick.integers(1, wd // 4 - 1, (1, cfg.M)),
+                pick.integers(1, ht // 4 - 1, (1, cfg.M)))
                for _ in range(REF_FRAMES)]
 
     cpu = torch.device("cpu")
@@ -1581,7 +1609,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict, moves=None):
         """One engine over the frames: per frame (n, cull, edge set, new
         patch coordinates, poses), then terminate() before and after
         N_UPDATES updates, and whether it kept level 4 resident."""
-        slam = DEVO(cfg, w, ht=REF_HT, wd=REF_WD, device=d)
+        slam = DEVO(cfg, w, ht=ht, wd=wd, device=d)
         seen, patchify = [], slam.net.run_patchify
 
         def record(*args, **kw):
@@ -1594,7 +1622,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict, moves=None):
             slam._draw_depth = lambda i=i: torch.from_numpy(dp[i]).to(d)
             slam._draw_coords = lambda i=i: tuple(
                 torch.from_numpy(c).to(d) for c in centres[i])
-            slam(i / 30.0, b[:, 3 * i:3 * i + REF_WD], intr)
+            slam(i / 30.0, b[:, 3 * i:3 * i + wd], intr)
             frames.append((slam.n, slam.aux_log[-1][1].kf_removed,
                            set(zip(slam.kk.tolist(), slam.jj.tolist())),
                            seen[-1], slam.poses[:slam.n].cpu().numpy().copy()))
@@ -1687,7 +1715,7 @@ def reference_phase(dev, gpu: str, label: str, knobs: dict, moves=None):
             raise RuntimeError(f"reference {label}: terminate() outputs differ")
     worst = max(range(REF_FRAMES), key=lambda j: gaps[j])
     print(f"reference [{label}]: port on {dev.type} vs port on cpu, "
-          f"{REF_HT}x{REF_WD}, {REF_FRAMES} frames + {N_UPDATES} updates: same "
+          f"{ht}x{wd}, {REF_FRAMES} frames + {N_UPDATES} updates: same "
           f"keyframes, culls ({culls}), edge sets and patch coordinates; poses "
           f"max abs diff (CPU spread under {len(moves)} one-ulp moves): "
           f"frames {gaps[worst]:.3e} ({max(spreads[:REF_FRAMES]):.3e}), "
@@ -1831,6 +1859,33 @@ def engine_state_check(slam, label: str, gpu: str) -> float:
     return err
 
 
+def frame_k1_timing(slam, label: str, gpu: str):
+    """K1 on the engine's own final edges and rings, timed beside its plain
+    version and its bound (bound_ms): what a frame path's frame size does to
+    the kernel at its live edge count."""
+    from devo_tpu_torch.geom import edgewise
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+    cfg = slam.cfg
+    geo = edgewise.reproject(slam.poses, slam.patches, slam.intrinsics,
+                             slam.ii, slam.jj, slam.kk)
+    coords = edgewise.coords_to_corr_format(geo, cfg.P)
+    kk, jj = (slam.kk % (cfg.M * cfg.MEM)).int(), (slam.jj % cfg.MEM).int()
+    rings = (slam.fmap1, slam.fmap2)
+    scales = (slam.fsc1, slam.fsc2) if slam.ring_i8 else None
+    ms = median_ms(lambda: corr_cuda.corr_pyramid_cuda(
+        slam.gmap, *rings, coords, kk, jj, scales=scales))
+    plain = median_ms(lambda: corr_plain.corr_pyramid(
+        slam.gmap, rings, coords, kk, jj, scales=scales), launches=2,
+        repeats=3)
+    b_ms, b_by = bound_ms(slam.gmap, rings, (1, 4), scales or (None, None),
+                          coords, kk, jj)
+    print(f"K1 [{label}]: corr_pyramid on the engine's final state, E="
+          f"{kk.shape[0]}, rings {tuple(rings[0].shape[1:3])} / "
+          f"{tuple(rings[1].shape[1:3])} {rings[0].dtype}: {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{gpu}]", flush=True)
+
+
 def bench_phase(dev, gpu: str, label: str):
     """One run of BENCH_PATHS through devo_tpu_torch.bench.run at full width.
     Returns (launches of each kernel over the timed windows, max error of
@@ -1868,13 +1923,13 @@ def bench_phase(dev, gpu: str, label: str):
     return launches, engine_state_check(slam, label, gpu)
 
 
-def rgb_stream(n: int):
+def rgb_stream(n: int, ht: int = HT, wd: int = WD):
     """n frames of the bench's sliding texture as 3-channel intensity
-    frames, (3, H, W) f32 in 0-255: its first three bins mapped linearly
-    from their range onto 0-255. Read from memory: the card's machine has
-    no cv2 to read image files."""
+    frames, (3, ht, wd) f32 in 0-255: its first three bins mapped linearly
+    from their range onto 0-255. Made in memory: no image tree is on the
+    card's machine."""
     from devo_tpu_torch.bench import frame, texture
-    base = texture(HT, WD)[..., :3]
+    base = texture(ht, wd)[..., :3]
     lo, hi = float(base.min()), float(base.max())
     base = np.clip((base - lo) * (255.0 / (hi - lo)), 0, 255).astype(np.float32)
     return [np.ascontiguousarray(frame(base, i).transpose(2, 0, 1))
@@ -1901,7 +1956,8 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
         EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS,
                patch_selector=cfg.PATCH_SELECTOR), seed=0)
     n = len(stream)
-    intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
+    ht, wd = stream[0].shape[1:]
+    intr = stream_intrinsics(label, ht, wd)
     tss = np.arange(n, dtype=np.float64) / 30.0
     gt = np.zeros((n, 7), np.float32)         # a straight line along x
     gt[:, 0] = 0.01 * np.arange(n)
@@ -1925,7 +1981,7 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     corr_plain.calls = 0
     med, results, fps = harness.evaluate_sequence(
         cfg, weights, make_iterator, traj_gt=gt, tss_gt=tss,
-        trials=trials, ht=HT, wd=WD, max_diff_s=0.01, outdir=OUT_DIR,
+        trials=trials, ht=ht, wd=wd, max_diff_s=0.01, outdir=OUT_DIR,
         name=label, engine_cache=engine_cache)
     torch.cuda.synchronize()
     launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
@@ -1934,7 +1990,12 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
     if len(engine_cache) != before + 1:
         raise RuntimeError(f"{label}: {len(engine_cache) - before} engines "
                            f"were cached for one configuration")
-    slam = next(s for k, s in engine_cache.items() if k[2] == cfg)
+    # the engine of this configuration at this frame size (the frame paths
+    # share one configuration at two sizes)
+    slam = next(s for k, s in engine_cache.items() if k[:3] == (ht, wd, cfg))
+    if slam.fmap1.shape[1:3] != (ht // 4, wd // 4):
+        raise RuntimeError(f"{label}: the cached engine's rings are "
+                           f"{tuple(slam.fmap1.shape[1:3])}")
     # correlations of one trial: the probe of frames 1-7, 12 updates at
     # initialization (frame 8), one per later frame, 12 final updates; a
     # kernel that takes one level a launch is launched twice for each
@@ -1959,11 +2020,13 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
         raise RuntimeError(f"{label}: results JSON does not match the run")
     edges = slam.n_edges
     err = engine_state_check(slam, label, gpu)
+    if label in FRAME_PATHS:
+        frame_k1_timing(slam, label, gpu)
 
     # the bare slice in the same configuration: a fresh engine with trial
     # 0's seed, called by hand as slice_phase calls it, gives as many poses
     from devo_tpu_torch.runtime.engine import DEVO
-    bare = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
+    bare = DEVO(cfg, weights, ht=ht, wd=wd, seed=0, device=dev)
     bare_s = []
     for vox, t in zip(stream, tss):
         t0 = time.perf_counter()
@@ -1982,7 +2045,7 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
                 for ts in yields[:trials]]
     frame_ms = [round(float(1e3 * np.median(np.diff(ts)[SKIP:])), 2)
                 for ts in yields[:trials]]
-    print(f"eval [{label}]: evaluate_sequence, {HT}x{WD}, "
+    print(f"eval [{label}]: evaluate_sequence, {ht}x{wd}, "
           f"{stream[0].shape[0]} channels, PATCH_SELECTOR="
           f"{cfg.PATCH_SELECTOR!r}, EVS={cfg.EVS}, rings "
           f"{slam.fmap1.dtype}, CORR_IMPL={cfg.CORR_IMPL!r}, "
@@ -2003,6 +2066,253 @@ def eval_phase(dev, gpu: str, label: str, engine_cache: dict, stream):
           f"nothing about accuracy); artifacts in {OUT_DIR} [{gpu}]",
           flush=True)
     return launches, err
+
+
+def stream_intrinsics(label: str, ht: int, wd: int) -> np.ndarray:
+    """The intrinsics of a frame path's frames: TUM-RGBD's freiburg1
+    calibration scaled to its evaluated size, else the bench's."""
+    if label.startswith("tum-"):
+        from devo_tpu_torch.eval import frames
+        if (frames.TUM_H, frames.TUM_W) != (ht, wd):
+            raise RuntimeError(f"{label}: frames of {ht}x{wd}, TUM-RGBD is "
+                               f"evaluated at {frames.TUM_H}x{frames.TUM_W}")
+        return frames.tum_intrinsics()
+    return np.asarray([320.0, 320.0, wd / 2, ht / 2], np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The tail: the live viewer, the live event input, the profiler trace.
+
+VIZ_PATH = "tum-rgb-random"        # the eval path the viewer watches
+VIZ_PERIOD = 0.0                   # a snapshot at every frame end
+VIZ_DIR = "chiprun_out/eval_smoke/viz_tum"
+LIVE_PATH = "live-events-i8-mono"  # native voxels through stream.buffered
+LIVE_CONFIG = "i8-mono"            # ... into the default configuration
+LIVE_EVENTS = 60_000               # events a frame
+VOX_REPS = 7                       # timed voxelizer calls after a warm-up
+TRACE_DIR = "chiprun_out/trace"
+TRACE_FRAMES = 4
+
+
+def viewer_phase(dev, gpu: str):
+    """The live viewer on the card: harness.run_voxel over the 48 frames
+    of VIZ_PATH (256x352), once without the viewer and once with it,
+    snapshotting at every frame end (VIZ_PERIOD, passed by a wrapper of
+    DEVO.start_viewer), on one cached engine
+    reset to seed 0. The trajectory must be the same bit for bit, the
+    viewer must have taken at least 10 snapshots with no render failed,
+    and K1 must have launched. Prints whether PNGs were written
+    (matplotlib present or not) and frames/s with and without it."""
+    import os
+
+    from devo_tpu_torch.eval import harness
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.ops import corr_cuda
+    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.utils.params import random_state_dict
+
+    cfg = path_config(VIZ_PATH).replace(MOTION_PROBE_THRESH=-1.0)
+    weights = random_state_dict(
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS,
+               patch_selector=cfg.PATCH_SELECTOR), seed=0)
+    ht, wd = FRAME_SIZES[VIZ_PATH]
+    stream = rgb_stream(N_FRAMES, ht, wd)
+    intr = stream_intrinsics(VIZ_PATH, ht, wd)
+    cache, viewers = {}, []
+    start = DEVO.start_viewer
+
+    def keep(self, out_dir):         # the viewer run_voxel attaches
+        viewers.append(start(self, out_dir, period=VIZ_PERIOD))
+        return viewers[-1]
+
+    def run(viz_dir):
+        corr_cuda.reset_launches()
+        items = ((v, intr, i / 30.0) for i, v in enumerate(stream))
+        poses, tss, fps = harness.run_voxel(
+            cfg, weights, items, ht, wd, seed=0, engine_cache=cache,
+            device=dev, viz_dir=viz_dir)
+        return poses, tss, fps, dict(corr_cuda.launches)
+
+    plain = run(None)
+    DEVO.start_viewer = keep
+    try:
+        viewed = run(VIZ_DIR)
+    finally:
+        DEVO.start_viewer = start
+    (v,) = viewers
+    pngs = [f for f in os.listdir(VIZ_DIR) if f.endswith(".png")]
+    print(f"viewer [{VIZ_PATH}]: run_voxel {ht}x{wd}, {N_FRAMES} frames + "
+          f"{N_UPDATES} updates, period {VIZ_PERIOD} s: {v.snapshots} "
+          f"snapshots, {v.rendered} rendered, {v.failures} failed; PNGs "
+          f"written: {bool(pngs)} ({len(pngs)} in {VIZ_DIR}; matplotlib "
+          f"{'present' if v.png else 'missing'}); frames/s without the "
+          f"viewer {plain[2]:.2f}, with it {viewed[2]:.2f} (run_voxel's, "
+          f"initialization and final updates included); K1 launches "
+          f"{plain[3]['corr_pyramid']} / {viewed[3]['corr_pyramid']} [{gpu}]",
+          flush=True)
+    if not (np.array_equal(plain[0], viewed[0])
+            and np.array_equal(plain[1], viewed[1])):
+        raise RuntimeError("viewer: the trajectory with the viewer differs "
+                           "from the one without it")
+    if v.failures or v.snapshots < 10 or v._t.is_alive():
+        raise RuntimeError(f"viewer: {v.snapshots} snapshots, {v.failures} "
+                           f"failures ({v.last_failure})")
+    if v.png and len(pngs) != v.rendered:
+        raise RuntimeError(f"viewer: {v.rendered} renders, {len(pngs)} PNGs")
+    if not (plain[3]["corr_pyramid"] > 0
+            and plain[3]["corr_pyramid"] == viewed[3]["corr_pyramid"]):
+        raise RuntimeError(f"viewer: K1 launches {plain[3]} / {viewed[3]}")
+
+
+def event_stream(n: int, ht: int = HT, wd: int = WD, seed: int = 0):
+    """n windows of LIVE_EVENTS events, drawn from a seed where the bench's
+    sliding texture is nonzero in frame i (x, y jittered within the pixel,
+    the polarity the sign of its sum over the bins, t sorted in the
+    frame's 1/30 s): (x f32, y f32, t_us i64, p i8) a window."""
+    from devo_tpu_torch.bench import frame, texture
+    base = texture(ht, wd).sum(-1, keepdims=True)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        f = frame(base, i)[..., 0]
+        ys, xs = np.nonzero(f)
+        pick = rng.integers(0, len(xs), LIVE_EVENTS)
+        x = (xs[pick] + rng.random(LIVE_EVENTS)).astype(np.float32)
+        y = (ys[pick] + rng.random(LIVE_EVENTS)).astype(np.float32)
+        t = np.sort(rng.integers(i * 33_333, (i + 1) * 33_333, LIVE_EVENTS))
+        p = np.where(f[ys[pick], xs[pick]] > 0, 1, -1).astype(np.int8)
+        out.append((x, y, t.astype(np.int64), p))
+    return out
+
+
+def live_phase(dev, gpu: str):
+    """The live input path: the native voxelizer (devo_tpu_torch/native,
+    built with g++ on this host) against data/event_utils.to_voxel_grid on
+    a seeded event window within test_native.py's 1e-3, then N_FRAMES
+    windows of events voxelized natively in the producer thread of
+    data/stream.buffered and tracked by DEVO in the default configuration
+    (int8 rings, K1) at 480x640. Returns (launches of each kernel, K1's
+    max error on the engine's final state)."""
+    from devo_tpu_torch import native
+    from devo_tpu_torch.data import event_utils, stream
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.ops import corr as corr_plain
+    from devo_tpu_torch.ops import corr_cuda
+    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.utils.params import random_state_dict
+
+    if not native.available():
+        raise RuntimeError(f"the native voxelizer did not build: "
+                           f"{native.build_error()}")
+    windows = event_stream(N_FRAMES)
+    x, y, t, p = windows[0]
+
+    def median_ms(fn):               # one warm-up call, then VOX_REPS
+        out = fn(x, y, t, p, HT, WD, 5)
+        ms = []
+        for _ in range(VOX_REPS):
+            t0 = time.perf_counter()
+            fn(x, y, t, p, HT, WD, 5)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return out, float(np.median(ms))
+
+    got, native_ms = median_ms(native.to_voxel_grid)
+    want, numpy_ms = median_ms(event_utils.to_voxel_grid)
+    vox_err = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
+
+    cfg = path_config(LIVE_PATH).replace(MOTION_PROBE_THRESH=-1.0)
+    weights = random_state_dict(
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS), seed=0)
+    slam = DEVO(cfg, weights, ht=HT, wd=WD, seed=0, device=dev)
+    intr = np.asarray([320.0, 320.0, WD / 2, HT / 2], np.float32)
+    voxelized = []
+
+    def produce():                   # the producer thread's work
+        for i, (x, y, t, p) in enumerate(windows):
+            t0 = time.perf_counter()
+            vox = native.to_voxel_grid(x, y, t, p, HT, WD, cfg.BINS)
+            voxelized.append(time.perf_counter() - t0)
+            yield vox, intr, i / 30.0
+
+    torch.cuda.synchronize()
+    corr_cuda.reset_launches()
+    corr_plain.calls = 0
+    stamps = []
+    for vox, k, ts in stream.buffered(produce(), maxsize=4):
+        # one copy of the contiguous window, as the harness makes it
+        slam(ts, torch.from_numpy(vox).to(dev).permute(1, 2, 0), k)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    for _ in range(N_UPDATES):
+        slam.update()
+    poses, tss = slam.terminate()
+    launches, plain_calls = dict(corr_cuda.launches), corr_plain.calls
+    fps = (N_FRAMES - 1 - SKIP) / (stamps[-1] - stamps[SKIP])
+    print(f"live [{LIVE_PATH}]: native voxelizer built ({native.BUILD_DIR}), "
+          f"{LIVE_EVENTS} events at {HT}x{WD}: {native_ms:.2f} ms native, "
+          f"{numpy_ms:.2f} ms NumPy (medians of {VOX_REPS} calls after a "
+          f"warm-up), max abs diff {vox_err:.2e} (atol 1e-3); "
+          f"{N_FRAMES} windows voxelized in stream.buffered's producer thread "
+          f"(median {1e3 * np.median(voxelized):.2f} ms a window) and tracked "
+          f"on {slam.fmap1.dtype} rings: frames {SKIP}-{N_FRAMES - 1} "
+          f"{fps:.2f} frames/s; keyframes {slam.n}, live edges "
+          f"{slam.n_edges}; launches {launches}, plain corr calls "
+          f"{plain_calls} [{gpu}]", flush=True)
+    if poses.shape != (N_FRAMES, 7) or not np.isfinite(poses).all():
+        raise RuntimeError(f"live: trajectory {poses.shape}, finite "
+                           f"{np.isfinite(poses).all()}")
+    others = [k for k, n in launches.items() if n and k != "corr_pyramid"]
+    if launches["corr_pyramid"] < 1 or others or plain_calls:
+        raise RuntimeError(f"live: expected K1 alone: {launches}, "
+                           f"{plain_calls} plain calls")
+    return launches, engine_state_check(slam, LIVE_PATH, gpu)
+
+
+def trace_phase(dev, gpu: str):
+    """utils/timing.trace on the card: TRACE_FRAMES frames of the TUM frame
+    path's engine after its initialization, recorded by torch.profiler into
+    TRACE_DIR. The trace file must exist and name the engine's devo.update
+    span and K1's kernel."""
+    import glob
+    import os
+
+    from devo_tpu_torch.nets.evonet import EVONet
+    from devo_tpu_torch.runtime.engine import DEVO
+    from devo_tpu_torch.utils import timing
+    from devo_tpu_torch.utils.params import random_state_dict
+
+    cfg = path_config(VIZ_PATH).replace(MOTION_PROBE_THRESH=-1.0)
+    weights = random_state_dict(
+        EVONet(cfg.P, cfg.DIM_INET, cfg.DIM_FNET, cfg.DIM, cfg.BINS,
+               patch_selector=cfg.PATCH_SELECTOR), seed=0)
+    ht, wd = FRAME_SIZES[VIZ_PATH]
+    frames = rgb_stream(12 + TRACE_FRAMES, ht, wd)
+    intr = stream_intrinsics(VIZ_PATH, ht, wd)
+    slam = DEVO(cfg, weights, ht=ht, wd=wd, seed=0, device=dev)
+    for i, f in enumerate(frames[:12]):
+        slam(i / 30.0, f.transpose(1, 2, 0), intr)
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    before = set(glob.glob(os.path.join(TRACE_DIR, "*.json")))
+    t0 = time.perf_counter()
+    with timing.trace(TRACE_DIR) as prof:
+        for i, f in enumerate(frames[12:], 12):
+            slam(i / 30.0, f.transpose(1, 2, 0), intr)
+        torch.cuda.synchronize()
+    (path,) = set(glob.glob(os.path.join(TRACE_DIR, "*.json"))) - before
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+    kernel = KERNELS["corr_pyramid"][2]
+    k1 = sorted(n for n in names if kernel in n)
+    device_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if kernel in e.key) / 1e3
+    print(f"trace: timing.trace over {TRACE_FRAMES} frames of {VIZ_PATH} "
+          f"({ht}x{wd}) in {time.perf_counter() - t0:.1f} s -> {path} "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB, {len(names)} event "
+          f"names); devo.update present: {'devo.update' in names}; K1 "
+          f"{k1[:1]}, {device_ms:.3f} ms of device time [{gpu}]", flush=True)
+    if "devo.update" not in names or not k1:
+        raise RuntimeError(f"trace: {path} lacks devo.update or {kernel}")
 
 
 # ---------------------------------------------------------------------------
@@ -3103,6 +3413,8 @@ def path_config(label):
         return VOConfig(**BENCH_PATHS[label][0])
     if label == G8C_LAUNCHES:
         return VOConfig(CORR_KERNEL="g8c")
+    if label == LIVE_PATH:
+        return VOConfig(**PATHS[LIVE_CONFIG][0])
     raise KeyError(f"{label!r} is no tracking path of chip_smoke.py")
 
 
@@ -3242,17 +3554,22 @@ def main(argv=None):
     for label, (_, name, _) in EVAL_PATHS.items():
         by_path[label], err = eval_phase(dev, gpu, label, engine_cache, stream)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
-    stream = rgb_stream(N_FRAMES)
     for label, (_, name, _) in FRAME_PATHS.items():
+        stream = rgb_stream(N_FRAMES, *FRAME_SIZES[label])
         by_path[label], err = eval_phase(dev, gpu, label, engine_cache, stream)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     del engine_cache, stream
+    viewer_phase(dev, gpu)
+    by_path[LIVE_PATH], err = live_phase(dev, gpu)
+    record["corr_pyramid"]["max_abs_err"] = max(
+        record["corr_pyramid"]["max_abs_err"], err)
     for label, (_, _, name) in BENCH_PATHS.items():
         by_path[label], err = bench_phase(dev, gpu, label)
         record[name]["max_abs_err"] = max(record[name]["max_abs_err"], err)
     train_pieces_phase(dev, gpu)
     train_phase(dev, gpu)
     run_slice(PROFILED)              # last: nothing is timed after a profile
+    trace_phase(dev, gpu)
     by_path[G8C_LAUNCHES] = g8c_launch_phase(dev, gpu)
     by_path[PROFILED_DRIVER] = driver_phase(dev, gpu, PROFILED_DRIVER)
     frame_sort_launches(dev, gpu, record)

@@ -7,10 +7,13 @@ _e2v.py and _evs_frame.py wrappers).
         --val_split splits/eds/eds_val.txt --trials 5 --outdir results
     python -m devo_tpu_torch.eval.cli eds --family rgb --datapath <dir> \\
         --weights <frame model state dict> --trials 5
+    python -m devo_tpu_torch.eval.cli tum --family rgb --datapath <dir> \\
+        --weights <frame model state dict> --val_split <scenes> --trials 5
 
 One module serves every benchmark: the benchmark's name is the first
 argument, `--family` the input (`evs`, the default: event voxels; `rgb`,
-`e2v`, `evs_frame`: intensity frames, eval/frames.py). It runs on the current CUDA device; `--device cpu` asks for the
+`e2v`, `evs_frame`: intensity frames, eval/frames.py). TUM-RGBD (`tum`,
+evals/eval_tum_rgb.py's counterpart) takes `--family rgb` alone. It runs on the current CUDA device; `--device cpu` asks for the
 plain PyTorch path. `--weights` is a checkpoint of upstream DEVO (.pth) or
 a saved EVONet state dict.
 """
@@ -36,7 +39,10 @@ from devo_tpu_torch.runtime.config import EVAL_CONFIGS, VOConfig
 from devo_tpu_torch.train.validate import _load_tartan_gt
 from devo_tpu_torch.utils.params import load_weights
 
-BENCHMARKS = tuple(BENCHMARK_RES)
+# the event benchmarks' sizes, and TUM-RGBD's frames as eval/frames.py
+# resizes them
+RES = dict(BENCHMARK_RES, tum=(frames.TUM_H, frames.TUM_W))
+BENCHMARKS = tuple(RES)
 
 
 def _evs_family(benchmark: str, args):
@@ -104,6 +110,25 @@ def _frame_family(family: str, args):
     return frames.frame_config(), load_gt, iterator_for
 
 
+def _tum_family(args):
+    """TUM-RGBD's configuration, ground truth and iterator
+    (evals/eval_tum_rgb.py:50-76): the frame drivers' configuration, the
+    scene's groundtruth.txt in seconds, its rgb/ images undistorted and
+    resized by eval/frames.tum_image_iterator."""
+    if args.config:
+        raise ValueError("--config applies to the event family; tum takes "
+                         "eval/frames.frame_config() and --config_overrides")
+
+    def load_gt(datapath):
+        tss_s, traj = load_tum_traj(os.path.join(datapath, "groundtruth.txt"))
+        return tss_s * 1e6, traj
+
+    def iterator_for(datapath, tss_gt_us):
+        return lambda: frames.tum_image_iterator(datapath, args.stride)
+
+    return frames.frame_config(), load_gt, iterator_for
+
+
 def evaluate_benchmark(benchmark: str, args) -> dict:
     """Every scene of the split through evaluate_sequence, one engine
     across scenes and trials, in the input family `args.family`. Returns
@@ -111,7 +136,13 @@ def evaluate_benchmark(benchmark: str, args) -> dict:
     if benchmark == "tartanair" and args.family != "evs":
         raise ValueError("tartanair: the pre-voxelized TartanAir-EVS trees "
                          "hold event voxels alone (--family evs)")
-    if args.family == "evs":
+    if benchmark == "tum":
+        if args.family != "rgb":
+            raise ValueError("tum: TUM-RGBD holds camera images alone "
+                             "(--family rgb)")
+        cfg, load_gt, iterator_for = _tum_family(args)
+        suffix = "_rgb"
+    elif args.family == "evs":
         cfg, load_gt, iterator_for = _evs_family(benchmark, args)
         suffix = ""
     else:
@@ -120,7 +151,7 @@ def evaluate_benchmark(benchmark: str, args) -> dict:
     weights = load_weights(args.weights)
     if args.config_overrides:
         cfg = cfg.replace(**json.loads(args.config_overrides))
-    H, W = BENCHMARK_RES[benchmark]
+    H, W = RES[benchmark]
 
     if args.val_split:
         with open(args.val_split) as f:
@@ -223,7 +254,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="torch device; default: the current CUDA device "
                         "(there must be one). 'cpu' runs the plain path")
     p.add_argument("--viz", action="store_true",
-                   help="the live viewer of trial 0 (not ported yet: raises)")
+                   help="the live viewer of trial 0: PNG frames of the "
+                        "trajectory and point cloud in <outdir>/viz_<scene> "
+                        "(runtime/viewer.py)")
     return p
 
 

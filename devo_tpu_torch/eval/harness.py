@@ -41,14 +41,18 @@ def _on_device(voxel, device: torch.device) -> torch.Tensor:
 
 def run_voxel(cfg: VOConfig, weights, iterator, ht: int, wd: int,
               seed: int = 0, final_updates: int = 12, timing: bool = False,
-              engine_cache: Optional[dict] = None, device=None):
+              engine_cache: Optional[dict] = None, device=None,
+              viz_dir: Optional[str] = None):
     """Track one sequence; returns (poses (N,7) c2w, tstamps (N,), fps).
 
     `iterator` yields (voxel (bins, H, W), intrinsics (4,), timestamp).
     `weights`: an EVONet state dict or a checkpoint path. `engine_cache`
     (keyed by (H, W, cfg, device)) reuses DEVO instances, with their network
     on the device and their built kernels, across trials and sequences: a
-    cached engine is `reset` to `seed` and tracks as a fresh one would."""
+    cached engine is `reset` to `seed` and tracks as a fresh one would.
+    `viz_dir` attaches the live viewer (runtime/viewer.py), which renders
+    into `viz_dir`; it is joined by terminate(), after the frames/s is
+    taken."""
     device = resolve_device(device)
     it = iter(iterator)
     first = next(it, None)
@@ -74,6 +78,8 @@ def run_voxel(cfg: VOConfig, weights, iterator, ht: int, wd: int,
         slam = DEVO(cfg, weights, ht=H, wd=W_eff, seed=seed, device=device)
         if engine_cache is not None:
             engine_cache[key] = slam
+    if viz_dir:
+        slam.start_viewer(out_dir=viz_dir)
 
     t_start = time.perf_counter()
     slam(tss, _on_device(voxel, device), intrinsics)
@@ -144,19 +150,18 @@ def evaluate_sequence(
     all metrics, fps list). One engine is shared across trials (and across
     sequences if the caller passes a persistent `engine_cache`). Every
     trial's ATE is recomputed by an independent implementation and the two
-    must agree (eval/ate_check.py). The live viewer is not ported: `viz`
-    raises."""
-    if viz:
-        raise NotImplementedError(
-            "the live viewer (devo_tpu/runtime/viewer.py) is not ported yet: "
-            "see ROADMAP.md, Queue 1, the viewer")
+    must agree (eval/ate_check.py). `viz` attaches the live viewer on
+    trial 0, rendering to <outdir>/viz_<name> (the reference scripts'
+    viz=True, eval_utils.py:112)."""
     results, fps_list = [], []
     if engine_cache is None:
         engine_cache = {}
     for trial in range(trials):
+        viz_dir = (os.path.join(outdir or ".", f"viz_{name}")
+                   if viz and trial == 0 else None)
         poses, tss, fps = run_voxel(cfg, weights, make_iterator(), ht, wd,
                                     seed=trial, engine_cache=engine_cache,
-                                    device=device)
+                                    device=device, viz_dir=viz_dir)
         m = ate_real(poses, tss, traj_gt, tss_gt, max_diff=max_diff_s)
         # runtime metric cross-check (reference eval_utils.py:358: evo and
         # rpg ATE must agree to 1e-5): recompute with the independent

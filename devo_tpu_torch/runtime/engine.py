@@ -161,6 +161,7 @@ class DEVO:
         self.net.load_state_dict(load_weights(weights), strict=True)
         self.net.to(self.device).eval()
         self.generator = torch.Generator(device=self.device)
+        self.viewer = None          # the live viewer (start_viewer)
         self._init_state(seed)
 
     def _init_state(self, seed: int):
@@ -506,14 +507,27 @@ class DEVO:
 
     # ------------------------------------------------------------ host API
 
+    def start_viewer(self, out_dir: str = "viewer_out", period: float = 2.0):
+        """Attach the live viewer (devo.py:139-149, runtime/viewer.py): a
+        render thread writes PNG frames of the trajectory and the point
+        cloud to `out_dir`, from snapshots taken at the end of a frame at
+        most once per `period` seconds. `terminate` joins it."""
+        from devo_tpu_torch.runtime.viewer import Viewer
+        self.viewer = Viewer(self, out_dir=out_dir, period=period)
+        return self.viewer
+
     @torch.no_grad()
     def __call__(self, tstamp, voxel, intrinsics):
         """voxel: (H, W, bins) array or tensor; intrinsics: (4,)."""
+        if self.viewer is not None and isinstance(voxel, np.ndarray):
+            self.viewer.update_image(voxel)   # a host reference (devo.py:388)
         if voxel.shape[-2] == 346:  # MVSEC/FPV width hack (devo.py:466-467)
             voxel = voxel[:, 1:-1, :]
         voxel = torch.as_tensor(voxel, dtype=torch.float32).to(self.device)
         intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32).to(self.device)
         self.aux_log.append((tstamp, self._step(voxel, intrinsics)))
+        if self.viewer is not None:
+            self.viewer.snapshot()
 
     @torch.no_grad()
     def update(self):
@@ -525,7 +539,12 @@ class DEVO:
     def terminate(self):
         """Reconstruct the full-rate trajectory (devo.py:186-208): chain the
         stored relative deltas onto the keyframe poses, invert to c2w.
-        Returns (poses (counter, 7) f32, timestamps f64) as numpy arrays."""
+        Returns (poses (counter, 7) f32, timestamps f64) as numpy arrays.
+        An attached viewer renders the final state and is joined first
+        (devo.py:205-206)."""
+        if self.viewer is not None:
+            self.viewer.join()
+            self.viewer = None
         n, counter = self.n, self.counter
         tlist = [t for t, aux in self.aux_log if aux.status != 0]
         if not self.initialized:
@@ -566,6 +585,11 @@ class DEVO:
     @torch.no_grad()
     def point_cloud(self) -> np.ndarray:
         """World-frame patch centers (devo.py:342-344), (n*M, 3)."""
+        return self.point_cloud_tensor().cpu().numpy()
+
+    @torch.no_grad()
+    def point_cloud_tensor(self) -> torch.Tensor:
+        """`point_cloud` on the engine's device, (n*M, 3)."""
         M, P = self.cfg.M, self.cfg.P
         PP = P * P
         n = self.n
@@ -577,4 +601,4 @@ class DEVO:
                          (pk[:, PP + c] - intr[:, 3]) / intr[:, 1],
                          torch.ones_like(intr[:, 0]), pk[:, 2 * PP + c]], -1)
         pts = se3.act4(se3.inv(self.poses[ix]), X)
-        return (pts[:, :3] / pts[:, 3:].clamp_min(1e-8)).cpu().numpy()
+        return pts[:, :3] / pts[:, 3:].clamp_min(1e-8)

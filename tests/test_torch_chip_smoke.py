@@ -147,13 +147,15 @@ def test_a_variant_not_measured_raises():
 
 def _tracking_paths():
     """(label, kernels it launches) of every tracking path that launches
-    one: the slice, eval and bench paths and the g8c launch count."""
+    one: the slice, eval and bench paths, the g8c launch count and the
+    live event input."""
     out = [(label, names) for label, (_, names) in chip_smoke.PATHS.items()]
     out += [(label, (name,)) for label, (_, name, _) in chip_smoke.EVAL_PATHS.items()]
     out += [(label, (name,)) for label, (_, name, _) in chip_smoke.FRAME_PATHS.items()]
     out += [(label, (name,))
             for label, (_, _, name) in chip_smoke.BENCH_PATHS.items()]
     out.append((chip_smoke.G8C_LAUNCHES, ("corr_group",)))
+    out.append((chip_smoke.LIVE_PATH, ("corr_pyramid",)))
     return [(label, names) for label, names in out if names]
 
 
@@ -259,7 +261,8 @@ def test_frame_and_gradient_paths_charge_k1_at_bf16():
     """The frame-input path (the frame drivers' configuration on the eval
     base's bf16 rings) and the gradient-selector eval path run K1 at bf16
     on both levels; rule2_loss charges their launches there."""
-    for label in ("frames-rgb-random", "eval-eds-bf16-gradient"):
+    for label in ("frames-rgb-random", "tum-rgb-random",
+                  "eval-eds-bf16-gradient"):
         assert chip_smoke.path_variants("corr_pyramid", label,
                                         {"corr_pyramid": 79}) == [
             ("both levels bf16", 1.0)]
@@ -285,7 +288,11 @@ def test_reference_phase_lists_the_new_configurations():
         False, 3, "random")
     assert chip_smoke.REFERENCE["f32 rings gradient topk"][
         "PATCH_SELECTOR"] == "gradient"
-    assert len(chip_smoke.REFERENCE) == 23
+    assert len(chip_smoke.REFERENCE) == 24
+    # TUM-RGBD's aspect at the phase's scale
+    tum = VOConfig(**{**chip_smoke.REF_BASE, **chip_smoke.REFERENCE[
+        "f32 rings frames random 64x88"]})
+    assert (tum.HT, tum.WD, tum.EVS) == (64, 88, False)
     # one bound for every configuration: the tolerance, or twice the CPU's
     # own spread under four one-ulp moves of its inputs where that is larger
     assert chip_smoke.REF_SPREAD == 2.0
@@ -366,6 +373,8 @@ def test_rgb_stream_and_ba_scene():
                                                     chip_smoke.WD)
     assert stream[0].min() >= 0 and stream[0].max() <= 255
     assert not np.array_equal(stream[0], stream[1])
+    tum = chip_smoke.rgb_stream(1, *chip_smoke.FRAME_SIZES["tum-rgb-random"])
+    assert tum[0].shape == (3, 256, 352)
     poses, patches, intr, ii, jj, kk, target, mask, weight = chip_smoke.ba_scene()
     assert poses.shape == (8, 7) and patches.shape == (192, 27)
     assert ii.shape == jj.shape == kk.shape == mask.shape == (864,)
@@ -460,3 +469,44 @@ def test_more_moves_are_one_ulp_moves_of_the_inputs():
         assert what in ("frames", "weights", "depths", "intrinsics")
         assert toward in (np.inf, -np.inf)
     assert len({**chip_smoke.REF_MOVES, **chip_smoke.REF_MORE_MOVES}) == 8
+
+
+def test_tum_path_and_the_tail_phases_helpers():
+    """The TUM frame path runs at eval/frames' size with its scaled
+    freiburg1 intrinsics (the others at the bench's); the live path's
+    configuration is the default's (int8 rings, K1); its event windows fall
+    on the texture, in the frame's 1/30 s, sorted; main runs the viewer and
+    live phases among the eval paths and the trace phase after the profiled
+    slice."""
+    import inspect
+    from devo_tpu_torch.eval import frames
+    from devo_tpu_torch.runtime.config import VOConfig
+    assert chip_smoke.FRAME_SIZES["tum-rgb-random"] == (frames.TUM_H,
+                                                        frames.TUM_W)
+    np.testing.assert_array_equal(
+        chip_smoke.stream_intrinsics("tum-rgb-random", 256, 352),
+        frames.tum_intrinsics())
+    np.testing.assert_array_equal(
+        chip_smoke.stream_intrinsics("frames-rgb-random", 480, 640),
+        [320.0, 320.0, 320.0, 240.0])
+    with pytest.raises(RuntimeError, match="256x352"):
+        chip_smoke.stream_intrinsics("tum-rgb-random", 480, 640)
+    assert chip_smoke.path_config(chip_smoke.LIVE_PATH) == VOConfig(
+        CORR_RING_I8=True, CORR_KERNEL="mono", CORR_L4_RESIDENT="off")
+    assert chip_smoke.path_variants(
+        "corr_pyramid", chip_smoke.LIVE_PATH, {"corr_pyramid": 1}) == [
+        ("both levels i8", 1.0)]
+    from devo_tpu_torch.bench import frame, texture
+    base = texture(32, 48).sum(-1)
+    for i, (x, y, t, p) in enumerate(chip_smoke.event_stream(2, 32, 48)):
+        assert x.dtype == y.dtype == np.float32 and p.dtype == np.int8
+        assert (np.diff(t) >= 0).all() and t[0] >= i * 33_333
+        assert t[-1] < (i + 1) * 33_333
+        f = frame(base[..., None], i)[..., 0]
+        xi, yi = x.astype(int), y.astype(int)
+        assert (f[yi, xi] != 0).all()
+        assert (np.sign(f[yi, xi]) == p).all()
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("FRAME_PATHS.items()") < src.index("viewer_phase(")
+    assert src.index("live_phase(") < src.index("BENCH_PATHS.items()")
+    assert src.index("run_slice(PROFILED)") < src.index("trace_phase(")

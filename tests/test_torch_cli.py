@@ -47,7 +47,8 @@ def test_parser_surface(capsys):
     d = p.parse_args(["fpv"])
     assert (d.weights, d.trials, d.stride, d.outdir, d.device, d.viz) == (
         "DEVO.pth", 5, 1, "results", None, False)
-    assert set(cli.BENCHMARKS) == set(BENCHMARK_RES)
+    # the event benchmarks and TUM-RGBD, a frame benchmark alone
+    assert set(cli.BENCHMARKS) == set(BENCHMARK_RES) | {"tum"}
     with pytest.raises(SystemExit):
         p.parse_args(["not-a-benchmark"])
     with pytest.raises(SystemExit) as e:

@@ -14,6 +14,7 @@ over the 12-update initialization and the per-frame BA.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -28,6 +29,18 @@ from devo_tpu_torch.runtime.engine import DEVO
 from devo_tpu_torch.utils.params import jax_params_to_state_dict
 
 from test_engine_golden import CFG as GOLDEN_CFG, HT, WD, make_frames, make_params
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: the small CPU engines are thousands of tiny
+    operators, and beside the other workers of a parallel run every core's
+    thread only contends (tests/test_torch_frames.py does the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 
 N_FRAMES = 18
 SEED = 0

@@ -56,6 +56,18 @@ from devo_tpu_torch.utils.params import jax_params_to_state_dict
 from test_engine_golden import HT, WD, make_frames, make_params
 from test_torch_engine import CFG as BASE, JCFG, SEED, _depth_draws, _live_edges_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: the small CPU engines are thousands of tiny
+    operators, and beside the other workers of a parallel run every core's
+    thread only contends (tests/test_torch_frames.py does the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 N_FRAMES = 18
 I8_ATOL = 0.1
 INTR = np.asarray([80.0, 80.0, WD / 2, HT / 2], np.float32)

@@ -34,6 +34,18 @@ from devo_tpu_torch.utils.params import jax_params_to_state_dict
 from test_engine_golden import CFG as GOLDEN_CFG, HT, WD, make_frames, make_params
 from test_torch_engine import SHARED, _live_edges_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: the small CPU engines are thousands of tiny
+    operators, and beside the other workers of a parallel run every core's
+    thread only contends (tests/test_torch_frames.py does the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 N_FRAMES = 9
 SEED = 0
 FRAME_KNOBS = dict(EVS=False, BINS=3, PATCH_SELECTOR="random", NORM="none",

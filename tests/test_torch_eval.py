@@ -9,7 +9,7 @@ trajectory metrics and pose utilities against devo_tpu's.
   carried across by jax_params_to_state_dict: the TUM dumps and the results
   JSON, one engine for two trials, a reset engine equal to a fresh one
   bitwise, a cache slot of its own for run_voxel_norm_seq, the 346-wide
-  crop, `viz=True` raising.
+  crop, `viz=True` attaching the live viewer to trial 0.
 - The slice as a whole: the same voxels, weights and initial-depth draws
   (the JAX engine's key schedule, handed to the port as
   tests/test_torch_engine.py does) through devo_tpu.eval.harness.run_voxel
@@ -243,12 +243,20 @@ def test_run_voxel_crops_346_wide_input(shared):
     assert poses.shape == (3, 7)
 
 
-def test_harness_refuses_what_is_not_ported(shared):
-    with pytest.raises(NotImplementedError, match="Queue 1, the viewer"):
-        harness.evaluate_sequence(
-            CFG, shared["weights"], lambda: _iterator(_voxels(2)),
-            traj_gt=_straight_gt(2, 0.05), tss_gt=np.arange(2.0), viz=True,
-            device="cpu")
+def test_harness_refuses_what_is_not_ported(shared, tmp_path):
+    """`viz=True` (the viewer, once unported) attaches the live viewer to
+    trial 0 alone: it renders into <outdir>/viz_<name>, and terminate()
+    detaches it. An empty iterator and a missing card still raise."""
+    cache = shared["engine_cache"]
+    harness.evaluate_sequence(
+        CFG, shared["weights"], lambda: _iterator(_voxels()),
+        traj_gt=_straight_gt(N_FRAMES, 0.05),
+        tss_gt=np.arange(N_FRAMES, dtype=np.float64), trials=2, ht=HT,
+        wd=WD, max_diff_s=0.5, outdir=str(tmp_path), name="v", viz=True,
+        engine_cache=cache, device="cpu")
+    assert [p.name for p in tmp_path.glob("viz_*")] == ["viz_v"]
+    assert list((tmp_path / "viz_v").glob("frame_*.png"))
+    assert all(slam.viewer is None for slam in cache.values())
     with pytest.raises(RuntimeError, match="empty iterator"):
         harness.run_voxel(CFG, shared["weights"], iter([]), HT, WD,
                           device="cpu")

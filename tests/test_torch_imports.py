@@ -85,7 +85,18 @@ def test_new_modules_are_covered():
             "devo_tpu_torch.train.validate", "devo_tpu_torch.train.synthetic",
             "devo_tpu_torch.train.__main__", "devo_tpu_torch.utils.logger",
             "devo_tpu_torch.scripts.train_step",
-            "devo_tpu_torch.scripts.train_stability"} <= names
+            "devo_tpu_torch.scripts.train_stability",
+            "devo_tpu_torch.runtime.viewer", "devo_tpu_torch.utils.viz",
+            "devo_tpu_torch.utils.timing", "devo_tpu_torch.data.calibs",
+            "devo_tpu_torch.data.preprocess", "devo_tpu_torch.data.esim",
+            "devo_tpu_torch.data.rgbd", "devo_tpu_torch.data.stream",
+            "devo_tpu_torch.native"} | {
+                f"devo_tpu_torch.scripts.{s}" for s in (
+                    "pp_ecd", "pp_eds", "pp_fpv", "pp_hku", "pp_mvsec",
+                    "pp_rpg", "pp_tumvie", "pp_vector", "convert_tartan",
+                    "e2v_undist", "evaluate_rpe",
+                    "compute_median_from_restxt", "orb3_eval",
+                    "orb3_pp_eds", "plot_h5")} <= names
 
 
 OPTIONAL = ("h5py", "cv2", "yaml", "matplotlib")

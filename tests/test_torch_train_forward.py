@@ -129,27 +129,33 @@ def _key(case):
 def jax_side():
     """devo_tpu's trajectories and losses for the three cases, and jax.grad
     of the plain case's loss (remat off: jax.checkpoint changes what the
-    backward stores, not its values)."""
+    backward stores, not its values).
+
+    The initialization and the plain case's value and gradient are
+    compiled, as devo_tpu's trainer compiles its step: dispatched op by op
+    they take four minutes on the CPU, compiled half that. The two other
+    cases run op by op, on the primitives that the first has compiled
+    (compiled whole, each would compile its own unrolled graph anew)."""
     voxels, poses, disps, intr = make_inputs()
     net = JNet(**DIMS)
-    params = net.init(jax.random.PRNGKey(0), jnp.asarray(voxels[:1]),
-                      jax.random.PRNGKey(1))["params"]
+    params = jax.jit(net.init)(jax.random.PRNGKey(0), jnp.asarray(voxels[:1]),
+                               jax.random.PRNGKey(1))["params"]
     args = tuple(jnp.asarray(a) for a in (voxels, poses, disps, intr))
 
-    def run(p, case):
+    def run(p, key, case):
         kw = _kw(case)
-        traj = jfwd.evonet_forward(net, p, *args, _key(case), steps=STEPS,
+        traj = jfwd.evonet_forward(net, p, *args, key, steps=STEPS,
                                    ppi=PPI, grow_after=GROW,
                                    corr_dropout=DROPOUT, remat=False, **kw)
         out = jtotal(traj, P=3, structure_only=kw["structure_only"])
         return out["loss"], (traj, out)
 
     out = {}
-    (_, aux), grads = jax.value_and_grad(lambda p: run(p, "plain"),
-                                         has_aux=True)(params)
+    (_, aux), grads = jax.jit(jax.value_and_grad(
+        lambda p, k: run(p, k, "plain"), has_aux=True))(params, _key("plain"))
     out["plain"] = aux
     for case in ("randaug", "structure_only"):
-        out[case] = run(params, case)[1]
+        out[case] = run(params, _key(case), case)[1]
     return dict(params=params, grads=grads, cases=out,
                 inputs=(voxels, poses, disps, intr))
 
@@ -230,14 +236,15 @@ def test_trajectory_and_loss_match_devo_tpu(jax_side, case):
 @pytest.fixture(scope="module")
 def selector_side():
     """devo_tpu's trajectories and losses (no scorer loss) with the gradient
-    and the random selector, whose networks hold no scorer."""
+    and the random selector, whose networks hold no scorer (initialized by
+    a compiled init, as jax_side's)."""
     voxels, poses, disps, intr = make_inputs(2)
     args = tuple(jnp.asarray(a) for a in (voxels, poses, disps, intr))
     out = {}
     for sel in ("gradient", "random"):
         net = JNet(patch_selector=sel, **DIMS)
-        params = net.init(jax.random.PRNGKey(0), args[0][:1],
-                          jax.random.PRNGKey(1))["params"]
+        params = jax.jit(net.init)(jax.random.PRNGKey(0), args[0][:1],
+                                   jax.random.PRNGKey(1))["params"]
         traj = jfwd.evonet_forward(net, params, *args, jax.random.PRNGKey(4),
                                    steps=STEPS, ppi=PPI, grow_after=GROW,
                                    corr_dropout=DROPOUT, remat=False)

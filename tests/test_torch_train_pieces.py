@@ -201,12 +201,21 @@ def _ba_inputs(seed):
 def test_differentiable_ba_matches_jax_grad(seed):
     """One differentiable Gauss-Newton step with the training constants
     (max_residual 250, ep 10, the whole window's depths clamped to
-    [1e-3, 10]) on tests/test_ba.py's scene: its poses and patches, and the
-    gradients of a scalar loss of them with respect to target, weight,
-    poses and patches, against jax.grad through devo_tpu's
-    gauss_newton_step(depth_clamp="training"). Within 1e-3 relative to each
-    tensor's largest entry: the scene's Schur system is ill-conditioned
-    (ROADMAP Queue 3)."""
+    [1e-3, 10]) on tests/test_ba.py's scene: its poses and patches against
+    devo_tpu's gauss_newton_step(depth_clamp="training") within 1e-3 of
+    each tensor's largest entry, and the gradients of a scalar loss of them
+    with respect to target, weight, poses and patches against their float64
+    truth.
+
+    The scene's Schur system is ill-conditioned (ROADMAP Queue 3): f32
+    gradients lie up to 1.8e-3 of the largest entry from f64, JAX's as far
+    as the port's, and which of the two lies farther changes with the order
+    of the edges alone. So the yardstick is the truth, the port's step in
+    float64 (devo_tpu's step cannot run under jax_enable_x64), checked
+    against jax.grad; and the port's f32 gradients are held to it within
+    max(1e-3, 2 x the largest gap of jax.grad's f32 gradients from it) of
+    each tensor's largest entry, the rule of chip_smoke.py's reference
+    phase (REF_SPREAD)."""
     s = _ba_inputs(seed)
     n, M = s["n"], s["M"]
     rng = np.random.default_rng(10 + seed)
@@ -233,31 +242,39 @@ def test_differentiable_ba_matches_jax_grad(seed):
     want_out = jstep(*jargs)
     want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*jargs)
 
-    targs = [_t(s[k]).requires_grad_(True) for k in names]
-    p_in, q_in = targs[2].clone(), targs[3].clone()
-    p, q, ok = ba.gauss_newton_step_diff(
-        targs[2], targs[3], _t(s["intr"]), targs[0], targs[1], 1e-4,
-        _idx(s["ii"]), _idx(s["jj"]), _idx(s["kk"]), _t(s["mask"]), t0=1,
-        t1=n, kbase=0, bounds=_t(bounds), **kw)
-    assert bool(ok)
-    ((p * _t(A)).sum() + (q * _t(B)).sum()).backward()
-    # the inputs are untouched: no in-place write
-    assert torch.equal(targs[2].detach(), p_in.detach())
-    assert torch.equal(targs[3].detach(), q_in.detach())
+    def port(dtype):
+        targs = [_t(s[k]).to(dtype).requires_grad_(True) for k in names]
+        p_in, q_in = targs[2].clone(), targs[3].clone()
+        p, q, ok = ba.gauss_newton_step_diff(
+            targs[2], targs[3], _t(s["intr"]).to(dtype), targs[0], targs[1],
+            1e-4, _idx(s["ii"]), _idx(s["jj"]), _idx(s["kk"]), _t(s["mask"]),
+            t0=1, t1=n, kbase=0, bounds=_t(bounds).to(dtype), **kw)
+        assert bool(ok)
+        ((p * _t(A).to(dtype)).sum() + (q * _t(B).to(dtype)).sum()).backward()
+        # the inputs are untouched: no in-place write
+        assert torch.equal(targs[2].detach(), p_in.detach())
+        assert torch.equal(targs[3].detach(), q_in.detach())
+        return p.detach(), q.detach(), targs
 
-    def close(got, w, what):
+    def close(got, w, what, tol=1e-3):
         w = np.asarray(w)
         np.testing.assert_allclose(got, w, rtol=1e-3,
-                                   atol=1e-3 * np.abs(w).max(), err_msg=what)
+                                   atol=tol * np.abs(w).max(), err_msg=what)
 
-    close(p.detach().numpy(), want_out[0], "poses")
-    close(q.detach().numpy(), want_out[1], "patches")
+    p, q, targs = port(torch.float32)
+    close(p.numpy(), want_out[0], "poses")
+    close(q.numpy(), want_out[1], "patches")
     PP = q.shape[1] // 3
-    d = q.detach()[:, 2 * PP:]
+    d = q[:, 2 * PP:]
     assert float(d.min()) >= 1e-3 and float(d.max()) <= 10
-    for name, t, w in zip(names, targs, want):
+    truth = [t.grad.numpy() for t in port(torch.float64)[2]]
+    for name, t, w, g in zip(names, targs, want, truth):
         assert t.grad is not None and torch.isfinite(t.grad).all(), name
-        close(t.grad.numpy(), w, f"d loss / d {name}")
+        spread = float(np.abs(np.asarray(w) - g).max() / np.abs(g).max())
+        # the truth is jax.grad's own, to its f32 rounding: about twice the
+        # largest gap measured (1.21e-3, weight, seed 0)
+        assert spread < 2.5e-3, (name, spread)
+        close(t.grad.numpy(), g, f"d loss / d {name}", max(1e-3, 2 * spread))
 
 
 def test_differentiable_ba_solves_the_tracking_steps_system():

@@ -72,14 +72,27 @@ def test_schedule_is_optaxs_at_every_step(lr, total):
 
 # --------------------------------------------------------------- optimizer
 
-def _jax_step(tx, params, opt_state, grads, loss):
-    """devo_tpu's optimizer half of the train step (trainer.py:124-138)."""
-    nan_cnt = sum(int(jnp.sum(~jnp.isfinite(g))) for g in jax.tree.leaves(grads))
-    grads = jax.tree.map(lambda g: jnp.where(jnp.isfinite(g), g, 0.0), grads)
-    if not np.isfinite(loss):
-        grads = jax.tree.map(jnp.zeros_like, grads)
-    updates, opt_state = tx.update(grads, opt_state, params)
-    return optax.apply_updates(params, updates), opt_state, nan_cnt
+def _jax_step(tx):
+    """devo_tpu's optimizer half of the train step (trainer.py:124-138),
+    compiled as its jitted train step is."""
+    def step(params, opt_state, grads, loss):
+        nan_cnt = jax.tree.reduce(
+            lambda a, b: a + b,
+            jax.tree.map(lambda g: jnp.sum(~jnp.isfinite(g)), grads))
+        grads = jax.tree.map(lambda g: jnp.where(jnp.isfinite(g), g, 0.0),
+                             grads)
+        nan = ~jnp.isfinite(loss)
+        grads = jax.tree.map(lambda g: jnp.where(nan, 0.0, g), grads)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, nan_cnt
+    return jax.jit(step)
+
+
+def _jax_init(net, voxels):
+    """devo_tpu's parameters for `net`, its init compiled (dispatched op by
+    op it takes half a minute on the CPU)."""
+    return jax.jit(net.init)(jax.random.PRNGKey(0), jnp.asarray(voxels[:1]),
+                             jax.random.PRNGKey(1))["params"]
 
 
 def test_optimizer_steps_match_optax():
@@ -90,12 +103,10 @@ def test_optimizer_steps_match_optax():
     moments decay and its weight decay applies). The lr of each step and
     the parameters after each within 1e-6 of the largest entry (f32
     updates of lr size, the same operations in another order)."""
-    net = JNet(**DIMS)
-    voxels = make_inputs()[0]
-    params = net.init(jax.random.PRNGKey(0), jnp.asarray(voxels[:1]),
-                      jax.random.PRNGKey(1))["params"]
+    params = _jax_init(JNet(**DIMS), make_inputs()[0])
     tx, sched = make_optimizer(lr=1e-3, total_steps=200)
     opt_state = tx.init(params)
+    jstep = _jax_step(tx)
     tnet = EVONet(**DIMS)
     tnet.load_state_dict(jax_params_to_state_dict(jax.tree.map(np.asarray, params)))
     tr = Trainer(net=tnet, lr=1e-3, total_steps=200, device="cpu")
@@ -112,8 +123,9 @@ def test_optimizer_steps_match_optax():
             g[-1].flat[-1] = np.inf
         jgrads = jax.tree.unflatten(treedef, [jnp.asarray(a) for a in g])
         assert abs(tr.lr() - float(sched(k))) <= 1e-6 * 1e-3
-        params, opt_state, want_cnt = _jax_step(tx, params, opt_state, jgrads,
-                                                loss)
+        params, opt_state, want_cnt = jstep(params, opt_state, jgrads,
+                                            jnp.float32(loss))
+        want_cnt = int(want_cnt)
         tg = jax_params_to_state_dict(jax.tree.map(np.asarray, jgrads))
         for name, p in tr.net.named_parameters():
             p.grad = tg[name].clone()
