@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import torch
 
+from devo_tpu_torch.utils.timing import span
+
 # calls of corr_pyramid, corr_level and group_surface, of extract_blend_group
 # and of the two tensor paths, counted so a run can show which path it took
 calls = 0
@@ -178,6 +180,7 @@ class _CorrPyramidTrain(torch.autograd.Function):
         return _pyramid(gmap, pyramid, coords, kk, jj, radius, levels)
 
     @staticmethod
+    @span("train.corr.bwd")
     def backward(ctx, grad):
         gmap, coords, kk, jj, keep, *pyramid = ctx.saved_tensors
         with torch.enable_grad():

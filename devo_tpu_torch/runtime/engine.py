@@ -25,9 +25,11 @@ cfg.CORR_IMPL, cfg.CORR_KERNEL and cfg.CORR_L4_RESIDENT choose the
 correlation (ops/corr_cuda.py), by devo_tpu's rules (`ring_i8`,
 `l4_resident`, `_check_corr_knobs`).
 
-The phases carry `torch.profiler.record_function` spans (devo.patchify,
-devo.probe, devo.append, devo.update, devo.keyframe) that a profiler run
-reads per phase; without a profiler they cost a few microseconds a frame.
+The phases carry the tracer's spans (utils/timing.py: devo.patchify,
+devo.probe, devo.append, devo.update, devo.keyframe, and devo.corr around
+the correlation of the update and the probe), which show in a profile taken
+under `timing.trace` or `timing.recording`; with tracing off, the default,
+each is one flag test.
 """
 from __future__ import annotations
 
@@ -35,7 +37,6 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from devo_tpu_torch.data.normalize import normalize
 from devo_tpu_torch.geom import edgewise
@@ -47,6 +48,7 @@ from devo_tpu_torch.ops import corr as corr_ops
 from devo_tpu_torch.ops import corr_cuda
 from devo_tpu_torch.ops.graph import sorted_neighbors
 from devo_tpu_torch.utils.params import load_weights
+from devo_tpu_torch.utils.timing import span
 
 from .config import VOConfig
 
@@ -246,7 +248,7 @@ class DEVO:
 
     # --------------------------------------------------------- edge table
 
-    @record_function("devo.append")
+    @span("devo.append")
     def _append_edges(self, drop: torch.Tensor):
         """Drop the rows `drop` marks, then add the new frame's edges
         (devo.py:361-380): forward edges from the live patches of frames
@@ -286,16 +288,17 @@ class DEVO:
                                  ii, jj, kk)
         coords = edgewise.coords_to_corr_format(geo, cfg.P)
         kk_ring = kk % (M * mem)
-        corr = corr_cuda.corr_pyramid(
-            self.gmap, (self.fmap1, self.fmap2), coords,
-            kk_ring.to(torch.int32), (jj % mem).to(torch.int32),
-            radius=cfg.CORR_RADIUS, levels=cfg.CORR_LEVELS,
-            scales=(self.fsc1, self.fsc2) if self.ring_i8 else None,
-            kernel=cfg.CORR_KERNEL, resident=self.l4_resident,
-            impl=cfg.CORR_IMPL)
+        with span("devo.corr"):
+            corr = corr_cuda.corr_pyramid(
+                self.gmap, (self.fmap1, self.fmap2), coords,
+                kk_ring.to(torch.int32), (jj % mem).to(torch.int32),
+                radius=cfg.CORR_RADIUS, levels=cfg.CORR_LEVELS,
+                scales=(self.fsc1, self.fsc2) if self.ring_i8 else None,
+                kernel=cfg.CORR_KERNEL, resident=self.l4_resident,
+                impl=cfg.CORR_IMPL)
         return geo, corr, self.imap[kk_ring].float()
 
-    @record_function("devo.update")
+    @span("devo.update")
     def _update_once(self):
         """One tracking update: reproject -> corr -> recurrent update -> 2
         Gauss-Newton iterations of BA (devo.py:308-344)."""
@@ -306,16 +309,16 @@ class DEVO:
         geo, corr, ctx = self._edge_features(self.ii, self.jj, self.kk)
         mask = torch.ones_like(self.kk, dtype=torch.bool)
         ix, jx = sorted_neighbors(self.kk, mask)
-        span = cfg.frame_span
-        tmin = max(self.n - span, 0)
+        fspan = cfg.frame_span
+        tmin = max(self.n - fspan, 0)
         kbase = tmin * cfg.M
         kk_seg = (self.kk - kbase).clamp(0, cfg.patch_slots - 1)
-        ij_seg = ((self.ii - tmin).clamp(0, span - 1) * span
-                  + (self.jj - tmin).clamp(0, span - 1))
+        ij_seg = ((self.ii - tmin).clamp(0, fspan - 1) * fspan
+                  + (self.jj - tmin).clamp(0, fspan - 1))
         with self._amp():
             enet, delta, weight = self.net.run_update(
                 self.enet, ctx, corr, ix, jx, kk_seg, cfg.patch_slots,
-                ij_seg, span ** 2, mask)
+                ij_seg, fspan ** 2, mask)
         target = torch.stack([geo.center_x, geo.center_y], -1) + delta
 
         t0 = max(self.n - cfg.OPTIMIZATION_WINDOW, 1) if self.initialized else 1
@@ -329,7 +332,7 @@ class DEVO:
                       ep=1.0, lm=1e-4)
         self.enet = enet.to(self.enet.dtype)
 
-    @record_function("devo.probe")
+    @span("devo.probe")
     def _motion_probe(self) -> float:
         """Throwaway update of the last frame's patches against the new
         frame (devo.py:241-256); returns the median predicted flow norm."""
@@ -349,7 +352,7 @@ class DEVO:
 
     # ----------------------------------------------------------- keyframe
 
-    @record_function("devo.keyframe")
+    @span("devo.keyframe")
     def _keyframe(self) -> StepAux:
         """Keyframing (devo.py:267-306): if the mean flow between frames
         n-KI-1 and n-KI+1 is small, cull frame n-KI."""
@@ -409,7 +412,7 @@ class DEVO:
 
     # --------------------------------------------------------------- step
 
-    @record_function("devo.patchify")
+    @span("devo.patchify")
     def _write_frame(self, voxel: torch.Tensor, intrinsics: torch.Tensor):
         """Patchify the new frame and fill the buffers at slot n
         (devo.py:475-527)."""

@@ -23,6 +23,7 @@ import torch
 
 from devo_tpu_torch import bench
 from devo_tpu_torch.scripts import common
+from devo_tpu_torch.utils import timing
 
 N_PROFILED = 6
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -33,12 +34,13 @@ COPIES = ("cudaMemcpyAsync", "cudaMemcpy")
 
 
 def profile(slam, frames, first: int, intr, dev):
-    """Run `frames` under torch.profiler; returns (key_averages, wall ms)."""
+    """Run `frames` under torch.profiler with the tracer on (the engine's
+    spans show in the profile); returns (key_averages, wall ms)."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with prof_ctx(activities=acts) as prof:
+    with timing.recording(), prof_ctx(activities=acts) as prof:
         t0 = time.perf_counter()
         for i, vox in enumerate(frames):
             slam((first + i) / 30.0, vox, intr)

@@ -27,6 +27,7 @@ from devo_tpu_torch.nets.evonet import EVONet
 from devo_tpu_torch.train.__main__ import _make_batch
 from devo_tpu_torch.train.synthetic import SyntheticClips
 from devo_tpu_torch.train.trainer import Trainer
+from devo_tpu_torch.utils import timing
 from devo_tpu_torch.utils.params import random_state_dict
 
 from . import common
@@ -90,14 +91,16 @@ def run(dataset, device=None, remat: bool = True, steps: int = 3,
 
 def profile_step(tr: Trainer, batch, structure_only: bool = False,
                  rows: int = 15) -> list:
-    """One train step under torch.profiler: its `rows` operations of the
-    largest self time on the device (the host's on the CPU), each [name,
-    ms, calls], and the step's whole device time as ["(all)", ms, calls]."""
+    """One train step under torch.profiler with the tracer on, so that the
+    step's spans show in the profile: its `rows` operations of the largest
+    self time on the device (the host's on the CPU), each [name, ms, calls],
+    and the step's whole device time as ["(all)", ms, calls]; the spans are
+    no operations and are left out of both."""
     cuda = tr.device.type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with timing.recording(), torch.profiler.profile(activities=acts) as prof:
         tr.train_step(batch, structure_only)
         if cuda:
             torch.cuda.synchronize(tr.device)
@@ -109,7 +112,8 @@ def profile_step(tr: Trainer, batch, structure_only: bool = False,
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    events = [e for e in prof.key_averages() if self_us(e) > 0]
+    events = [e for e in prof.key_averages()
+              if self_us(e) > 0 and not e.is_user_annotation]
     events.sort(key=lambda e: -self_us(e))
     total = sum(self_us(e) for e in events) / 1e3
     return ([["(all)", total, sum(e.count for e in events)]]

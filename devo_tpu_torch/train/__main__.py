@@ -16,6 +16,7 @@ under torchrun). `--batch` is the batch of one process.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import queue
 import threading
@@ -139,6 +140,7 @@ def main(argv=None):
     from devo_tpu_torch.runtime.engine import resolve_device
     from devo_tpu_torch.train.trainer import Trainer, init_distributed
     from devo_tpu_torch.train.validate import validate_tartan_evs
+    from devo_tpu_torch.utils import timing
     from devo_tpu_torch.utils.logger import Logger
     from devo_tpu_torch.utils.params import random_state_dict, warm_start
 
@@ -213,8 +215,11 @@ def main(argv=None):
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.__enter__()
+            # the tracer on inside the profile: the step's spans show in it
+            profiling = contextlib.ExitStack()
+            profiling.enter_context(timing.recording())
+            prof = profiling.enter_context(
+                torch.profiler.profile(activities=acts))
         batch = {k: torch.from_numpy(np.ascontiguousarray(v))
                  for k, v in next(loader).items()}
         # structure-only warmup for the first 1k steps (train.py:160)
@@ -228,7 +233,7 @@ def main(argv=None):
                 + f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
         if prof is not None and step - start + 1 == (args.profile_at
                                                     + args.profile_steps):
-            prof = _finish_profile(prof, prof_dir, device, lead)
+            prof = _finish_profile(prof, profiling, prof_dir, device, lead)
         if lead and (step + 1) % args.ckpt_every == 0:
             path = os.path.abspath(os.path.join(
                 args.ckpt_dir, args.name, f"{step + 1:06d}.pth"))
@@ -239,17 +244,18 @@ def main(argv=None):
             run_validation(step + 1)
 
     if prof is not None:     # the run ended inside the profiled steps
-        _finish_profile(prof, prof_dir, device, lead)
+        _finish_profile(prof, profiling, prof_dir, device, lead)
     if logger is not None:
         logger.close()       # flush the tail metrics
     if world > 1:
         torch.distributed.destroy_process_group()
 
 
-def _finish_profile(prof, prof_dir: str, device, lead: bool):
+def _finish_profile(prof, profiling: contextlib.ExitStack, prof_dir: str,
+                    device, lead: bool):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    prof.__exit__(None, None, None)
+    profiling.close()
     if lead:
         os.makedirs(prof_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))

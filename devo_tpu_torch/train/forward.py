@@ -16,6 +16,12 @@ values and recomputes the rest. Every random draw goes through one `Draws`
 object, one method a draw; a draw the checkpointed chain needs (the
 correlation's keep mask) is made outside it, since a recompute cannot
 replay an explicit generator.
+
+The tracer's spans (utils/timing.py) mark train.patchify, train.schedule
+and each train.iter, with train.edges, train.corr, train.update, train.ba
+and train.reproject under it; remat's recompute runs the middle three
+again with `recompute=True`. Each copy from the host goes through
+`timing.upload`, one `host_waits` each.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from devo_tpu_torch.lie import se3
 from devo_tpu_torch.ops import ba as ba_ops
 from devo_tpu_torch.ops import corr as corr_ops
 from devo_tpu_torch.ops.graph import neighbors
+from devo_tpu_torch.utils.timing import span, upload
 
 DROP_PROB = 0.1      # the chance of dropping frame n-4's edges for a step
 
@@ -87,7 +94,7 @@ class Draws:
         self.device = torch.device(device or "cpu")
 
     def _to(self, t):
-        return t.to(self.device)
+        return upload(t, self.device)
 
     def augment(self):
         """randaug's (augment?, op index, strength bin)."""
@@ -172,15 +179,16 @@ def evonet_forward(net, voxels: torch.Tensor, poses_gt: torch.Tensor,
     intr4 = intrinsics / 4.0
     disps4 = disps[:, 1::4, 1::4]
 
-    out = net.run_patchify(voxels, ppi, training=True, disps=disps4,
-                           candidates=draws.candidates, coords=draws.coords)
+    with span("train.patchify"):
+        out = net.run_patchify(voxels, ppi, training=True, disps=disps4,
+                               candidates=draws.candidates,
+                               coords=draws.coords)
+        patches_gt = out["patches"].reshape(-1, 3, P, P)  # (n*ppi, 3, P, P)
+        M = patches_gt.shape[0]
+        # random initial depths (enet.py:294-295)
+        d0 = draws.depths(M).to(patches_gt.dtype)
     fmap, gmap, imap = out["fmap"], out["gmap"], out["imap"]
-    patches_gt = out["patches"].reshape(-1, 3, P, P)      # (n*ppi, 3, P, P)
     scores = out["scores"]                                # (n, ppi) or None
-    M = patches_gt.shape[0]
-
-    # random initial depths (enet.py:294-295)
-    d0 = draws.depths(M).to(patches_gt.dtype)
     patches = torch.cat([patches_gt[:, :2],
                          d0[:, None, None, None].expand(M, 1, P, P)], 1)
 
@@ -193,12 +201,14 @@ def evonet_forward(net, voxels: torch.Tensor, poses_gt: torch.Tensor,
     pyramid = (fmap, fmap2)
 
     intr_all = intr4[None].expand(n_frames, 4)
-    sched = build_edge_schedule(n_frames, ppi, steps, grow_after=grow_after)
+    with span("train.schedule"):
+        sched = build_edge_schedule(n_frames, ppi, steps,
+                                    grow_after=grow_after)
 
     Gs = se3.identity((n_frames,), dtype=poses_gt.dtype, device=dev)
     if structure_only:
         Gs = poses_gt
-    bounds = torch.tensor([-64.0, -64.0, w4 + 64.0, h4 + 64.0], device=dev)
+    bounds = upload([-64.0, -64.0, w4 + 64.0, h4 + 64.0], dev)
 
     traj = []
     dim_inet = imap_flat.shape[-1]
@@ -206,73 +216,87 @@ def evonet_forward(net, voxels: torch.Tensor, poses_gt: torch.Tensor,
     emask_np = np.ones((len(sched[0].ii),), bool)
 
     for s, es in enumerate(sched):
-        Gs = Gs.detach()
-        patches = patches.detach()
+        with span("train.iter", s=s):
+            Gs = Gs.detach()
+            patches = patches.detach()
+            with span("train.edges"):
+                E = len(es.ii)
+                ii = upload(es.ii, dev).long()
+                jj = upload(es.jj, dev).long()
+                kk = upload(es.kk, dev).long()
 
-        E = len(es.ii)
-        ii = torch.as_tensor(es.ii, device=dev).long()
-        jj = torch.as_tensor(es.jj, device=dev).long()
-        kk = torch.as_tensor(es.kk, device=dev).long()
+                if es.added_frame >= 0:
+                    nf = es.added_frame
+                    if not structure_only:
+                        Gs = Gs.clone()
+                        Gs[nf] = Gs[nf - 1]
+                    net_state = torch.cat([
+                        torch.zeros((es.new_edges, dim_inet), device=dev),
+                        net_state])
+                    emask_np = np.concatenate([np.ones(es.new_edges, bool),
+                                               emask_np])
+                    # 10%: this step drops the edges touching frame n-4
+                    touches = (es.ii == nf - 4) | (es.jj == nf - 4)
+                    step_mask = emask_np & ~(draws.drop(s) & touches)
+                    patches = _median_init(patches, ppi, nf)
+                else:
+                    step_mask = emask_np
+                emask = upload(step_mask, dev)
 
-        if es.added_frame >= 0:
-            nf = es.added_frame
-            if not structure_only:
-                Gs = Gs.clone()
-                Gs[nf] = Gs[nf - 1]
-            net_state = torch.cat([torch.zeros((es.new_edges, dim_inet),
-                                               device=dev), net_state])
-            emask_np = np.concatenate([np.ones(es.new_edges, bool), emask_np])
-            # 10%: this step drops the edges touching frame n-4
-            touches = (es.ii == nf - 4) | (es.jj == nf - 4)
-            step_mask = emask_np & ~(draws.drop(s) & touches)
-            patches = _median_init(patches, ppi, nf)
-        else:
-            step_mask = emask_np
-        emask = torch.as_tensor(step_mask, device=dev)
+                ixn, jxn = neighbors(kk, jj, emask)
+                _, ij_seg = np.unique(
+                    es.ii.astype(np.int64) * n_frames + es.jj,
+                    return_inverse=True)
+                nseg_ij = int(ij_seg.max()) + 1
+                ij_seg = upload(ij_seg.reshape(-1), dev).long()
+                n_act = es.n_active_frames
+                keep = draws.keep(s, E, corr_dropout)
+            calls = []      # one_step's runs: a second is remat's recompute
 
-        ixn, jxn = neighbors(kk, jj, emask)
-        _, ij_seg = np.unique(es.ii.astype(np.int64) * n_frames + es.jj,
-                              return_inverse=True)
-        nseg_ij = int(ij_seg.max()) + 1
-        ij_seg = torch.as_tensor(ij_seg.reshape(-1), device=dev).long()
-        n_act = es.n_active_frames
-        keep = draws.keep(s, E, corr_dropout)
+            def one_step(Gs, patches, net_state, ii=ii, jj=jj, kk=kk,
+                         emask=emask, ixn=ixn, jxn=jxn, ij_seg=ij_seg,
+                         nseg_ij=nseg_ij, n_act=n_act, keep=keep, calls=calls):
+                again = bool(calls)
+                calls.append(again)
+                coords = pops.transform(Gs, patches, intr_all, ii, jj, kk)
+                with span("train.corr", recompute=again):
+                    corr_feat = corr_ops.corr_pyramid_train(
+                        gmap_flat, pyramid, coords, kk, jj,
+                        dropout=corr_dropout, radius=3, levels=(1, 4),
+                        keep=keep)
+                with span("train.update", recompute=again):
+                    net_state2, delta, weight = net.run_update(
+                        net_state, imap_flat[kk], corr_feat, ixn, jxn, kk, M,
+                        ij_seg, nseg_ij, emask)
+                with span("train.ba", recompute=again):
+                    target = coords[:, P // 2, P // 2, :] + delta
+                    weight_m = torch.where(emask[:, None], weight,
+                                           torch.zeros_like(weight))
+                    flat = patches.reshape(M, -1)
+                    for _ in range(2):
+                        Gs, flat, _ = ba_ops.gauss_newton_step_diff(
+                            Gs, flat, intr_all, target, weight_m, 1e-4, ii, jj,
+                            kk, emask, t0=1, t1=n_act, kbase=0,
+                            window=n_frames - 1, patch_slots=M, bounds=bounds,
+                            max_residual=250.0, ep=10.0, lm=1e-4,
+                            structure_only=structure_only)
+                return Gs, flat.reshape(M, 3, P, P), net_state2, weight
 
-        def one_step(Gs, patches, net_state, ii=ii, jj=jj, kk=kk, emask=emask,
-                     ixn=ixn, jxn=jxn, ij_seg=ij_seg, nseg_ij=nseg_ij,
-                     n_act=n_act, keep=keep):
-            coords = pops.transform(Gs, patches, intr_all, ii, jj, kk)
-            corr_feat = corr_ops.corr_pyramid_train(
-                gmap_flat, pyramid, coords, kk, jj, dropout=corr_dropout,
-                radius=3, levels=(1, 4), keep=keep)
-            net_state2, delta, weight = net.run_update(
-                net_state, imap_flat[kk], corr_feat, ixn, jxn, kk, M, ij_seg,
-                nseg_ij, emask)
-            target = coords[:, P // 2, P // 2, :] + delta
-            weight_m = torch.where(emask[:, None], weight,
-                                   torch.zeros_like(weight))
-            flat = patches.reshape(M, -1)
-            for _ in range(2):
-                Gs, flat, _ = ba_ops.gauss_newton_step_diff(
-                    Gs, flat, intr_all, target, weight_m, 1e-4, ii, jj, kk,
-                    emask, t0=1, t1=n_act, kbase=0, window=n_frames - 1,
-                    patch_slots=M, bounds=bounds, max_residual=250.0,
-                    ep=10.0, lm=1e-4, structure_only=structure_only)
-            return Gs, flat.reshape(M, 3, P, P), net_state2, weight
+            if remat:
+                Gs, patches, net_state, weight = checkpoint(
+                    one_step, Gs, patches, net_state, use_reentrant=False)
+            else:
+                Gs, patches, net_state, weight = one_step(Gs, patches,
+                                                          net_state)
 
-        if remat:
-            Gs, patches, net_state, weight = checkpoint(
-                one_step, Gs, patches, net_state, use_reentrant=False)
-        else:
-            Gs, patches, net_state, weight = one_step(Gs, patches, net_state)
-
-        coords_est = pops.transform(Gs, patches, intr_all, ii, jj, kk)
-        coords_gt, valid_gt = pops.transform(poses_gt, patches_gt, intr_all,
-                                             ii, jj, kk, valid=True)
-        traj.append({
-            "coords": coords_est, "coords_gt": coords_gt,
-            "valid": valid_gt * emask, "ii": es.ii, "jj": es.jj, "kk": es.kk,
-            "emask": emask, "weight": weight, "Gs": Gs[:n_act],
-            "Ps": poses_gt[:n_act], "scores": scores,
-        })
+            with span("train.reproject"):
+                coords_est = pops.transform(Gs, patches, intr_all, ii, jj, kk)
+                coords_gt, valid_gt = pops.transform(
+                    poses_gt, patches_gt, intr_all, ii, jj, kk, valid=True)
+            traj.append({
+                "coords": coords_est, "coords_gt": coords_gt,
+                "valid": valid_gt * emask, "ii": es.ii, "jj": es.jj,
+                "kk": es.kk, "emask": emask, "weight": weight,
+                "Gs": Gs[:n_act], "Ps": poses_gt[:n_act], "scores": scores,
+            })
     return traj

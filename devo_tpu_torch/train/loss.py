@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from devo_tpu_torch.lie import se3
+from devo_tpu_torch.utils.timing import upload
 
 
 def _safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -45,8 +46,7 @@ def _pixel_error(step: Dict[str, Any]) -> torch.Tensor:
 
 def _edge_mask(step: Dict[str, Any], max_dij: int) -> torch.Tensor:
     dij = np.abs(step["ii"] - step["jj"])
-    near = torch.as_tensor((dij > 0) & (dij <= max_dij),
-                           device=step["emask"].device)
+    near = upload((dij > 0) & (dij <= max_dij), step["emask"].device)
     return (step["valid"] > 0.5) & near & step["emask"]
 
 
@@ -64,8 +64,8 @@ def pose_loss_step(step: Dict[str, Any]) -> torch.Tensor:
     N = Gs.shape[0]
     ii, jj = np.meshgrid(np.arange(N), np.arange(N), indexing="ij")
     k = ii.reshape(-1) != jj.reshape(-1)
-    ii = torch.as_tensor(ii.reshape(-1)[k], device=Gs.device)
-    jj = torch.as_tensor(jj.reshape(-1)[k], device=Gs.device)
+    ii = upload(ii.reshape(-1)[k], Gs.device)
+    jj = upload(jj.reshape(-1)[k], Gs.device)
 
     with torch.no_grad():
         s = kabsch_umeyama_scale(Ps[:, :3], Gs[:, :3]).clamp(max=10.0)
@@ -83,7 +83,7 @@ def scorer_loss_step(step: Dict[str, Any], P: int) -> torch.Tensor:
     """Score supervision on the last step (train.py:189-203)."""
     valid = _edge_mask(step, 16)
     ef = _pixel_error(step)
-    kk = torch.as_tensor(step["kk"], device=ef.device).long()
+    kk = upload(step["kk"], ef.device).long()
     sc = step["scores"].reshape(-1)[kk]
     w_ba = step["weight"].mean(-1).detach()
     mod = -0.5 * torch.log(w_ba.clamp_min(1e-12)) + 1.0

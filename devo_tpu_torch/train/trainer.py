@@ -10,7 +10,9 @@ the batch (each sample with its own draws) and their mean's gradient,
 all-reduced over the processes; every non-finite gradient entry counted
 (`grad_nonfinite`) and set to 0, every gradient set to 0 if the loss is not
 finite; the clip; the AdamW step, taken with zero gradients too, as optax
-takes it.
+takes it. The step is the tracer's `train.step` span (utils/timing.py),
+with train.forward, train.loss, train.backward, train.optimizer
+(train.sanitize, train.clip, train.adamw) and train.readout under it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch.nn as nn
 
 from devo_tpu_torch.nets.evonet import EVONet
 from devo_tpu_torch.runtime.engine import resolve_device
+from devo_tpu_torch.utils.timing import read, span
 
 from .forward import Draws, evonet_forward
 from .loss import total_loss
@@ -86,16 +89,20 @@ class _Sample(nn.Module):
     def forward(self, voxels, poses, disps, intrinsics, draws: Draws,
                 structure_only: bool):
         t = self.trainer
-        traj = evonet_forward(
-            self.net, voxels, poses, disps, intrinsics, draws,
-            steps=t.steps_unrolled, ppi=t.ppi, structure_only=structure_only,
-            randaug_on=t.randaug, grow_after=t.grow_after,
-            corr_dropout=t.corr_dropout, remat=t.remat)
+        with span("train.forward"):
+            traj = evonet_forward(
+                self.net, voxels, poses, disps, intrinsics, draws,
+                steps=t.steps_unrolled, ppi=t.ppi,
+                structure_only=structure_only, randaug_on=t.randaug,
+                grow_after=t.grow_after, corr_dropout=t.corr_dropout,
+                remat=t.remat)
         # the gradient and random selectors emit no score maps: the scorer
         # loss is the scorer selector's alone (enet.py:193-195)
-        return total_loss(traj, P=self.net.P, structure_only=structure_only,
-                          use_scorer=self.net.patchify.patch_selector == "scorer",
-                          **t.weights)
+        with span("train.loss"):
+            return total_loss(
+                traj, P=self.net.P, structure_only=structure_only,
+                use_scorer=self.net.patchify.patch_selector == "scorer",
+                **t.weights)
 
 
 class Trainer:
@@ -166,7 +173,8 @@ class Trainer:
             last = i == B - 1 or not self.distributed
             with contextlib.nullcontext() if last else self.model.no_sync():
                 out = self.model(*args, draws, structure_only)
-                (out["loss"] / (B * self.world)).backward()
+                with span("train.backward"):
+                    (out["loss"] / (B * self.world)).backward()
             for k in METRICS:
                 sums[k] = sums[k] + out[k].detach()
         means = {k: v / B for k, v in sums.items()}
@@ -180,32 +188,38 @@ class Trainer:
                    structure_only: bool = False) -> Dict[str, float]:
         """One optimizer step on the batch. Returns the mean losses and
         grad_nonfinite, the count of non-finite gradient entries."""
-        self.opt.zero_grad(set_to_none=False)
-        means = self.losses(batch, structure_only)
-        nonfinite = self.apply_gradients(means["loss"])
-        metrics = {k: float(v) for k, v in means.items()}
-        metrics["grad_nonfinite"] = int(nonfinite)
+        with span("train.step", step=self.step):
+            self.opt.zero_grad(set_to_none=False)
+            means = self.losses(batch, structure_only)
+            nonfinite = self.apply_gradients(means["loss"])
+            with span("train.readout"):
+                metrics = {k: read(v) for k, v in means.items()}
+                metrics["grad_nonfinite"] = read(nonfinite)
         return metrics
 
+    @span("train.optimizer")
     def apply_gradients(self, loss: torch.Tensor) -> torch.Tensor:
         """The optimizer step on the network's gradients, in devo_tpu's
         order: count and zero the non-finite entries, zero everything if
         `loss` is not finite, clip, AdamW (with zero gradients too). Returns
         the count of non-finite entries."""
-        grads = []
-        for p in self.net.parameters():
-            if p.grad is None:          # a parameter the loss does not reach
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        finite = [torch.isfinite(g) for g in grads]
-        nonfinite = sum((~f).sum() for f in finite)
-        loss_ok = torch.isfinite(loss)
-        with torch.no_grad():
-            for g, f in zip(grads, finite):
-                g.copy_(torch.where(f & loss_ok, g, torch.zeros_like(g)))
+        with span("train.sanitize"):
+            grads = []
+            for p in self.net.parameters():
+                if p.grad is None:      # a parameter the loss does not reach
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            finite = [torch.isfinite(g) for g in grads]
+            nonfinite = sum((~f).sum() for f in finite)
+            loss_ok = torch.isfinite(loss)
+            with torch.no_grad():
+                for g, f in zip(grads, finite):
+                    g.copy_(torch.where(f & loss_ok, g, torch.zeros_like(g)))
+        with span("train.clip"), torch.no_grad():
             clip_by_global_norm(grads, CLIP)
-        self.opt.step()
-        self.sched.step()
+        with span("train.adamw"):
+            self.opt.step()
+            self.sched.step()
         self.step += 1
         return nonfinite
 

@@ -445,6 +445,8 @@ def test_train_drivers_run_at_a_tiny_size_on_the_cpu(capsys, two_threads):
         assert r["finite"] and r["params_changed"] and r["card"] == "cpu"
         assert r["grad_nonfinite"] == [0, 0] and len(r["steps_ms"]) == 2
         assert r["top_ops"][0][0] == "(all)" and len(r["top_ops"]) > 5
+        # the tracer's spans show in the profile but are no operations
+        assert not any(n.startswith("train.") for n, _, _ in r["top_ops"])
     rc = train_stability.main(["--device", "cpu", "--steps", "6", "--height",
                                "48", "--width", "64"])
     out = json.loads(capsys.readouterr().out.splitlines()[-1])

@@ -261,7 +261,8 @@ def test_train_cli_two_steps_checkpoint_and_resume(tree, tmp_path):
     """`python -m devo_tpu_torch.train --device cpu` on the fake tree: 2
     steps (the structure-only warmup, randaug), a checkpoint at step 2 and
     a validation round on the tree's scene; then a resume from that
-    checkpoint to step 3."""
+    checkpoint to step 3, profiled, whose Chrome trace holds the train
+    step's spans."""
     common = ["--device", "cpu", "--datapath", str(tree), "--name", "t",
               "--iters", "3", "--n_frames", "5", "--crop_size", "48", "64",
               "--patches_per_image", "4", "--dim_inet", "32", "--dim_fnet",
@@ -278,9 +279,15 @@ def test_train_cli_two_steps_checkpoint_and_resume(tree, tmp_path):
     assert "[val @ 2]" in res.stdout and "val/ate_mean" in res.stdout
     assert "step 2:" in res.stdout and "grad_nonfinite 0" in res.stdout
     assert (tmp_path / "runs" / "t").is_dir()
-    res = _run(common + ["--steps", "3", "--checkpoint", str(path)], tmp_path)
+    res = _run(common + ["--steps", "3", "--checkpoint", str(path),
+                         "--profile", "--profile_at", "0", "--profile_steps",
+                         "1"], tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "step 3:" in res.stdout and "step 1:" not in res.stdout
+    trace = tmp_path / "runs" / "t" / "profile" / "trace.json"
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"train.step", "train.forward", "train.iter", "train.backward",
+            "train.optimizer"} <= names
 
 
 def test_train_cli_refuses_the_cpu_unasked(tree, tmp_path):

@@ -8,16 +8,15 @@ copy of devo_tpu/utils/viz.py) against devo_tpu's, and utils/timing.py
   the same files as devo_tpu's, by name (matplotlib's PNG bytes are not
   compared: they carry the figure's text through font caches of the
   process).
-- timing: Timer keeps and prints its sections, `summarize` averages them,
-  `named_scope` is a record_function span, and `trace` writes a Chrome
-  trace of a small CPU engine that holds the engine's devo.update span.
+- timing: `trace` writes a Chrome trace of a small CPU engine that holds
+  the engine's spans (devo.update, devo.corr inside it) and the caller's
+  own `span` (the tracer's other tests: tests/test_torch_tracing.py).
 """
 import json
 import os
 
 import numpy as np
 import pytest
-import torch
 
 from devo_tpu.utils import viz as jviz
 from devo_tpu_torch.utils import timing, viz
@@ -105,36 +104,22 @@ def test_plots_write_devo_tpus_files(tmp_path, voxel):
     assert all(os.path.getsize(tmp_path / "port" / f) > 100 for f in got)
 
 
-def test_timer_and_summarize(capsys):
-    timing.all_times.clear()
-    x = torch.ones(4)
-    for _ in range(2):
-        with timing.Timer("sec", sync=x):
-            x = x + 1
-    with timing.Timer("off", enabled=False):
-        pass
-    assert len(timing.all_times["sec"]) == 2 and "off" not in timing.all_times
-    assert timing.summarize()["sec"] == pytest.approx(
-        sum(timing.all_times["sec"]) / 2)
-    assert capsys.readouterr().out.count("sec ") == 2
-    timing._sync(torch.device("cpu"))        # nothing to wait for
-
-
 def test_trace_holds_the_engines_spans(tmp_path):
     """timing.trace around the ninth frame of a small CPU engine (one
-    update after the initialization): the Chrome trace names devo.update
-    and a span of the caller's own."""
+    update after the initialization): the Chrome trace names devo.update,
+    devo.corr and a span of the caller's own."""
     slam = engine()
     *first, last = make_frames(9)
     for i, f in enumerate(first):
         slam(float(i), f, INTR)
     assert slam.initialized
     with timing.trace(str(tmp_path)) as prof:
-        with timing.named_scope("caller.frame"):
+        with timing.span("caller.frame"):
             slam(8.0, last, INTR)
     names = {e.key for e in prof.key_averages()}
-    assert {"devo.update", "caller.frame"} <= names
+    assert {"devo.update", "devo.corr", "caller.frame"} <= names
     (path,) = list(tmp_path.glob("*.pt.trace.json"))
     events = json.loads(path.read_text())["traceEvents"]
     spans = {e.get("name") for e in events}
-    assert {"devo.update", "devo.patchify", "caller.frame"} <= spans
+    assert {"devo.update", "devo.corr", "devo.patchify",
+            "caller.frame"} <= spans
